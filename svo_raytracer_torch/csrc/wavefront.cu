@@ -1,0 +1,74 @@
+// Kernel K1: the brick-wavefront traversal, one thread per ray.
+//
+// Replaces svo_raytracer_tpu/ops/wavefront.py::_wf_kernel (the Pallas
+// round kernel, launched by _call_kernel's pl.pallas_call) for flat L0
+// worlds (G <= 32) and explicit rays.  The per-ray body is wf_ray.cuh.
+//
+// What bounds it on Hopper: each DDA step is a dependent load of a table
+// word (L0 coarse/byte words, a brick's coarse and byte-cell words), so a
+// thread waits on L2 latency every step; the tables of a 1024^3 world
+// (~4.5 KB per mixed brick plus the L0 rows, ~20 MB) fit the 50 MB L2.
+// Rays of one warp take different numbers of steps and crossings, so
+// warps diverge and idle lanes wait for the longest ray.  This first
+// version does nothing about either: no ray sorting, no persistent
+// threads, no staging in shared memory.
+//
+// Built by ops/kernel_build.py with nvcc -gencode arch=compute_90a,
+// code=sm_90a -O3 -fmad=false into a shared library with a plain C entry
+// point; ops/wavefront.py binds it with ctypes and launches it on
+// PyTorch's current stream.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "wf_ray.cuh"
+
+namespace {
+
+__global__ void __launch_bounds__(128)
+wf_trace_kernel(wf::Tables T, const float* __restrict__ origins,
+                const float* __restrict__ dirs,
+                const uint8_t* __restrict__ alive, int n,
+                int32_t* __restrict__ status, float* __restrict__ t,
+                int32_t* __restrict__ cell, int32_t* __restrict__ widx,
+                int32_t* __restrict__ iters) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const wf::RayOut r = wf::trace_ray(
+      T, origins[3 * i], origins[3 * i + 1], origins[3 * i + 2],
+      dirs[3 * i], dirs[3 * i + 1], dirs[3 * i + 2], alive[i] != 0);
+  status[i] = r.status;
+  t[i] = r.t;
+  cell[i] = r.cell;
+  widx[i] = r.widx;
+  iters[i] = r.iters;
+}
+
+}  // namespace
+
+// origins: (n, 3) f32 voxel-unit ray origins; dirs: (n, 3) f32 directions
+// (clamped inside); alive: (n,) u8.  Outputs (n,) each.  Returns the
+// cudaError_t of the launch (0 on success).
+extern "C" int wf_trace(const int32_t* l0_occ, const int32_t* l0_mixed,
+                        const int32_t* l0_sc, const int32_t* brick_slot,
+                        const int32_t* occ_words, const int32_t* sc_words,
+                        int G, int l0_coarse_base, const float* origins,
+                        const float* dirs, const uint8_t* alive, int n,
+                        int32_t* status, float* t, int32_t* cell,
+                        int32_t* widx, int32_t* iters, void* stream) {
+  if (n <= 0) return 0;
+  wf::Tables T;
+  T.l0_occ = l0_occ;
+  T.l0_mixed = l0_mixed;
+  T.l0_sc = l0_sc;
+  T.brick_slot = brick_slot;
+  T.occ_words = occ_words;
+  T.sc_words = sc_words;
+  T.G = G;
+  T.l0_coarse_base = l0_coarse_base;
+  const int threads = 128;
+  const int blocks = (n + threads - 1) / threads;
+  wf_trace_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      T, origins, dirs, alive, n, status, t, cell, widx, iters);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,380 @@
+// Kernel K1, per-ray body: the brick-wavefront traversal of one ray.
+//
+// Replaces the per-lane arithmetic of svo_raytracer_tpu/ops/wavefront.py
+// ::_wf_kernel (its `crossing`, :1252-1423) and the coarse-refine DDA
+// `_dda_cr` (:645-883) for flat L0 worlds (G <= 32) and explicit rays.
+// The TPU kernel advances 1024-ray tiles in sorted rounds against KMAX
+// prefetched candidate bricks, because Mosaic has no arbitrary gather.
+// Here one thread owns one ray and loads any table word it needs, looping
+// crossings until the ray hits, misses or passes ITER_CAP — the per-ray
+// answer the TPU's serve loop computes (wavefront.py:1479-1534).
+//
+// Plain C types only, `__host__ __device__` throughout: the CUDA kernel
+// (wavefront.cu) and a g++ build for the CPU parity test include the same
+// code.  The plain PyTorch version is ops/wavefront.py::trace_plain; keep
+// the arithmetic in the same order (no fused multiply-add: nvcc builds
+// with -fmad=false, g++ with -ffp-contract=off).
+#pragma once
+
+#include <math.h>
+#include <stdint.h>
+
+namespace wf {
+
+constexpr int32_t KEY_INIT = -2;     // ray not yet L0-marched (start / stuck)
+constexpr float EXIT_EPS = 1e-2f;    // voxel-unit nudge across brick boundaries
+constexpr float DIR_EPS = 1e-4f;     // |d| floor before 1/d (wavefront.py:134)
+constexpr int ITER_CAP = 4000;       // per-ray coarse-step kill switch
+constexpr int MAX_CROSSINGS = 4096;  // termination guard on crossings
+constexpr int INNER_CAP = 100;       // phase-1 step budget (_resolve_caps)
+
+enum : int32_t { MISS = 0, MIXED = 1, UNIFORM = 2, CAPPED = 3 };
+
+struct Tables {
+  const int32_t* l0_occ;      // L0 byte-cell words, then coarse-bit words
+  const int32_t* l0_mixed;    // mixed-brick bits: word x*G + y, bit z
+  const int32_t* l0_sc;       // supercell chebyshev-distance nibbles
+  const int32_t* brick_slot;  // (G^3,) mixed slot or -1
+  const int32_t* occ_words;   // (capacity, 1024) brick byte-cell words
+  const int32_t* sc_words;    // (capacity, 128) brick coarse-bit words
+  int G;                      // bricks per edge
+  int l0_coarse_base;         // word offset of the L0 coarse-bit rows
+};
+
+struct RayOut {
+  int32_t status;  // MISS, MIXED, UNIFORM or CAPPED
+  float t;         // voxel units: hit entry t, 0 on miss, march t if capped
+  int32_t cell;    // hit brick cell (bx*G + by)*G + bz
+  int32_t widx;    // hit voxel within the brick (vx*32 + vy)*32 + vz
+  int32_t iters;   // coarse DDA steps over both phases
+};
+
+struct DdaOut {
+  bool hit;
+  int ix, iy, iz;  // fine cell of the hit, or 2x the last coarse cell
+  float t;         // entry t of the hit fine cell, else how far it got
+  bool inside;     // still inside the grid (budget spent, not exited)
+  int steps;
+};
+
+__host__ __device__ inline int clampi(int x, int lo, int hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+
+__host__ __device__ inline float clamp_dir(float d) {
+  return fabsf(d) < DIR_EPS ? (d >= 0.0f ? DIR_EPS : -DIR_EPS) : d;
+}
+
+// 32^3 mixed brick: 16^3 coarse any-bits (128 words) and byte-cell words
+// (byte c&3 of word c>>2 holds coarse cell c's eight fine bits).
+struct BrickProbe {
+  const int32_t* occ;
+  const int32_t* sc;
+  __host__ __device__ bool coarse(int cx, int cy, int cz) const {
+    int c = (cx * 16 + cy) * 16 + cz;
+    return (((uint32_t)sc[c >> 5] >> (c & 31)) & 1u) != 0;
+  }
+  __host__ __device__ uint32_t fine_byte(int cx, int cy, int cz) const {
+    int c = (cx * 16 + cy) * 16 + cz;
+    return ((uint32_t)occ[c >> 2] >> ((c & 3) * 8)) & 0xFFu;
+  }
+  __host__ __device__ int sc_dist(int, int, int) const { return 0; }
+};
+
+// The L0 brick grid: same coarse-refine layout over occupied bricks, plus
+// the supercell (8^3-brick) distance nibbles.
+struct L0Probe {
+  const Tables* T;
+  int hh;   // coarse cells per edge (G/2, at least 1)
+  int nsc;  // supercells per edge (G/8)
+  __host__ __device__ bool coarse(int cx, int cy, int cz) const {
+    int c = (cx * hh + cy) * hh + cz;
+    return (((uint32_t)T->l0_occ[T->l0_coarse_base + (c >> 5)] >> (c & 31))
+            & 1u) != 0;
+  }
+  __host__ __device__ uint32_t fine_byte(int cx, int cy, int cz) const {
+    int c = (cx * hh + cy) * hh + cz;
+    return ((uint32_t)T->l0_occ[c >> 2] >> ((c & 3) * 8)) & 0xFFu;
+  }
+  __host__ __device__ int sc_dist(int sx, int sy, int sz) const {
+    int b = (sx * nsc + sy) * nsc + sz;
+    return (int)(((uint32_t)T->l0_sc[b >> 3] >> ((b & 7) * 4)) & 0xFu);
+  }
+};
+
+// Coarse-refine DDA over an n^3 grid of `cell`-edge fine cells in
+// [0, n*cell]^3 (wavefront.py::_dda_cr): steps at 2x2x2-fine-cell coarse
+// granularity, refines occupied coarse cells with an unrolled <=4-step
+// sub-DDA over their fine bits, and (use_sc) jumps empty supercells by
+// their chebyshev distance in one step.  Ties break x first, then y.
+template <class Probe>
+__host__ __device__ inline DdaOut dda_cr(
+    float px, float py, float pz, float dxc, float dyc, float dzc,
+    float inv_x, float inv_y, float inv_z, int n, float cell,
+    const Probe& probe, int max_steps, bool use_sc) {
+  const int n2 = n / 2 > 1 ? n / 2 : 1;
+  const float cell2 = 2.0f * cell;
+  const float gf = (float)n * cell;
+  const float eps_c = 1e-4f * cell;
+  const float eps_c2 = 1e-4f * cell2;
+  const float t1x = (0.0f - px) * inv_x, t2x = (gf - px) * inv_x;
+  const float t1y = (0.0f - py) * inv_y, t2y = (gf - py) * inv_y;
+  const float t1z = (0.0f - pz) * inv_z, t2z = (gf - pz) * inv_z;
+  const float t_ent = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)),
+                            fminf(t1z, t2z));
+  const float t_out = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
+                            fmaxf(t1z, t2z));
+  const float t0 = fmaxf(t_ent, 0.0f);
+  const bool misses_box = (t_ent > t_out) || (t_out < 0.0f);
+  // entry push by 1e-4 cell, none when the ray starts inside
+  const float push = t0 > 0.0f ? t0 + eps_c : 0.0f;
+  const float qx = px + push * dxc;
+  const float qy = py + push * dyc;
+  const float qz = pz + push * dzc;
+
+  // cell indices truncate (astype(i32)); the refine and jumps use floor
+  int cx = clampi((int)(qx / cell2), 0, n2 - 1);
+  int cy = clampi((int)(qy / cell2), 0, n2 - 1);
+  int cz = clampi((int)(qz / cell2), 0, n2 - 1);
+  const int sx = dxc > 0.0f ? 1 : -1;
+  const int sy = dyc > 0.0f ? 1 : -1;
+  const int sz = dzc > 0.0f ? 1 : -1;
+  // boundary ts in absolute form: push + (boundary - q) / d
+  const float nx = (float)(dxc > 0.0f ? cx + 1 : cx) * cell2;
+  const float ny = (float)(dyc > 0.0f ? cy + 1 : cy) * cell2;
+  const float nz = (float)(dzc > 0.0f ? cz + 1 : cz) * cell2;
+  float tx = push + (nx - qx) * inv_x;
+  float ty = push + (ny - qy) * inv_y;
+  float tz = push + (nz - qz) * inv_z;
+  const float adx = fabsf(inv_x) * cell2;
+  const float ady = fabsf(inv_y) * cell2;
+  const float adz = fabsf(inv_z) * cell2;
+  const float fadx = fabsf(inv_x) * cell;
+  const float fady = fabsf(inv_y) * cell;
+  const float fadz = fabsf(inv_z) * cell;
+
+  DdaOut r;
+  r.hit = false;
+  r.steps = 0;
+  float t_cur = misses_box ? 0.0f : push;
+  int fx = 0, fy = 0, fz = 0;
+  float t_hit = t_cur;
+  for (int k = 0; k < max_steps && !misses_box; ++k) {
+    const bool inside = cx >= 0 && cx < n2 && cy >= 0 && cy < n2 &&
+                        cz >= 0 && cz < n2;
+    if (!inside) break;
+    const int ccx = clampi(cx, 0, n2 - 1);
+    const int ccy = clampi(cy, 0, n2 - 1);
+    const int ccz = clampi(cz, 0, n2 - 1);
+    if (probe.coarse(ccx, ccy, ccz)) {
+      // refine: walk the <= 4 fine cells of this coarse cell on the ray
+      const uint32_t byte = probe.fine_byte(ccx, ccy, ccz);
+      const float tin = t_cur + eps_c;
+      const float qrx = px + tin * dxc;
+      const float qry = py + tin * dyc;
+      const float qrz = pz + tin * dzc;
+      int gx = clampi((int)floorf(qrx / cell), ccx * 2, ccx * 2 + 1);
+      int gy = clampi((int)floorf(qry / cell), ccy * 2, ccy * 2 + 1);
+      int gz = clampi((int)floorf(qrz / cell), ccz * 2, ccz * 2 + 1);
+      const float bfx = (float)(dxc > 0.0f ? gx + 1 : gx) * cell;
+      const float bfy = (float)(dyc > 0.0f ? gy + 1 : gy) * cell;
+      const float bfz = (float)(dzc > 0.0f ? gz + 1 : gz) * cell;
+      float ftx = (bfx - px) * inv_x;
+      float fty = (bfy - py) * inv_y;
+      float ftz = (bfz - pz) * inv_z;
+      float ts = t_cur;
+      for (int s = 0; s < 4; ++s) {
+        const uint32_t bit =
+            (byte >> (((gx & 1) << 2) | ((gy & 1) << 1) | (gz & 1))) & 1u;
+        if (bit) {
+          r.hit = true;
+          fx = gx;
+          fy = gy;
+          fz = gz;
+          t_hit = ts;
+          break;
+        }
+        if (s == 3) break;
+        const bool fmx = ftx <= fty && ftx <= ftz;
+        const bool fmy = !fmx && fty <= ftz;
+        ts = fminf(fminf(ftx, fty), ftz);
+        if (fmx) {
+          gx += sx;
+          ftx = ftx + fadx;
+        } else if (fmy) {
+          gy += sy;
+          fty = fty + fady;
+        } else {
+          gz += sz;
+          ftz = ftz + fadz;
+        }
+        if ((gx >> 1) != ccx || (gy >> 1) != ccy || (gz >> 1) != ccz) break;
+      }
+      if (r.hit) break;
+    }
+    r.steps += 1;
+    const bool mx = tx <= ty && tx <= tz;
+    const bool my = !mx && ty <= tz;
+    t_cur = fminf(fminf(tx, ty), tz);
+    int cx2 = cx, cy2 = cy, cz2 = cz;
+    float tx2 = tx, ty2 = ty, tz2 = tz;
+    if (mx) {
+      cx2 = cx + sx;
+      tx2 = tx + adx;
+    } else if (my) {
+      cy2 = cy + sy;
+      ty2 = ty + ady;
+    } else {
+      cz2 = cz + sz;
+      tz2 = tz + adz;
+    }
+    if (use_sc) {
+      // empty supercell: cross d-1 more supercells, clipped to the box
+      const int d_sc = probe.sc_dist(ccx >> 2, ccy >> 2, ccz >> 2);
+      if (d_sc > 0) {
+        const float ext = (float)(d_sc - 1) * 4.0f;
+        const float remx = (float)(sx > 0 ? 3 - (ccx & 3) : (ccx & 3));
+        const float remy = (float)(sy > 0 ? 3 - (ccy & 3) : (ccy & 3));
+        const float remz = (float)(sz > 0 ? 3 - (ccz & 3) : (ccz & 3));
+        float t_exit = fminf(fminf(tx + (remx + ext) * adx,
+                                   ty + (remy + ext) * ady),
+                             tz + (remz + ext) * adz) + eps_c2;
+        t_exit = fminf(t_exit, t_out + eps_c2);
+        const float qx2 = px + t_exit * dxc;
+        const float qy2 = py + t_exit * dyc;
+        const float qz2 = pz + t_exit * dzc;
+        const int nix = (int)floorf(qx2 / cell2);
+        const int niy = (int)floorf(qy2 / cell2);
+        const int niz = (int)floorf(qz2 / cell2);
+        const float bnx = (float)(dxc > 0.0f ? nix + 1 : nix) * cell2;
+        const float bny = (float)(dyc > 0.0f ? niy + 1 : niy) * cell2;
+        const float bnz = (float)(dzc > 0.0f ? niz + 1 : niz) * cell2;
+        cx2 = nix;
+        cy2 = niy;
+        cz2 = niz;
+        tx2 = t_exit + (bnx - qx2) * inv_x;
+        ty2 = t_exit + (bny - qy2) * inv_y;
+        tz2 = t_exit + (bnz - qz2) * inv_z;
+        t_cur = t_exit;
+      }
+    }
+    cx = cx2;
+    cy = cy2;
+    cz = cz2;
+    tx = tx2;
+    ty = ty2;
+    tz = tz2;
+  }
+  r.ix = r.hit ? fx : cx * 2;
+  r.iy = r.hit ? fy : cy * 2;
+  r.iz = r.hit ? fz : cz * 2;
+  r.t = r.hit ? t_hit : t_cur;
+  r.inside = !misses_box && cx >= 0 && cx < n2 && cy >= 0 && cy < n2 &&
+             cz >= 0 && cz < n2;
+  return r;
+}
+
+// One ray from its voxel-unit origin to a hit, a miss or the cap.  Each
+// crossing runs phase 1 (the voxel DDA inside the current mixed brick)
+// and phase 2 (the L0 march to the next occupied brick, classified mixed
+// or uniform); a uniform-solid brick is a hit on its entry face.
+__host__ __device__ inline RayOut trace_ray(const Tables& T, float ox,
+                                            float oy, float oz, float dx,
+                                            float dy, float dz, bool alive) {
+  RayOut out;
+  out.status = MISS;
+  out.t = 0.0f;
+  out.cell = 0;
+  out.widx = 0;
+  out.iters = 0;
+  if (!alive) return out;
+  const int G = T.G;
+  const float dxc = clamp_dir(dx), dyc = clamp_dir(dy), dzc = clamp_dir(dz);
+  const float inv_x = 1.0f / dxc, inv_y = 1.0f / dyc, inv_z = 1.0f / dzc;
+  L0Probe l0;
+  l0.T = &T;
+  l0.hh = G / 2 > 1 ? G / 2 : 1;
+  l0.nsc = G / 8;
+
+  int32_t key = KEY_INIT;  // KEY_INIT or the mixed brick cell to enter
+  float tw = 0.0f;
+  int it = 0;
+  for (int crossing = 0; crossing < MAX_CROSSINGS; ++crossing) {
+    const bool m_init = key == KEY_INIT;
+    float t1 = 0.0f;
+    int st1 = 0;
+    if (!m_init) {
+      // ---- phase 1: voxel DDA through mixed brick `key`, brick-local
+      const int kc = key;
+      const float bxv = (float)(kc / (G * G)) * 32.0f;
+      const float byv = (float)((kc / G) % G) * 32.0f;
+      const float bzv = (float)(kc % G) * 32.0f;
+      const float px = ox + tw * dxc;
+      const float py = oy + tw * dyc;
+      const float pz = oz + tw * dzc;
+      const int s = T.brick_slot[kc];
+      const int slot = s > 0 ? s : 0;
+      BrickProbe bp;
+      bp.occ = T.occ_words + (size_t)slot * 1024;
+      bp.sc = T.sc_words + (size_t)slot * 128;
+      const DdaOut r1 = dda_cr(px - bxv, py - byv, pz - bzv, dxc, dyc, dzc,
+                               inv_x, inv_y, inv_z, 32, 1.0f, bp, INNER_CAP,
+                               false);
+      if (r1.hit) {
+        out.status = MIXED;
+        out.t = tw + r1.t;
+        out.cell = kc;
+        out.widx = (r1.ix * 32 + r1.iy) * 32 + r1.iz;
+        out.iters = it + r1.steps;
+        return out;
+      }
+      t1 = r1.t;
+      st1 = r1.steps;
+    }
+    // ---- phase 2: L0 march from just past the brick exit
+    const float t2_0 = m_init ? tw : tw + t1 + EXIT_EPS;
+    const float p2x = ox + t2_0 * dxc;
+    const float p2y = oy + t2_0 * dyc;
+    const float p2z = oz + t2_0 * dzc;
+    const DdaOut r2 = dda_cr(p2x, p2y, p2z, dxc, dyc, dzc, inv_x, inv_y,
+                             inv_z, G, 32.0f, l0, 3 * G + 4, G >= 8);
+    it += st1 + r2.steps;
+    if (r2.hit) {
+      const int c2x = clampi(r2.ix, 0, G - 1);
+      const int c2y = clampi(r2.iy, 0, G - 1);
+      const int c2z = clampi(r2.iz, 0, G - 1);
+      const bool is_mixed =
+          (((uint32_t)T.l0_mixed[c2x * G + c2y] >> c2z) & 1u) != 0;
+      const int cell2 = (r2.ix * G + r2.iy) * G + r2.iz;
+      if (is_mixed) {
+        key = cell2;
+        tw = t2_0 + r2.t;
+      } else {
+        // uniform-solid brick: hit at the entry face
+        const int ux = clampi((int)(p2x + r2.t * dxc) - r2.ix * 32, 0, 31);
+        const int uy = clampi((int)(p2y + r2.t * dyc) - r2.iy * 32, 0, 31);
+        const int uz = clampi((int)(p2z + r2.t * dzc) - r2.iz * 32, 0, 31);
+        out.status = UNIFORM;
+        out.t = t2_0 + r2.t;
+        out.cell = cell2;
+        out.widx = (ux * 32 + uy) * 32 + uz;
+        out.iters = it;
+        return out;
+      }
+    } else if (r2.inside) {
+      // budget spent inside the grid: restart the L0 march further on
+      key = KEY_INIT;
+      tw = t2_0 + r2.t + EXIT_EPS;
+    } else {
+      out.iters = it;
+      return out;
+    }
+    if (it >= ITER_CAP) break;
+  }
+  out.status = CAPPED;
+  out.t = tw;
+  out.iters = it;
+  return out;
+}
+
+}  // namespace wf

@@ -1,0 +1,248 @@
+"""Brick decomposition of the octree — the scene format of the wavefront
+traversal (port of svo_raytracer_tpu/ops/brick_scene.py).
+
+  * an L0 occupancy grid of (world/32)^3 brick cells;
+  * per *mixed* brick (one containing leaves smaller than the brick): a
+    32^3 occupancy bitfield (1024 i32 words) and a 32^3 per-voxel
+    attribute table (32768 i32 words);
+  * *uniform* bricks (fully covered by one leaf — air or solid) carry a
+    single attribute word and no payload.
+
+Attribute word per voxel (i32): ``value | raw_normal << 8 | depth << 24``
+(``raw_normal`` is the tag-dependent 16-bit field the reference shader
+decodes as a normal; ``depth`` the leaf's depth below the root).
+
+Scene preprocessing is host NumPy, one-time per scene; the arrays equal
+the JAX package's exactly (tests/test_torch_scene.py).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from ..utils import constants as C
+
+BRICK = 32  # voxels per brick edge
+LANES = 128
+
+
+def pack_occupancy(vox: np.ndarray) -> np.ndarray:
+    """Pack a (G,G,G) boolean/int occupancy grid into z-packed u32 words.
+
+    Returns int32 (G*G*ceil(G/32),) — word ``(x*G + y)*W + (z >> 5)`` holds
+    bit ``z & 31`` of column (x, y) (svo_raytracer_tpu
+    brick_dda.pack_occupancy).
+    """
+    vox = np.asarray(vox) != 0
+    G = vox.shape[0]
+    if vox.shape != (G, G, G):
+        raise ValueError(f"occupancy grid must be cubic, got {vox.shape}")
+    W = -(-G // 32)
+    words = np.zeros((G, G, W), np.uint32)
+    for z in range(G):
+        words[:, :, z // 32] |= (vox[:, :, z].astype(np.uint32)
+                                 << np.uint32(z % 32))
+    return words.reshape(-1).view(np.int32)
+
+
+def table_rows(words) -> np.ndarray:
+    """(V,) packed words -> (ceil(V/128), 128) i32 rows, zero-padded
+    (svo_raytracer_tpu brick_dda.table_rows, in NumPy)."""
+    w = np.asarray(words, np.int32)
+    pad = (-w.shape[0]) % LANES
+    if pad:
+        w = np.pad(w, (0, pad))
+    return w.reshape(-1, LANES)
+
+
+@dataclasses.dataclass
+class BrickScene:
+    """Host (NumPy) brick decomposition of one octree scene."""
+
+    world_size: int          # voxel resolution of the world cube [1,2]^3
+    grid_size: int           # bricks per edge (world_size // 32)
+    n_mixed: int
+    l0_table: np.ndarray     # (rows,128) i32 — packed brick-occupancy words
+    brick_slot: np.ndarray   # (G^3,) i32 — mixed-brick slot, -1 if uniform
+    brick_attr: np.ndarray   # (G^3,) i32 — uniform attr (value 0 => air)
+    occ_words: np.ndarray    # (n_mixed, 8, 128) i32 — 32^3 occupancy bits
+    attrs: np.ndarray        # (n_mixed, 256, 128) i32 — per-voxel attr words
+
+
+def _attr_word(value, raw_normal, depth):
+    return (value.astype(np.int64) & 0xFF) | ((raw_normal.astype(np.int64)
+                                               & 0xFFFF) << 8) \
+        | (depth.astype(np.int64) << 24)
+
+
+def _leaf_attr(value, normal, mask, nodes, tags, depth):
+    """Attribute word(s) of leaf nodes (module docstring encoding)."""
+    raw = np.where(tags == C.TAG_SURFACE_LEAF, normal[nodes],
+                   np.where(tags == C.TAG_NON_SURFACE_LEAF, 0, mask[nodes]))
+    return _attr_word(value[nodes], raw,
+                      np.asarray(depth, np.int64) * np.ones(len(nodes),
+                                                            np.int64)
+                      if np.ndim(depth) == 0 else depth)
+
+
+def _raster_subtrees(child, mask, value, normal, roots, brick_depth,
+                     brick: int = BRICK):
+    """Rasterize brick-level branch subtrees to (n, brick^3) attr words.
+
+    ``roots``: (n,) node indices of brick-level BRANCH nodes;
+    ``brick_depth``: their depth below the root.  Level-synchronous
+    vectorized descent."""
+    n = len(roots)
+    attrs = np.zeros((n, brick * brick * brick), np.int32)
+    if n == 0:
+        return attrs
+    k = np.arange(8, dtype=np.int64)
+    nodes = np.asarray(roots, np.int64)
+    tags = np.full(n, C.TAG_BRANCH, np.int64)
+    slots = np.arange(n, dtype=np.int64)
+    lx = np.zeros(n, np.int64)
+    ly = np.zeros(n, np.int64)
+    lz = np.zeros(n, np.int64)
+    span = brick
+    depth = brick_depth
+    while True:
+        is_branch = (tags == C.TAG_BRANCH) & (child[nodes] != 0)
+        leaf = ~is_branch
+        if leaf.any():
+            attr = _leaf_attr(value, normal, mask, nodes[leaf], tags[leaf],
+                              depth)
+            base = ((lx[leaf] * brick + ly[leaf]) * brick + lz[leaf]
+                    + slots[leaf] * brick**3)
+            off = np.arange(span, dtype=np.int64)
+            o3 = (off[:, None, None] * brick * brick
+                  + off[None, :, None] * brick + off[None, None, :]
+                  ).reshape(-1)
+            attrs.reshape(-1)[(base[:, None] + o3[None, :]).reshape(-1)] \
+                = np.repeat(attr, span ** 3).astype(np.int32)
+        if span == 1 or not is_branch.any():
+            break
+        bn = nodes[is_branch]
+        bs = slots[is_branch]
+        bx, by, bz = lx[is_branch], ly[is_branch], lz[is_branch]
+        nodes = (child[bn][:, None] + k[None, :]).reshape(-1)
+        tags = ((mask[bn][:, None] >> (2 * k[None, :])) & 3).reshape(-1)
+        slots = np.repeat(bs, 8)
+        half = span // 2
+        lx = (bx[:, None] + (k[None, :] & 1) * half).reshape(-1)
+        ly = (by[:, None] + ((k[None, :] >> 1) & 1) * half).reshape(-1)
+        lz = (bz[:, None] + ((k[None, :] >> 2) & 1) * half).reshape(-1)
+        span //= 2
+        depth += 1
+    return attrs
+
+
+def occupancy_words(attrs, brick: int = BRICK):
+    """(n, brick^3) attr words -> (n, 8, 128) z-packed occupancy bits
+    (word (x*32 + y), bit z — the layout of :func:`pack_occupancy`)."""
+    n = attrs.shape[0]
+    solid = (attrs & 0xFF) != 0
+    vox = solid.reshape(n, brick, brick, brick)
+    w = np.zeros((n, brick, brick), np.uint32)
+    for z in range(brick):
+        w |= vox[:, :, :, z].astype(np.uint32) << np.uint32(z)
+    return w.reshape(n, 8, 128).view(np.int32)
+
+
+def brickify(tree, brick: int = BRICK) -> BrickScene:
+    """Decompose an Octree (host SoA) into the brick scene format.
+
+    The descent mirrors the child addressing of the SoA table (child base +
+    octant k; tag = 2 bits of the parent's mask).  Worlds smaller than one
+    brick are rejected.
+    """
+    child = np.asarray(tree.child[:tree.n_nodes]).astype(np.int64)
+    mask = np.asarray(tree.mask[:tree.n_nodes]).astype(np.int64)
+    value = np.asarray(tree.value[:tree.n_nodes]).astype(np.int64)
+    normal = np.asarray(tree.normal[:tree.n_nodes]).astype(np.int64)
+    ws = tree.world_size
+    if ws % brick or ws < brick:
+        raise ValueError(f"world_size {ws} not a multiple of brick {brick}")
+    G = ws // brick
+
+    def leaf_attr(nodes, tags, depth):
+        return _leaf_attr(value, normal, mask, nodes, tags,
+                          np.full(nodes.shape, depth, np.int64))
+
+    # ---- pass 1: descend to brick level --------------------------------
+    uni = np.zeros(G * G * G, np.int64)       # uniform attr per brick cell
+    mixed_cell: list[np.ndarray] = []         # flat brick cell ids
+    mixed_node: list[np.ndarray] = []         # subtree roots (branch nodes)
+
+    nodes = np.array([0], np.int64)
+    tags = np.array([C.TAG_BRANCH], np.int64)
+    xs = np.zeros(1, np.int64)
+    ys = np.zeros(1, np.int64)
+    zs = np.zeros(1, np.int64)
+    span = ws
+    depth = 0
+    k = np.arange(8, dtype=np.int64)
+
+    while True:
+        is_branch = (tags == C.TAG_BRANCH) & (child[nodes] != 0)
+        if span == brick:
+            leaf = ~is_branch
+            cell = (xs * G + ys) * G + zs
+            uni[cell[leaf]] = leaf_attr(nodes[leaf], tags[leaf], depth)
+            mixed_cell.append(cell[is_branch])
+            mixed_node.append(nodes[is_branch])
+            break
+        # leaves above brick level cover span/brick whole bricks
+        leaf = ~is_branch
+        if leaf.any():
+            sb = span // brick
+            attr = leaf_attr(nodes[leaf], tags[leaf], depth)
+            off = np.arange(sb, dtype=np.int64)
+            cx = xs[leaf][:, None] + off[None, :]            # (L, sb)
+            cy = ys[leaf][:, None] + off[None, :]
+            cz = zs[leaf][:, None] + off[None, :]
+            cells = ((cx[:, :, None, None] * G + cy[:, None, :, None]) * G
+                     + cz[:, None, None, :]).reshape(len(attr), -1)
+            uni[cells.reshape(-1)] = np.repeat(attr, sb * sb * sb)
+        if not is_branch.any():
+            break
+        bn = nodes[is_branch]
+        bx, by, bz = xs[is_branch], ys[is_branch], zs[is_branch]
+        nodes = (child[bn][:, None] + k[None, :]).reshape(-1)
+        tags = ((mask[bn][:, None] >> (2 * k[None, :])) & 3).reshape(-1)
+        half = (span // brick) // 2
+        xs = (bx[:, None] + (k[None, :] & 1) * half).reshape(-1)
+        ys = (by[:, None] + ((k[None, :] >> 1) & 1) * half).reshape(-1)
+        zs = (bz[:, None] + ((k[None, :] >> 2) & 1) * half).reshape(-1)
+        span //= 2
+        depth += 1
+
+    mixed_cell = (np.concatenate(mixed_cell) if mixed_cell
+                  else np.zeros(0, np.int64))
+    mixed_node = (np.concatenate(mixed_node) if mixed_node
+                  else np.zeros(0, np.int64))
+    n_mixed = len(mixed_cell)
+
+    slot_map = np.full(G * G * G, -1, np.int32)
+    slot_map[mixed_cell] = np.arange(n_mixed, dtype=np.int32)
+
+    # ---- pass 2: rasterize mixed subtrees to 32^3 voxels ----------------
+    nm = max(n_mixed, 1)
+    attrs = np.zeros((nm, brick * brick * brick), np.int32)
+    if n_mixed:
+        attrs[:n_mixed] = _raster_subtrees(child, mask, value, normal,
+                                           mixed_node, depth, brick)
+    occ_words = occupancy_words(attrs, brick)
+
+    l0_occ = ((uni & 0xFF) != 0) | (slot_map >= 0)
+    l0_table = table_rows(pack_occupancy(l0_occ.reshape(G, G, G)))
+
+    return BrickScene(
+        world_size=ws, grid_size=G, n_mixed=n_mixed,
+        l0_table=l0_table,
+        brick_slot=slot_map,
+        brick_attr=uni.astype(np.int32),
+        occ_words=occ_words,
+        attrs=attrs.reshape(nm, 256, 128),
+    )
