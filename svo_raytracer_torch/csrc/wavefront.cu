@@ -1,17 +1,22 @@
 // Kernel K1: the brick-wavefront traversal, one thread per ray.
 //
 // Replaces svo_raytracer_tpu/ops/wavefront.py::_wf_kernel (the Pallas
-// round kernel, launched by _call_kernel's pl.pallas_call) for flat L0
-// worlds (G <= 32) and explicit rays.  The per-ray body is wf_ray.cuh.
+// round kernel, launched by _call_kernel's pl.pallas_call) for explicit
+// rays: flat L0 worlds up to G = 64 (2048^3) and paged L0 worlds of
+// G = 128 and 256 (4096^3, 8192^3).  The per-ray body is wf_ray.cuh.
 //
 // What bounds it on Hopper: each DDA step is a dependent load of a table
-// word (L0 coarse/byte words, a brick's coarse and byte-cell words), so a
-// thread waits on L2 latency every step; the tables of a 1024^3 world
-// (~4.5 KB per mixed brick plus the L0 rows, ~20 MB) fit the 50 MB L2.
-// Rays of one warp take different numbers of steps and crossings, so
-// warps diverge and idle lanes wait for the longest ray.  This first
-// version does nothing about either: no ray sorting, no persistent
-// threads, no staging in shared memory.
+// word (L0 coarse/byte words or a page's rows, a brick's coarse and
+// byte-cell words), so a thread waits on memory latency every step.  The
+// tables of a 1024^3 world (~4.5 KB per mixed brick plus the L0 rows,
+// ~20 MB) fit the 50 MB L2; a 4096^3 heightmap world's brick words (~70k
+// slots x 4.5 KB, ~330 MB) do not, so there each step into a new brick
+// can wait on DRAM.  (The attribute table is read by the decode after
+// K1, not by K1.)  Rays of one warp take
+// different numbers of steps and crossings, so warps diverge and idle
+// lanes wait for the longest ray.  This version does nothing about
+// either: no ray sorting, no persistent threads, no staging in shared
+// memory; what the DRAM latency costs at 4096^3 is measured, not tuned.
 //
 // Built by ops/kernel_build.py with nvcc -gencode arch=compute_90a,
 // code=sm_90a -O3 -fmad=false into a shared library with a plain C entry
@@ -52,7 +57,8 @@ wf_trace_kernel(wf::Tables T, const float* __restrict__ origins,
 extern "C" int wf_trace(const int32_t* l0_occ, const int32_t* l0_mixed,
                         const int32_t* l0_sc, const int32_t* brick_slot,
                         const int32_t* occ_words, const int32_t* sc_words,
-                        int G, int l0_coarse_base, const float* origins,
+                        int G, int l0_coarse_base, int zw, int pages,
+                        const float* origins,
                         const float* dirs, const uint8_t* alive, int n,
                         int32_t* status, float* t, int32_t* cell,
                         int32_t* widx, int32_t* iters, void* stream) {
@@ -66,6 +72,8 @@ extern "C" int wf_trace(const int32_t* l0_occ, const int32_t* l0_mixed,
   T.sc_words = sc_words;
   T.G = G;
   T.l0_coarse_base = l0_coarse_base;
+  T.zw = zw;
+  T.pages = pages;
   const int threads = 128;
   const int blocks = (n + threads - 1) / threads;
   wf_trace_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(

@@ -1,13 +1,22 @@
 // Kernel K1, per-ray body: the brick-wavefront traversal of one ray.
 //
 // Replaces the per-lane arithmetic of svo_raytracer_tpu/ops/wavefront.py
-// ::_wf_kernel (its `crossing`, :1252-1423) and the coarse-refine DDA
-// `_dda_cr` (:645-883) for flat L0 worlds (G <= 32) and explicit rays.
+// ::_wf_kernel (its `crossing`, :1252-1423), the coarse-refine DDA
+// `_dda_cr` (:645-883) and the paged L0 march `_paged_march`
+// (:1077-1241), for explicit rays: flat L0 worlds up to G = 64 bricks per
+// edge (2048^3) and paged worlds of G = 128 and 256 (4096^3, 8192^3).
 // The TPU kernel advances 1024-ray tiles in sorted rounds against KMAX
-// prefetched candidate bricks, because Mosaic has no arbitrary gather.
-// Here one thread owns one ray and loads any table word it needs, looping
-// crossings until the ray hits, misses or passes ITER_CAP — the per-ray
-// answer the TPU's serve loop computes (wavefront.py:1479-1534).
+// prefetched candidate bricks and KPAGE candidate pages, because Mosaic
+// has no arbitrary gather.  Here one thread owns one ray and loads any
+// table word it needs, looping crossings until the ray hits, misses or
+// passes ITER_CAP — the per-ray answer the TPU's serve loop computes
+// (wavefront.py:1479-1534).  Every page's tables are at hand, so a ray
+// never punts off an unserved page: the TPU's page-band keys (:1262-1263,
+// :1399-1402) have no counterpart.
+//
+// The record is the port's own (status, t, cell, widx, iters) at every G:
+// the hit cell gives the mixed slot through brick_slot, so the TPU's
+// 15-bit and 29-bit slot packings are not needed.
 //
 // Plain C types only, `__host__ __device__` throughout: the CUDA kernel
 // (wavefront.cu) and a g++ build for the CPU parity test include the same
@@ -27,18 +36,24 @@ constexpr float DIR_EPS = 1e-4f;     // |d| floor before 1/d (wavefront.py:134)
 constexpr int ITER_CAP = 4000;       // per-ray coarse-step kill switch
 constexpr int MAX_CROSSINGS = 4096;  // termination guard on crossings
 constexpr int INNER_CAP = 100;       // phase-1 step budget (_resolve_caps)
+constexpr int PAGE = 64;             // bricks per page edge (paged L0)
+constexpr int PAGE_ROWS = 137;       // 128-word rows of one page's tables
 
 enum : int32_t { MISS = 0, MIXED = 1, UNIFORM = 2, CAPPED = 3 };
 
 struct Tables {
-  const int32_t* l0_occ;      // L0 byte-cell words, then coarse-bit words
-  const int32_t* l0_mixed;    // mixed-brick bits: word x*G + y, bit z
+  const int32_t* l0_occ;      // L0 byte-cell words, then coarse-bit words;
+                              // paged: page-occupancy bits
+  const int32_t* l0_mixed;    // mixed-brick bits: word (x*G + y)*zw + z/32,
+                              // bit z%32; paged: PAGE_ROWS rows per page
   const int32_t* l0_sc;       // supercell chebyshev-distance nibbles
   const int32_t* brick_slot;  // (G^3,) mixed slot or -1
   const int32_t* occ_words;   // (capacity, 1024) brick byte-cell words
   const int32_t* sc_words;    // (capacity, 128) brick coarse-bit words
   int G;                      // bricks per edge
   int l0_coarse_base;         // word offset of the L0 coarse-bit rows
+  int zw;                     // z-words per L0 mixed column, ceil(G/32)
+  int pages;                  // pages per edge (G/64), 0 for a flat L0
 };
 
 struct RayOut {
@@ -81,24 +96,26 @@ struct BrickProbe {
   __host__ __device__ int sc_dist(int, int, int) const { return 0; }
 };
 
-// The L0 brick grid: same coarse-refine layout over occupied bricks, plus
-// the supercell (8^3-brick) distance nibbles.
-struct L0Probe {
-  const Tables* T;
+// A brick grid in the same coarse-refine layout over occupied bricks,
+// plus the supercell (8^3-brick) distance nibbles: the flat L0, or one
+// 64^3-brick page of a paged world.
+struct GridProbe {
+  const int32_t* byte_words;    // byte c&3 of word c>>2: coarse cell c
+  const int32_t* coarse_words;  // bit c&31 of word c>>5: coarse cell c
+  const int32_t* sc_words;      // nibble b&7 of word b>>3: supercell b
   int hh;   // coarse cells per edge (G/2, at least 1)
   int nsc;  // supercells per edge (G/8)
   __host__ __device__ bool coarse(int cx, int cy, int cz) const {
     int c = (cx * hh + cy) * hh + cz;
-    return (((uint32_t)T->l0_occ[T->l0_coarse_base + (c >> 5)] >> (c & 31))
-            & 1u) != 0;
+    return (((uint32_t)coarse_words[c >> 5] >> (c & 31)) & 1u) != 0;
   }
   __host__ __device__ uint32_t fine_byte(int cx, int cy, int cz) const {
     int c = (cx * hh + cy) * hh + cz;
-    return ((uint32_t)T->l0_occ[c >> 2] >> ((c & 3) * 8)) & 0xFFu;
+    return ((uint32_t)byte_words[c >> 2] >> ((c & 3) * 8)) & 0xFFu;
   }
   __host__ __device__ int sc_dist(int sx, int sy, int sz) const {
     int b = (sx * nsc + sy) * nsc + sz;
-    return (int)(((uint32_t)T->l0_sc[b >> 3] >> ((b & 7) * 4)) & 0xFu);
+    return (int)(((uint32_t)sc_words[b >> 3] >> ((b & 7) * 4)) & 0xFu);
   }
 };
 
@@ -274,6 +291,99 @@ __host__ __device__ inline DdaOut dda_cr(
   return r;
 }
 
+// Phase 2 of a paged world (wavefront.py::_paged_march): from the box
+// entry (pushed by EXIT_EPS), at most 3*P + 4 passes, each on the page
+// of the current point.  An empty page (page-occupancy bit clear) jumps
+// to its exit plus EXIT_EPS and counts one step; an occupied page runs
+// the G = 64 coarse-refine march on that page's rows (byte 0, coarse 64,
+// supercell 136) from the page-relative point and, on a hit, classifies
+// the brick through the page's mixed-byte rows (72).  Returns the flat
+// march's contract with global brick coords; `*mixed` is the class.
+__host__ __device__ inline DdaOut paged_march(
+    const Tables& T, float p2x, float p2y, float p2z, float dxc, float dyc,
+    float dzc, float inv_x, float inv_y, float inv_z, bool* mixed) {
+  const int P = T.pages;
+  const float pgv = (float)(PAGE * 32);
+  const float gf = (float)T.G * 32.0f;
+  const float t1x = (0.0f - p2x) * inv_x, t2x = (gf - p2x) * inv_x;
+  const float t1y = (0.0f - p2y) * inv_y, t2y = (gf - p2y) * inv_y;
+  const float t1z = (0.0f - p2z) * inv_z, t2z = (gf - p2z) * inv_z;
+  const float t_ent = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)),
+                            fminf(t1z, t2z));
+  const float t_out = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
+                            fmaxf(t1z, t2z));
+  const bool miss_box = (t_ent > t_out) || (t_out < 0.0f);
+  const float t00 = fmaxf(t_ent, 0.0f);
+  DdaOut r;
+  r.hit = false;
+  r.ix = r.iy = r.iz = 0;
+  r.steps = 0;
+  r.inside = !miss_box;
+  *mixed = false;
+  float t_rel = miss_box ? 0.0f : (t00 > 0.0f ? t00 + EXIT_EPS : 0.0f);
+  for (int k = 0; k < 3 * P + 4 && !miss_box; ++k) {
+    const float qx = p2x + t_rel * dxc;
+    const float qy = p2y + t_rel * dyc;
+    const float qz = p2z + t_rel * dzc;
+    const int pgx = (int)floorf(qx / pgv);
+    const int pgy = (int)floorf(qy / pgv);
+    const int pgz = (int)floorf(qz / pgv);
+    if (pgx < 0 || pgx >= P || pgy < 0 || pgy >= P || pgz < 0 || pgz >= P) {
+      r.inside = false;
+      break;
+    }
+    const int pg = (pgx * P + pgy) * P + pgz;
+    if ((((uint32_t)T.l0_occ[pg >> 5] >> (pg & 31)) & 1u) == 0) {
+      // empty page: jump to its exit
+      const float ex = ((float)pgx * pgv + (dxc > 0.0f ? pgv : 0.0f) - p2x)
+                       * inv_x;
+      const float ey = ((float)pgy * pgv + (dyc > 0.0f ? pgv : 0.0f) - p2y)
+                       * inv_y;
+      const float ez = ((float)pgz * pgv + (dzc > 0.0f ? pgv : 0.0f) - p2z)
+                       * inv_z;
+      t_rel = fminf(fminf(ex, ey), ez) + EXIT_EPS;
+      r.steps += 1;
+      continue;
+    }
+    const int32_t* tab = T.l0_mixed + (size_t)pg * PAGE_ROWS * 128;
+    GridProbe pp;
+    pp.byte_words = tab;
+    pp.coarse_words = tab + 64 * 128;
+    pp.sc_words = tab + 136 * 128;
+    pp.hh = PAGE / 2;
+    pp.nsc = PAGE / 8;
+    const DdaOut d = dda_cr(
+        qx - (float)pgx * pgv, qy - (float)pgy * pgv, qz - (float)pgz * pgv,
+        dxc, dyc, dzc, inv_x, inv_y, inv_z, PAGE, 32.0f, pp, 3 * PAGE + 4,
+        true);
+    r.steps += d.steps;
+    if (d.hit) {
+      const int cix = clampi(d.ix, 0, PAGE - 1);
+      const int ciy = clampi(d.iy, 0, PAGE - 1);
+      const int ciz = clampi(d.iz, 0, PAGE - 1);
+      const int cc = ((cix >> 1) * 32 + (ciy >> 1)) * 32 + (ciz >> 1);
+      const uint32_t byte =
+          ((uint32_t)tab[72 * 128 + (cc >> 2)] >> ((cc & 3) * 8)) & 0xFFu;
+      *mixed = ((byte >> (((cix & 1) << 2) | ((ciy & 1) << 1) | (ciz & 1)))
+                & 1u) != 0;
+      r.hit = true;
+      r.ix = pgx * PAGE + d.ix;
+      r.iy = pgy * PAGE + d.iy;
+      r.iz = pgz * PAGE + d.iz;
+      t_rel = t_rel + d.t;
+      break;
+    }
+    if (d.inside) {
+      // budget spent inside the page: stuck (the caller restarts past it)
+      t_rel = t_rel + d.t;
+      break;
+    }
+    t_rel = t_rel + d.t + EXIT_EPS;
+  }
+  r.t = t_rel;
+  return r;
+}
+
 // One ray from its voxel-unit origin to a hit, a miss or the cap.  Each
 // crossing runs phase 1 (the voxel DDA inside the current mixed brick)
 // and phase 2 (the L0 march to the next occupied brick, classified mixed
@@ -291,8 +401,10 @@ __host__ __device__ inline RayOut trace_ray(const Tables& T, float ox,
   const int G = T.G;
   const float dxc = clamp_dir(dx), dyc = clamp_dir(dy), dzc = clamp_dir(dz);
   const float inv_x = 1.0f / dxc, inv_y = 1.0f / dyc, inv_z = 1.0f / dzc;
-  L0Probe l0;
-  l0.T = &T;
+  GridProbe l0;
+  l0.byte_words = T.l0_occ;
+  l0.coarse_words = T.l0_occ + T.l0_coarse_base;
+  l0.sc_words = T.l0_sc;
   l0.hh = G / 2 > 1 ? G / 2 : 1;
   l0.nsc = G / 8;
 
@@ -336,15 +448,24 @@ __host__ __device__ inline RayOut trace_ray(const Tables& T, float ox,
     const float p2x = ox + t2_0 * dxc;
     const float p2y = oy + t2_0 * dyc;
     const float p2z = oz + t2_0 * dzc;
-    const DdaOut r2 = dda_cr(p2x, p2y, p2z, dxc, dyc, dzc, inv_x, inv_y,
-                             inv_z, G, 32.0f, l0, 3 * G + 4, G >= 8);
+    bool is_mixed = false;
+    DdaOut r2;
+    if (T.pages > 0) {
+      r2 = paged_march(T, p2x, p2y, p2z, dxc, dyc, dzc, inv_x, inv_y, inv_z,
+                       &is_mixed);
+    } else {
+      r2 = dda_cr(p2x, p2y, p2z, dxc, dyc, dzc, inv_x, inv_y, inv_z, G,
+                  32.0f, l0, 3 * G + 4, G >= 8);
+      if (r2.hit) {
+        const int c2x = clampi(r2.ix, 0, G - 1);
+        const int c2y = clampi(r2.iy, 0, G - 1);
+        const int c2z = clampi(r2.iz, 0, G - 1);
+        is_mixed = (((uint32_t)T.l0_mixed[(c2x * G + c2y) * T.zw + (c2z >> 5)]
+                     >> (c2z & 31)) & 1u) != 0;
+      }
+    }
     it += st1 + r2.steps;
     if (r2.hit) {
-      const int c2x = clampi(r2.ix, 0, G - 1);
-      const int c2y = clampi(r2.iy, 0, G - 1);
-      const int c2z = clampi(r2.iz, 0, G - 1);
-      const bool is_mixed =
-          (((uint32_t)T.l0_mixed[c2x * G + c2y] >> c2z) & 1u) != 0;
       const int cell2 = (r2.ix * G + r2.iy) * G + r2.iz;
       if (is_mixed) {
         key = cell2;

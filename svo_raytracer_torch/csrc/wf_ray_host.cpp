@@ -12,7 +12,8 @@ extern "C" int wf_trace_host(const int32_t* l0_occ, const int32_t* l0_mixed,
                              const int32_t* l0_sc, const int32_t* brick_slot,
                              const int32_t* occ_words,
                              const int32_t* sc_words, int G,
-                             int l0_coarse_base, const float* origins,
+                             int l0_coarse_base, int zw, int pages,
+                             const float* origins,
                              const float* dirs, const uint8_t* alive, int n,
                              int32_t* status, float* t, int32_t* cell,
                              int32_t* widx, int32_t* iters) {
@@ -25,6 +26,8 @@ extern "C" int wf_trace_host(const int32_t* l0_occ, const int32_t* l0_mixed,
   T.sc_words = sc_words;
   T.G = G;
   T.l0_coarse_base = l0_coarse_base;
+  T.zw = zw;
+  T.pages = pages;
   for (int i = 0; i < n; ++i) {
     const wf::RayOut r = wf::trace_ray(
         T, origins[3 * i], origins[3 * i + 1], origins[3 * i + 2],

@@ -1,7 +1,8 @@
 """Brick-wavefront traversal on one GPU: one thread per ray (kernel K1).
 
-Port of svo_raytracer_tpu/ops/wavefront.py for flat-L0 worlds (up to
-32 bricks per edge, i.e. 1024^3) and explicit rays.  The TPU engine
+Port of svo_raytracer_tpu/ops/wavefront.py for explicit rays in worlds of
+G bricks per edge: a flat L0 grid up to G = 64 (2048^3) and the paged L0
+above it, G = 128 and 256 (4096^3 and 8192^3).  The TPU engine
 advances 1024-ray tiles in sorted rounds against KMAX prefetched candidate
 bricks, replays recorded round schedules and re-derives camera rays in
 the kernel — all because Mosaic has no arbitrary gather and every host
@@ -15,7 +16,9 @@ memory:
     brick (16^3 coarse any-bits, an 8-bit byte refine per occupied cell);
   * phase 2 — coarse-refine march of the L0 brick grid with chebyshev
     supercell jumps, then the mixed/uniform classification; a uniform
-    solid brick is a hit on its entry face;
+    solid brick is a hit on its entry face.  Paged worlds (G > 64) jump
+    empty 64^3-brick pages from a page-occupancy row and run the same
+    march inside each occupied page with that page's own tables;
   * retirement — hit, miss, or ``ITER_CAP`` coarse steps (a miss).
 
 :func:`trace_plain` is the same per-ray function written lock-step in
@@ -24,7 +27,9 @@ PyTorch (masked like ``_dda_cr``).  The CPU path and the tests use it;
 tensor always goes to the kernel.
 
 Scene tables come from :func:`prepare` (host NumPy, then one copy to the
-device) and equal the JAX package's ``WaveScene`` arrays word for word.
+device) and equal the JAX package's ``WaveScene`` arrays word for word,
+including the half-word (``attr16``) and 2-D attribute storage of the
+largest worlds.
 """
 
 from __future__ import annotations
@@ -48,7 +53,13 @@ ITER_CAP = 4000             # per-ray coarse-step kill switch (a miss)
 # a degenerate ray could loop this long; it retires like ITER_CAP.
 MAX_CROSSINGS = 4096
 INNER_CAP = 100             # phase-1 coarse-step budget (_resolve_caps)
-FLAT_MAX_G = 32             # flat L0 limit of this port (G=64: later)
+# Paged L0 (G > 64): the grid splits into pages of PAGE^3 bricks, each
+# with the G = 64 table structure: 64 occupied-brick byte rows ++ 8
+# coarse rows ++ 64 mixed-brick byte rows ++ 1 supercell row.
+PAGE = 64
+PAGE_ROWS = 137
+MAX_G = 256                 # 8192^3 worlds: at most 4^3 = 64 pages
+BRICK_WORDS = 32768         # attribute words per mixed brick (one 2-D row)
 
 # per-ray status of the trace record (csrc/wf_ray.cuh)
 MISS, MIXED, UNIFORM, CAPPED = 0, 1, 2, 3
@@ -67,7 +78,9 @@ class WaveScene:
     Array shapes follow the JAX package's WaveScene.  Payload arrays hold
     ``capacity`` >= n_mixed slots (the JAX edit path appends into them),
     and ``attr_comb`` puts the uniform-brick words after capacity*32768
-    mixed-voxel words, so node ids equal the JAX package's.
+    mixed-voxel words, so node ids equal the JAX package's.  Paged worlds
+    (G > 64) keep the page-occupancy row in ``l0_occ``, the per-page
+    tables in ``l0_mixed`` and a zero row in ``l0_sc``.
     """
 
     world_size: int
@@ -75,51 +88,88 @@ class WaveScene:
     n_mixed: int
     capacity: int
     l0_occ: torch.Tensor      # (RB+RC, 128) i32 — byte rows ++ coarse rows
-    l0_mixed: torch.Tensor    # (rows, 128) i32 — mixed-brick bits
+                              # paged: (1, 128) page-occupancy bits
+    l0_mixed: torch.Tensor    # (rows, 128) i32 — mixed-brick bits, ZW =
+                              # ceil(G/32) z-words per column
+                              # paged: (P^3 * PAGE_ROWS, 128) page tables
     brick_slot: torch.Tensor  # (G^3,) i32
     occ_words: torch.Tensor   # (capacity, 8, 128) i32 — byte-cell layout
-    attr_comb: torch.Tensor   # (capacity*32768 + G^3,) i32
+    attr_comb: torch.Tensor   # (capacity*32768 + G^3,) i32, or int16
+                              # half-words (attr16); stored 2-D
+                              # (capacity + ceil(G^3/32768), 32768) when
+                              # the flat table passes 2^31 - 1 words
     sc_words: torch.Tensor    # (capacity, 1, 128) i32 — 16^3 coarse bits
     l0_sc: torch.Tensor       # (1, 128) i32 — supercell distance nibbles
+    slot_cell: torch.Tensor   # (capacity,) i32 — mixed slot -> brick cell
+    attr16: bool = False      # attr_comb holds _encode_attr16 half-words
 
     ARRAYS = ("l0_occ", "l0_mixed", "brick_slot", "occ_words", "attr_comb",
-              "sc_words", "l0_sc")
+              "sc_words", "l0_sc", "slot_cell")
 
     @property
     def device(self) -> torch.device:
         return self.attr_comb.device
 
+    @property
+    def pages(self) -> int:
+        """Pages per edge of a paged world, 0 for a flat L0."""
+        return self.grid_size // PAGE if self.grid_size > PAGE else 0
+
     @classmethod
     def from_reference(cls, arrays, meta, device) -> WaveScene:
         """Carry a JAX ``WaveScene`` over: ``arrays`` maps the array field
         names to NumPy arrays (np.asarray of the JAX arrays), ``meta`` holds
-        world_size, grid_size, n_mixed and capacity."""
-        G = int(meta["grid_size"])
-        _check_flat(G, meta.get("attr16", False))
-        tensors = {}
+        world_size, grid_size, n_mixed, capacity and attr16."""
+        G, capacity = int(meta["grid_size"]), int(meta["capacity"])
+        attr16 = bool(meta.get("attr16", False))
+        _check_layout(G, capacity)
+        host = {}
         for name in cls.ARRAYS:
             a = np.ascontiguousarray(arrays[name])
-            if a.dtype != np.int32:
-                raise ValueError(f"{name}: expected int32, got {a.dtype}")
-            if name == "attr_comb" and a.ndim != 1:
-                raise ValueError("attr_comb must be the flat table")
+            want = np.int16 if name == "attr_comb" and attr16 else np.int32
+            if a.dtype != want:
+                raise ValueError(f"{name}: expected {np.dtype(want)}, got "
+                                 f"{a.dtype}")
+            host[name] = a
+        ac = host["attr_comb"]
+        if not (ac.ndim == 1 or (ac.ndim == 2
+                                 and ac.shape[1] == BRICK_WORDS)):
+            raise ValueError(f"attr_comb of shape {ac.shape}: expected flat "
+                             f"or (rows, {BRICK_WORDS})")
+        if G > PAGE:
+            want = ((1, 128), ((G // PAGE) ** 3 * PAGE_ROWS, 128))
+        else:
+            zw = -(-G // 32)
+            want = ((sum(_l0_rows(G)), 128), (-(-G * G * zw // 128), 128))
+        got = (host["l0_occ"].shape, host["l0_mixed"].shape)
+        if got != want:
+            raise ValueError(f"G={G}: L0 tables of shapes {got}, expected "
+                             f"{want}")
+        tensors = {}
+        for name, a in host.items():
             if not a.flags.writeable:       # e.g. views of JAX arrays
                 a = a.copy()
             tensors[name] = torch.from_numpy(a).to(device)
         return cls(
             world_size=int(meta["world_size"]), grid_size=G,
-            n_mixed=int(meta["n_mixed"]), capacity=int(meta["capacity"]),
+            n_mixed=int(meta["n_mixed"]), capacity=capacity, attr16=attr16,
             **tensors)
 
 
-def _check_flat(G, attr16):
-    if G > FLAT_MAX_G:
-        raise NotImplementedError(
-            f"G={G}: worlds above {FLAT_MAX_G * 32}^3 need the G=64 slot "
-            "records or the paged L0, not yet ported")
-    if attr16:
-        raise NotImplementedError("attr16 half-word attributes are not "
-                                  "ported yet")
+def _check_layout(G, capacity):
+    """The JAX package's limits on a WaveScene (wavefront.prepare): paged
+    grids come in whole pages, at most 256 bricks per edge, and the slot
+    capacity fits the hit-record field of its grid size."""
+    if G > PAGE and G % PAGE:
+        raise ValueError(f"paged L0 needs G % {PAGE} == 0; got {G}")
+    if G > MAX_G:
+        raise ValueError(f"wavefront L0 grid is limited to {MAX_G}^3 "
+                         f"(world <= {MAX_G * 32}^3); got G={G}")
+    if G > PAGE and capacity >= 1 << 29:
+        raise ValueError(f"paged worlds support < 2^29 slots; {capacity}")
+    if PAGE >= G > 32 and capacity >= 1 << 15:
+        raise ValueError(f"G={G} worlds support < 32768 mixed-brick slots; "
+                         f"{capacity}")
 
 
 def _l0_mixed_table(scene):
@@ -262,13 +312,103 @@ def _l0_super_words(scene):
     return _pack_nibbles(_cheby_dist(sup).reshape(1, -1))
 
 
-def prepare(scene, device) -> WaveScene:
-    """Derive the wavefront tables from a host BrickScene (one-time) and
-    copy them to ``device``.  Flat L0 worlds only (G <= 32).  The slot
-    capacity is the JAX package's default, so node ids match it."""
+def _page_tables_np(scene):
+    """((P^3, PAGE_ROWS, 128) page tables, (1, 128) page-occupancy row) of
+    a paged (G > 64) BrickScene.  Row offsets within a page:
+      [0:64)    occupied-brick byte-cell rows   (_cr_split fine words)
+      [64:72)   occupied-brick coarse-bit rows
+      [72:136)  mixed-brick byte-cell rows      (same c>>2 layout)
+      [136]     supercell row: chebyshev-distance nibble per 8^3-brick
+                group at (sx*8+sy)*8+sz (see _l0_super_words)
+    """
     G = scene.grid_size
-    _check_flat(G, False)
+    P = G // PAGE
+    occ3 = _occupied(scene).reshape(G, G, G)
+    mix3 = (np.asarray(scene.brick_slot) >= 0).reshape(G, G, G)
+
+    def pages(v):
+        return (v.reshape(P, PAGE, P, PAGE, P, PAGE)
+                .transpose(0, 2, 4, 1, 3, 5).reshape(P ** 3, PAGE, PAGE,
+                                                     PAGE))
+
+    occp, mixp = pages(occ3), pages(mix3)
+    bw, cw = _cr_split(occp)            # (P^3, 64, 128), (P^3, 8, 128)
+    mbw, _ = _cr_split(mixp)            # (P^3, 64, 128)
+    n = P ** 3
+    sup = occp.reshape(n, 8, 8, 8, 8, 8, 8).any(axis=(2, 4, 6))
+    scw = _pack_nibbles(_cheby_dist(sup).reshape(n, 512))
+    tabs = np.concatenate([bw, cw, mbw, scw.reshape(n, 1, 128)], axis=1)
+    pocc = occp.reshape(n, -1).any(axis=1)
+    prow = np.zeros(128, np.uint32)
+    for b in range(n):
+        prow[b // 32] |= np.uint32(bool(pocc[b])) << np.uint32(b % 32)
+    return tabs.astype(np.int32), prow.view(np.int32).reshape(1, 128)
+
+
+def _encode_attr16(a32, full_depth):
+    """i32 attribute word -> int16 half-word: value(2) | raw(10) << 2 |
+    ddepth(3) << 12 with ddepth = full_depth - depth; air (0) stays 0.
+    Lossy only for materials > 3 and raw normals > 10 bits, which the
+    heightmap builder never makes.  Chunked and int32-only: an 8192^3
+    world's table is ~6.7 G words, and whole-array int64 temporaries would
+    need over 100 GB of host memory."""
+    a32 = np.asarray(a32)
+    flat = a32.reshape(-1)
+    out = np.empty(flat.shape, np.int16)
+    step = 1 << 26
+    for i in range(0, flat.shape[0], step):
+        a = flat[i:i + step]
+        v = a & 3
+        raw = (a >> 8) & 0x3FF
+        depth = (a >> 24) & 0x1F
+        dd = np.clip(full_depth - depth, 0, 7).astype(np.int32)
+        dd = np.where(a == 0, 0, dd)
+        out[i:i + step] = (v | (raw << 2)
+                           | (dd << 12)).astype(np.uint16).view(np.int16)
+    return out.reshape(a32.shape)
+
+
+def _attr_table(scene, capacity, attr16, attr2d):
+    """attr_comb: capacity*32768 mixed-voxel words ++ G^3 uniform words,
+    int32 or attr16 half-words.  Tables past 2^31 - 1 words (or any, with
+    ``attr2d=True``) are stored 2-D, (capacity + ceil(G^3/32768), 32768),
+    the tail padded to whole rows, so no index needs more than int32."""
+    G = scene.grid_size
+    nm = scene.occ_words.shape[0]
+    n = capacity * BRICK_WORDS + G * G * G
+    dt = np.int16 if attr16 else np.int32
+    two_d = n > (1 << 31) - 1 if attr2d is None else attr2d
+    if two_d:
+        table = np.zeros((capacity - (-(G * G * G) // BRICK_WORDS),
+                          BRICK_WORDS), dt)
+    else:
+        table = np.zeros(n, dt)
+    flat = table.reshape(-1)[:n]
+    attrs = np.asarray(scene.attrs).reshape(-1, BRICK_WORDS)
+    uniform = np.asarray(scene.brick_attr, np.int32)
+    if attr16:
+        full_depth = int(np.log2(scene.world_size))
+        for b0 in range(0, nm, 4096):
+            b1 = min(b0 + 4096, nm)
+            flat[b0 * BRICK_WORDS:b1 * BRICK_WORDS] = _encode_attr16(
+                attrs[b0:b1].reshape(-1), full_depth)
+        flat[capacity * BRICK_WORDS:] = _encode_attr16(uniform, full_depth)
+    else:
+        flat[:nm * BRICK_WORDS] = attrs.reshape(-1)
+        flat[capacity * BRICK_WORDS:] = uniform
+    return table
+
+
+def prepare(scene, device, attr16=False, attr2d=None) -> WaveScene:
+    """Derive the wavefront tables from a host BrickScene (one-time) and
+    copy them to ``device``.  G > 64 worlds get the paged L0 tables;
+    ``attr16`` stores attributes as int16 half-words (_encode_attr16);
+    ``attr2d`` forces (or suppresses) the 2-D attribute storage chosen by
+    default for tables past 2^31 - 1 words.  The slot capacity is the JAX
+    package's default, so slots and node ids match it."""
+    G = scene.grid_size
     capacity = scene.n_mixed + max(64, scene.n_mixed // 8)
+    _check_layout(G, capacity)
     nm = scene.occ_words.shape[0]
     occ = np.zeros((capacity, 8, 128), np.int32)
     scw = np.zeros((capacity, 1, 128), np.int32)
@@ -276,16 +416,26 @@ def prepare(scene, device) -> WaveScene:
     for b0 in range(0, nm, 4096):
         b1 = min(b0 + 4096, nm)
         occ[b0:b1], scw[b0:b1] = _brick_cr(scene.occ_words[b0:b1])
-    attr_comb = np.zeros(capacity * 32768 + G * G * G, np.int32)
-    attr_comb[:nm * 32768] = np.asarray(scene.attrs).reshape(-1)
-    attr_comb[capacity * 32768:] = np.asarray(scene.brick_attr, np.int32)
+    brick_slot = np.asarray(scene.brick_slot, np.int32)
+    slot_cell = np.zeros(capacity, np.int32)
+    cells = np.nonzero(brick_slot >= 0)[0]
+    slot_cell[brick_slot[cells]] = cells.astype(np.int32)
+    if G > PAGE:
+        tabs, l0_occ = _page_tables_np(scene)
+        l0_mixed = tabs.reshape(-1, 128)
+        l0_sc = np.zeros((1, 128), np.int32)
+    else:
+        l0_occ = _l0_cr_tables(scene)
+        l0_mixed = _l0_mixed_table(scene)
+        l0_sc = _l0_super_words(scene)
     tables = dict(
-        l0_occ=_l0_cr_tables(scene), l0_mixed=_l0_mixed_table(scene),
-        brick_slot=np.asarray(scene.brick_slot, np.int32), occ_words=occ,
-        attr_comb=attr_comb, sc_words=scw, l0_sc=_l0_super_words(scene))
+        l0_occ=l0_occ, l0_mixed=l0_mixed, brick_slot=brick_slot,
+        occ_words=occ, attr_comb=_attr_table(scene, capacity, attr16, attr2d),
+        sc_words=scw, l0_sc=l0_sc, slot_cell=slot_cell)
     return WaveScene.from_reference(
         tables, dict(world_size=scene.world_size, grid_size=G,
-                     n_mixed=scene.n_mixed, capacity=capacity), device)
+                     n_mixed=scene.n_mixed, capacity=capacity,
+                     attr16=attr16), device)
 
 
 # ------------------------------------------------------- plain (lock-step)
@@ -461,6 +611,116 @@ def _bits(words, index, shift, mask):
     return (words[index.long()] >> shift) & mask
 
 
+def _grid_probes(words, byte_at, coarse_at, sc_words, sc_at, hh, nsc):
+    """Probes (coarse any-bit, fine byte, supercell distance) of a brick
+    grid in coarse-refine layout: the flat L0, or one page of a paged world
+    (csrc/wf_ray.cuh::GridProbe).  Byte and coarse words lie in ``words``
+    from word offsets ``byte_at`` and ``coarse_at`` (ints or per-ray
+    tensors), the supercell nibbles in ``sc_words`` from ``sc_at``."""
+
+    def coarse(cx, cy, cz):
+        c = (cx * hh + cy) * hh + cz
+        return _bits(words, coarse_at + (c >> 5), c & 31, 1) != 0
+
+    def byte(cx, cy, cz):
+        c = (cx * hh + cy) * hh + cz
+        return _bits(words, byte_at + (c >> 2), (c & 3) * 8, 0xFF)
+
+    def sc(sx, sy, sz):
+        b = (sx * nsc + sy) * nsc + sz
+        return _bits(sc_words, sc_at + (b >> 3), (b & 7) * 4, 0xF)
+
+    return coarse, byte, sc
+
+
+def _paged_march(ws, p2, dc, inv, act2):
+    """Phase 2 of a paged world (wavefront._paged_march; per-ray C++ in
+    csrc/wf_ray.cuh::paged_march): jump empty pages to their exit, run the
+    G = 64 coarse-refine march inside each occupied page with its own
+    tables, and classify a hit through the page's mixed-byte rows.  Every
+    page is served, so no ray punts.  Returns (hit, bx, by, bz, t, inside,
+    steps, is_mixed) like the flat march, brick coords global."""
+    P = ws.pages
+    p2x, p2y, p2z = p2
+    dxc, dyc, dzc = dc
+    inv_x, inv_y, inv_z = inv
+    pgv = float(PAGE * 32)
+    gf = float(f32(ws.grid_size) * f32(32.0))
+    t1x, t2x = (0.0 - p2x) * inv_x, (gf - p2x) * inv_x
+    t1y, t2y = (0.0 - p2y) * inv_y, (gf - p2y) * inv_y
+    t1z, t2z = (0.0 - p2z) * inv_z, (gf - p2z) * inv_z
+    t_ent = torch.maximum(torch.maximum(torch.minimum(t1x, t2x),
+                                        torch.minimum(t1y, t2y)),
+                          torch.minimum(t1z, t2z))
+    t_out = torch.minimum(torch.minimum(torch.maximum(t1x, t2x),
+                                        torch.maximum(t1y, t2y)),
+                          torch.maximum(t1z, t2z))
+    miss_box = (t_ent > t_out) | (t_out < 0.0)
+    t00 = t_ent.clamp_min(0.0)
+    zf = torch.zeros_like(p2x)
+    push = torch.where(t00 > 0.0, t00 + _EXIT_EPS, zf)
+    act = act2 & ~miss_box
+    t_rel = torch.where(act, push, zf)
+    inside = ~(miss_box & act2)
+    hit = torch.zeros_like(act)
+    mixed = torch.zeros_like(act)
+    zi = torch.zeros(p2x.shape, dtype=torch.int32, device=p2x.device)
+    gx, gy, gz, steps = zi, zi, zi, zi
+    pocc = ws.l0_occ.view(-1)
+    tabs = ws.l0_mixed.view(-1)
+    pos = (dxc > 0, dyc > 0, dzc > 0)
+    for _ in range(3 * P + 4):
+        if not bool(act.any()):
+            break
+        qx, qy, qz = p2x + t_rel * dxc, p2y + t_rel * dyc, p2z + t_rel * dzc
+        pgx, pgy, pgz = (torch.floor(q / pgv).to(torch.int32)
+                         for q in (qx, qy, qz))
+        in_pg = ((pgx >= 0) & (pgx < P) & (pgy >= 0) & (pgy < P)
+                 & (pgz >= 0) & (pgz < P))
+        inside = inside & ~(act & ~in_pg)
+        act = act & in_pg
+        cgx, cgy, cgz = (g.clamp(0, P - 1) for g in (pgx, pgy, pgz))
+        pg = (cgx * P + cgy) * P + cgz
+        has = _bits(pocc, pg >> 5, pg & 31, 1) != 0
+        # empty page: jump to its exit
+        emp = act & ~has
+        tex = torch.minimum(torch.minimum(
+            (pgx.float() * pgv + torch.where(pos[0], pgv, 0.0) - p2x)
+            * inv_x,
+            (pgy.float() * pgv + torch.where(pos[1], pgv, 0.0) - p2y)
+            * inv_y),
+            (pgz.float() * pgv + torch.where(pos[2], pgv, 0.0) - p2z)
+            * inv_z)
+        t_rel = torch.where(emp, tex + _EXIT_EPS, t_rel)
+        steps = steps + emp.to(torch.int32)
+        run = act & has
+        base = pg * (PAGE_ROWS * 128)
+        coarse, byte, sc = _grid_probes(tabs, base, base + 64 * 128, tabs,
+                                        base + 136 * 128, 32, 8)
+        h, ix, iy, iz, tt, pins, st = _dda_cr(
+            qx - cgx.float() * pgv, qy - cgy.float() * pgv,
+            qz - cgz.float() * pgv, dc, inv, PAGE, 32.0, coarse, byte,
+            3 * PAGE + 4, run, sc_probe=sc)
+        cix, ciy, ciz = (i.clamp(0, PAGE - 1) for i in (ix, iy, iz))
+        cc = ((cix >> 1) * 32 + (ciy >> 1)) * 32 + (ciz >> 1)
+        mbyte = _bits(tabs, base + 72 * 128 + (cc >> 2), (cc & 3) * 8, 0xFF)
+        mx = ((mbyte >> (((cix & 1) << 2) | ((ciy & 1) << 1) | (ciz & 1)))
+              & 1) != 0
+        nh = run & h
+        hit = hit | nh
+        mixed = torch.where(nh, mx, mixed)
+        gx = torch.where(nh, pgx * PAGE + ix, gx)
+        gy = torch.where(nh, pgy * PAGE + iy, gy)
+        gz = torch.where(nh, pgz * PAGE + iz, gz)
+        exits = run & ~h & ~pins
+        stuck = run & ~h & pins          # page budget spent inside the page
+        t_rel = torch.where(nh | stuck, t_rel + tt,
+                            torch.where(exits, t_rel + tt + _EXIT_EPS, t_rel))
+        act = act & ~(nh | stuck)
+        steps = steps + torch.where(run, st, zi)
+    return hit, gx, gy, gz, t_rel, inside, steps, mixed
+
+
 def _crossing(ws, o, dc, inv, key, tw):
     """One crossing (phase 1 + phase 2) for every ray in the batch; all
     keys are KEY_INIT or a mixed brick cell.  Returns (status, t, cell,
@@ -497,28 +757,21 @@ def _crossing(ws, o, dc, inv, key, tw):
     t2_0 = torch.where(m_init, tw, tw + t1 + _EXIT_EPS)
     p2x, p2y, p2z = ox + t2_0 * dxc, oy + t2_0 * dyc, oz + t2_0 * dzc
     act2 = ~hit1
-    l0_flat = ws.l0_occ.view(-1)
-    coarse_base = _l0_rows(G)[0] * 128
-    hh = max(G // 2, 1)
-    nsc = G // 8
-
-    def l0_coarse(cx, cy, cz):
-        c = (cx * hh + cy) * hh + cz
-        return _bits(l0_flat, coarse_base + (c >> 5), c & 31, 1) != 0
-
-    def l0_byte(cx, cy, cz):
-        c = (cx * hh + cy) * hh + cz
-        return _bits(l0_flat, c >> 2, (c & 3) * 8, 0xFF)
-
-    def l0_sc(sx, sy, sz):
-        b = (sx * nsc + sy) * nsc + sz
-        return _bits(ws.l0_sc.view(-1), b >> 3, (b & 7) * 4, 0xF)
-
-    hit2, b2x, b2y, b2z, t2, ins2, st2 = _dda_cr(
-        p2x, p2y, p2z, dc, inv, G, 32.0, l0_coarse, l0_byte, _l0_cap(G),
-        act2, sc_probe=l0_sc if G >= 8 else None)
-    c2x, c2y, c2z = (b.clamp(0, G - 1) for b in (b2x, b2y, b2z))
-    is_mixed = _bits(ws.l0_mixed.view(-1), c2x * G + c2y, c2z, 1) != 0
+    if G > PAGE:
+        hit2, b2x, b2y, b2z, t2, ins2, st2, is_mixed = _paged_march(
+            ws, (p2x, p2y, p2z), dc, inv, act2)
+    else:
+        coarse, byte, sc = _grid_probes(
+            ws.l0_occ.view(-1), 0, _l0_rows(G)[0] * 128, ws.l0_sc.view(-1),
+            0, max(G // 2, 1), G // 8)
+        hit2, b2x, b2y, b2z, t2, ins2, st2 = _dda_cr(
+            p2x, p2y, p2z, dc, inv, G, 32.0, coarse, byte, _l0_cap(G),
+            act2, sc_probe=sc if G >= 8 else None)
+        # mixed bits: ZW = ceil(G/32) z-words per (x, y) column
+        c2x, c2y, c2z = (b.clamp(0, G - 1) for b in (b2x, b2y, b2z))
+        zw = -(-G // 32)
+        is_mixed = _bits(ws.l0_mixed.view(-1), (c2x * G + c2y) * zw
+                         + (c2z >> 5), c2z & 31, 1) != 0
     cell2 = (b2x * G + b2y) * G + b2z
     ux = ((p2x + t2 * dxc).to(torch.int32) - b2x * 32).clamp(0, 31)
     uy = ((p2y + t2 * dyc).to(torch.int32) - b2y * 32).clamp(0, 31)
@@ -621,7 +874,7 @@ class _Kernel:
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 K1 = _Kernel("wavefront", ["wavefront.cu"], "wf_trace",
-             [_P] * 6 + [_I, _I] + [_P] * 3 + [_I] + [_P] * 5 + [_P])
+             [_P] * 6 + [_I] * 4 + [_P] * 3 + [_I] + [_P] * 5 + [_P])
 
 
 def _table_args(ws):
@@ -632,8 +885,10 @@ def _table_args(ws):
     for a in arrs:
         if a.dtype != torch.int32 or not a.is_contiguous():
             raise ValueError("scene tables must be contiguous int32")
+    G = ws.grid_size
+    coarse_base = 0 if ws.pages else _l0_rows(G)[0] * 128
     return ([a.data_ptr() for a in arrs]
-            + [ws.grid_size, _l0_rows(ws.grid_size)[0] * 128])
+            + [G, coarse_base, -(-G // 32), ws.pages])
 
 
 def _check_rays(ws, o, d, alive, device_type):
@@ -700,34 +955,75 @@ def _rays(ws, origins, dirs, active=None):
 
 
 def _finish(ws: WaveScene, rec, origins, dirs) -> HitResult:
-    """Decode trace records into a HitResult (wavefront._finish, G <= 32).
+    """Decode trace records into a HitResult (wavefront._finish).
 
-    The attribute index is formed in int64; ``node`` (the attr_comb index,
-    the per-voxel id of the differentiable path) is returned as int32."""
+    The hit voxel is the record's exact one up to G = 32.  Above, the JAX
+    package's packed record loses it, and this decode does what JAX does:
+    for 32 < G <= 64 a uniform hit's voxel is recomputed from t along the
+    ray (clipped to the brick), and for paged worlds every hit's voxel is
+    recomputed from t + 1e-2 along the ray.  A flat attribute index is
+    formed in int64 and ``node`` (the attr_comb index, the per-voxel id of
+    the differentiable path) returned as int32; with 2-D storage ``node``
+    is the table row, as in the JAX package."""
     status, t_vox, cell, widx, iters = rec
     G = ws.grid_size
-    if ws.attr_comb.numel() - 1 > np.iinfo(np.int32).max:
-        raise ValueError("attr_comb too large for int32 node ids")
     hit = (status == MIXED) | (status == UNIFORM)
     uni = status == UNIFORM
-    cell = torch.where(hit, cell, torch.zeros_like(cell))
-    widx = torch.where(hit, widx, torch.zeros_like(widx))
-    slot = ws.brick_slot[cell.long()].long()
-    vx = torch.div(cell, G * G, rounding_mode="floor") * 32 \
-        + torch.div(widx, 1024, rounding_mode="floor")
-    vy = (torch.div(cell, G, rounding_mode="floor") % G) * 32 \
-        + torch.div(widx, 32, rounding_mode="floor") % 32
-    vz = (cell % G) * 32 + widx % 32
-    aidx = torch.where(uni, ws.capacity * 32768 + cell.long(),
-                       slot * 32768 + widx.long())
-    aidx = torch.where(hit, aidx, torch.zeros_like(aidx))
-    attr = torch.where(hit, ws.attr_comb[aidx], torch.zeros_like(cell))
+    zero = torch.zeros_like(cell)
+    cell = torch.where(hit, cell, zero)
+    widx = torch.where(hit, widx, zero)
+    slot = torch.where(hit & ~uni, ws.brick_slot[cell.long()], zero)
+    bx = torch.div(cell, G * G, rounding_mode="floor") * 32
+    by = (torch.div(cell, G, rounding_mode="floor") % G) * 32
+    bz = (cell % G) * 32
+    vx = bx + torch.div(widx, 1024, rounding_mode="floor")
+    vy = by + torch.div(widx, 32, rounding_mode="floor") % 32
+    vz = bz + widx % 32
+    if G > 32:
+        d = dirs.to(torch.float32)
+        p = (origins.to(torch.float32) - 1.0) * float(ws.world_size) \
+            + t_vox[:, None] * d
+        if ws.pages:
+            p = p + d * float(f32(1e-2))
+        ux, uy, uz = (torch.minimum(torch.maximum(p[:, i].to(torch.int32),
+                                                  b), b + 31)
+                      for i, b in enumerate((bx, by, bz)))
+        redo = hit if ws.pages else uni
+        vx = torch.where(redo, ux, vx)
+        vy = torch.where(redo, uy, vy)
+        vz = torch.where(redo, uz, vz)
+        widx = (vx - bx) * 1024 + (vy - by) * 32 + (vz - bz)
+    if ws.attr_comb.dim() == 2:
+        row = torch.where(uni, ws.capacity + (cell >> 15), slot)
+        col = torch.where(uni, cell & (BRICK_WORDS - 1), widx)
+        row = torch.where(hit, row, zero)
+        raw = ws.attr_comb[row.long(), torch.where(hit, col, zero).long()]
+        node = row
+    else:
+        if ws.attr_comb.numel() - 1 > np.iinfo(np.int32).max:
+            raise ValueError("flat attr_comb too large for int32 node ids; "
+                             "prepare it with attr2d")
+        aidx = torch.where(uni, ws.capacity * BRICK_WORDS + cell.long(),
+                           slot.long() * BRICK_WORDS + widx.long())
+        aidx = torch.where(hit, aidx, torch.zeros_like(aidx))
+        raw = ws.attr_comb[aidx]
+        node = aidx.to(torch.int32)
+    raw = torch.where(hit, raw.to(torch.int32), zero)
+    if ws.attr16:
+        # half-word decode (_encode_attr16): value(2) | raw(10) | ddepth(3)
+        a = raw & 0xFFFF
+        full_depth = int(np.log2(ws.world_size))
+        attr = ((a & 3) | (((a >> 2) & 0x3FF) << 8)
+                | ((full_depth - ((a >> 12) & 7)) << 24))
+        attr = torch.where(a == 0, zero, attr)
+    else:
+        attr = raw
     neg = torch.full_like(vx, -1)
     return brick_trace.decode_hits(
         ws.world_size, origins.to(torch.float32), dirs.to(torch.float32),
         hit, attr, torch.where(hit, vx, neg), torch.where(hit, vy, neg),
         torch.where(hit, vz, neg), t_vox, iters,
-        node=torch.where(hit, aidx.to(torch.int32), neg))
+        node=torch.where(hit, node, neg))
 
 
 def intersect_wavefront(wscene: WaveScene, origins, dirs, active=None,

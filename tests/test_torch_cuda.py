@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from svo_raytracer_torch.models import bigworld
 from svo_raytracer_torch.ops import wavefront
 
@@ -39,6 +40,27 @@ def test_kernel_equals_plain_on_gpu(size):
     assert wavefront.K1.launches == before + 1
     want = wavefront.trace_plain(ws, o, d, alive)
     # built with -fmad=false: the same float32 operations in the same order
+    for field, a, b in zip(("status", "t", "cell", "widx", "iters"), want,
+                           got):
+        assert torch.equal(a, b), field
+    assert (want[0] == wavefront.MIXED).any()
+    assert (want[0] == wavefront.UNIFORM).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["g64", "paged-4096"])
+def test_kernel_equals_plain_on_big_worlds(name):
+    """The G = 64 two-word mixed columns and the paged L0 march."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    scene = (chip_smoke.g64_scene() if name == "g64"
+             else chip_smoke.sparse_paged_scene())
+    ws = wavefront.prepare(scene, "cuda")
+    o, d = chip_smoke.aimed_rays(scene, 8192, seed=1)
+    o, d, alive = wavefront._rays(ws, torch.from_numpy(o).cuda(),
+                                  torch.from_numpy(d).cuda())
+    got = wavefront.trace(ws, o, d, alive)
+    want = wavefront.trace_plain(ws, o, d, alive)
     for field, a, b in zip(("status", "t", "cell", "widx", "iters"), want,
                            got):
         assert torch.equal(a, b), field

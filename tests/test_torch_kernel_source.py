@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from conftest import make_sphere_voxels
 from svo_raytracer_tpu.core import build_np
 from svo_raytracer_torch.models import bigworld
@@ -48,6 +49,10 @@ def host_trace():
 
 
 def _scene(name):
+    if name == "g64":
+        return chip_smoke.g64_scene()
+    if name == "paged-4096":
+        return chip_smoke.sparse_paged_scene()
     if name == "sphere-64":
         tree = build_np.build_octree_np(make_sphere_voxels(64, radius=24))
         return brick_scene.brickify(tree)
@@ -58,10 +63,15 @@ def _scene(name):
 
 
 @pytest.mark.parametrize("name", ["sphere-64", "heightmap-256",
-                                  "heightmap-512"])
+                                  "heightmap-512", "g64", "paged-4096"])
 def test_cuda_source_body_equals_plain(host_trace, name):
-    ws = wavefront.prepare(_scene(name), "cpu")
+    scene = _scene(name)
+    ws = wavefront.prepare(scene, "cpu")
     o, d = random_rays(2048, seed=17)
+    if name in ("g64", "paged-4096"):
+        # sparse worlds: add rays aimed at their bricks, so most hit
+        ao, ad = chip_smoke.aimed_rays(scene, 2048, seed=5)
+        o, d = np.concatenate([o, ao]), np.concatenate([d, ad])
     o[::97] = np.nan                        # non-finite rays stay misses
     ov, dv, alive = wavefront._rays(ws, torch.from_numpy(o),
                                     torch.from_numpy(d))

@@ -74,12 +74,26 @@ def test_from_reference_equals_prepare():
 
 
 def test_unported_layouts_raise():
-    class Big:
-        grid_size = 64        # 2048^3: slot-packed records, not ported yet
+    """Layouts the JAX package rejects, the port rejects with ValueError,
+    before reading any array: G > 256, a paged grid of partial pages, and
+    a G = 64 world whose slot capacity passes 15 bits."""
 
-    with pytest.raises(NotImplementedError):
-        wavefront.prepare(Big(), "cpu")
-    with pytest.raises(NotImplementedError):
-        wavefront.WaveScene.from_reference(
-            {}, dict(world_size=64, grid_size=2, n_mixed=1, capacity=65,
-                     attr16=True), "cpu")
+    class Scene:
+        def __init__(self, G, n_mixed=1):
+            self.grid_size, self.world_size, self.n_mixed = G, G * 32, n_mixed
+
+    # capacity = n_mixed + max(64, n_mixed // 8) passes 2^15 from 29128 on
+    for scene in (Scene(512), Scene(96), Scene(64, n_mixed=29128)):
+        with pytest.raises((ValueError, AssertionError)):
+            jwavefront.prepare(scene)
+        with pytest.raises(ValueError):
+            wavefront.prepare(scene, "cpu")
+        with pytest.raises(ValueError):
+            wavefront.WaveScene.from_reference(
+                {}, dict(world_size=scene.world_size,
+                         grid_size=scene.grid_size, n_mixed=scene.n_mixed,
+                         capacity=scene.n_mixed + max(64,
+                                                      scene.n_mixed // 8)),
+                "cpu")
+    # the largest G = 64 capacity still passes the check
+    wavefront._check_layout(64, (1 << 15) - 1)
