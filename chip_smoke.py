@@ -15,11 +15,23 @@ Every world's K1 records are held equal to its plain PyTorch version,
 trace_plain, on the card, as are those of the small test scenes (G = 2,
 G = 64 and a sparse paged 4096^3 scene) first.
 
-    python3 chip_smoke.py            # needs one CUDA GPU; builds K1 with nvcc
+After the 1024^3 wavefront world, the ESVO path runs on the same
+heightmap and camera: the octree is built on the card
+(models/heightmap.generate_chunk_heightmap, core/build_device), with its
+packed node table and a G = 32 skip grid, and render_image draws 1920x1080
+frames in mode 2 without and with the skip grid and in mode 0 (gi-1)
+with it, through kernels KE (the per-ray ESVO traversal) and K2 (the
+skip grid's coarse DDA).  Both are held equal to their plain versions
+(traverse.intersect_plain, brick_dda.coarse_dda_plain) on small scenes,
+on sampled rays of the world and on every segment of a mode-2 frame.
 
-The 1024^3 and 4096^3 frames are also profiled with torch.profiler (device
-kernels, device busy, K1's share, idle share per frame); the chrome traces
-are left in svo_raytracer_torch/_build/profile/.
+    python3 chip_smoke.py            # needs one CUDA GPU; builds K1, KE
+                                     # and K2 with nvcc
+
+The 1024^3 and 4096^3 wavefront frames and the ESVO mode-2 frames are also
+profiled with torch.profiler (device kernels, device busy, the kernels'
+share, idle share per frame); the chrome traces are left in
+svo_raytracer_torch/_build/profile/.
 
 Phases print their own lines; any failure raises (exit code != 0).  The
 line before the last two is the kernel table as JSON, then the card's
@@ -36,6 +48,7 @@ import resource
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -46,6 +59,29 @@ W, H = 1920, 1080
 WARM_FRAMES, TIMED_FRAMES = 2, 20
 BIG_TIMED_FRAMES = 10     # 2048^3 and 4096^3 worlds
 PROFILED_FRAMES = 5
+ESVO_WARM_FRAMES, ESVO_TIMED_FRAMES = 3, 10
+SKIP_G = 32               # skip-grid cells per edge
+
+# The least time the card could take (NVIDIA's data-sheet peaks of the
+# H100 SXM): bytes over the HBM rate, or operations over the
+# float32 rate outside the tensor cores, integer and compare operations
+# counted at that rate too.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+# loop-body operations per step (arithmetic, compares, address math),
+# counted from the kernels' sources: K1's coarse DDA step
+# (csrc/wf_ray.cuh dda_cr), KE's ESVO step (csrc/esvo_ray.cuh, PUSH or
+# ADVANCE + POP), K2's grid step (csrc/brick_dda.cuh)
+OPS_PER_STEP = {"K1": 40, "KE": 50, "K2": 30}
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by) of work that moves ``nbytes`` and does
+    ``ops`` operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
 
 
 def say(*a):
@@ -192,49 +228,385 @@ def timed(fn, reps=1, warm=True):
     return out, start.elapsed_time(end) / reps
 
 
-class Agreement:
-    """Kernel vs plain records on one ray set.  The kernel is built to be
-    bit-equal to trace_plain (-fmad=false, same float order), so every
-    record field (status, t, cell, widx, iters) must be equal on every ray;
-    hit agreement and the strict fields of tests/test_wavefront.py::_compare
-    on the decoded HitResults are printed as readings."""
+class Held:
+    """A kernel against its plain version on one input set: every field of
+    the (dict) records equal on every ray, NaN equal to NaN.  Times the
+    kernel by CUDA events (ms per launch) and its plain version once;
+    ``bound_ms`` is the least time for the record's own work."""
+
+    def __init__(self, kname, name, kernel, plain, nbytes, steps, reps=3):
+        rec_k, self.ms = timed(kernel, reps)
+        rec_p, self.plain_ms = timed(plain, warm=False)
+        diff, self.err = {}, 0.0
+        for f, a in rec_k.items():
+            b = rec_p[f]
+            if a.is_floating_point():
+                same = (a == b) | (a.isnan() & b.isnan())
+                if a.numel():
+                    self.err = max(self.err, (a - b).abs().nan_to_num()
+                                   .max().item())
+            else:
+                same = a == b
+            diff[f] = int((~same).sum())
+        self.rec = rec_k
+        n_steps = steps(rec_k)
+        self.bound_ms, self.bound_by = bound(nbytes,
+                                             n_steps * OPS_PER_STEP[kname])
+        say(f"  {kname} {name}: rays {len(next(iter(rec_k.values())))} "
+            f"steps {n_steps} unequal fields "
+            f"{ {f: n for f, n in diff.items() if n} or 0} kernel "
+            f"{self.ms:.3f} ms plain {self.plain_ms:.1f} ms bound "
+            f"{self.bound_ms:.4f} ms ({self.bound_by})")
+        if any(diff.values()):
+            raise AssertionError(f"{kname} {name}: kernel record differs "
+                                 f"from its plain version on {diff}")
+
+
+class Agreement(Held):
+    """K1 vs trace_plain on one ray set: every record field (status, t,
+    cell, widx, iters) of every ray, as Held.  Keeps the kernel's decoded
+    HitResult (``res_k``) for the next segment of a frame and prints K1's
+    hits, coarse steps per active ray and step rate."""
 
     FIELDS = ("status", "t", "cell", "widx", "iters")
 
     def __init__(self, ws, name, origins, dirs, active=None, reps=3):
         from svo_raytracer_torch.ops import wavefront as wf
         o, d, alive = wf._rays(ws, origins, dirs, active)
-        rec_k, self.ms = timed(lambda: wf.trace_kernel(ws, o, d, alive),
-                               reps)
-        rec_p, self.plain_ms = timed(lambda: wf.trace_plain(ws, o, d, alive),
-                                     warm=False)
-        k = wf._finish(ws, rec_k, origins, dirs)
-        p = wf._finish(ws, rec_p, origins, dirs)
-        self.res_k = k
-        both = k.hit & p.hit
-        self.hit_agree = (k.hit == p.hit).float().mean().item()
-        # raw-555 normals are NaN by design in both; NaN == NaN here
-        normal_ok = (((k.normal - p.normal).abs() <= 1e-5)
-                     | (k.normal.isnan() & p.normal.isnan())).all(-1)
-        ok = ((k.value == p.value) & (k.depth == p.depth)
-              & ((k.t - p.t).abs() <= 2e-4) & normal_ok)
-        nb = int(both.sum())
-        self.strict = (ok & both).sum().item() / max(nb, 1)
-        diff = {f: int((~((a == b) | (a.isnan() & b.isnan())
-                           if a.is_floating_point() else a == b)).sum())
-                for f, a, b in zip(self.FIELDS, rec_k, rec_p)}
-        self.err = (rec_k[1] - rec_p[1]).abs().nan_to_num().max().item()
-        steps = rec_k[4][alive].double()
-        say(f"  {name}: rays {o.shape[0]} active {int(alive.sum())} "
-            f"hits {nb} unequal {diff} hit_agree {self.hit_agree:.6f} "
-            f"strict {self.strict:.6f} max|dt| {self.err:.3e} kernel "
-            f"{self.ms:.3f} ms plain {self.plain_ms:.1f} ms; coarse steps "
-            f"per ray mean {steps.mean().item():.1f} max "
+
+        def record(trace):
+            return lambda: dict(zip(self.FIELDS, trace(ws, o, d, alive)))
+
+        # ray inputs and records once, the tables K1 reads once
+        tables = sum(getattr(ws, f).numel() * 4 for f in (
+            "l0_occ", "l0_mixed", "l0_sc", "brick_slot", "occ_words",
+            "sc_words"))
+        super().__init__("K1", name, record(wf.trace_kernel),
+                         record(wf.trace_plain),
+                         o.shape[0] * (12 + 12 + 1 + 20) + tables,
+                         lambda r: int(r["iters"][alive].sum()), reps)
+        self.res_k = wf._finish(ws, tuple(self.rec[f] for f in self.FIELDS),
+                                origins, dirs)
+        steps = self.rec["iters"][alive].double()
+        say(f"    active {int(alive.sum())} hits "
+            f"{int(self.res_k.hit.sum())}; coarse steps per ray mean "
+            f"{steps.mean().item():.1f} max "
             f"{int(steps.max().item()) if steps.numel() else 0}, "
             f"{steps.sum().item() / self.ms / 1e6:.3f} G steps/s")
-        if any(diff.values()):
-            raise AssertionError(f"{name}: kernel record differs from "
-                                 f"trace_plain on {diff}")
+
+
+def hold_ke(name, packed, o, d, alive, **kw):
+    """KE vs traverse.intersect_plain; steps are the ESVO iterations."""
+    from svo_raytracer_torch.ops import traverse as tr
+    o, d, alive = o.contiguous(), d.contiguous(), alive.contiguous()
+    return Held("KE", name,
+                lambda: tr.intersect_kernel(packed, o, d, alive, **kw),
+                lambda: tr.intersect_plain(packed, o, d, alive, **kw),
+                o.shape[0] * (12 + 12 + 1 + 4 * (len(tr.F_FIELDS)
+                                                 + len(tr.I_FIELDS)))
+                + packed.numel() * 4,
+                lambda r: int(r["iters"].sum()))
+
+
+def hold_k2(name, tab, G, o, d, alive):
+    """K2 vs brick_dda.coarse_dda_plain; steps are the cells visited (the
+    crossings plus the cell each live ray starts or stops in)."""
+    from svo_raytracer_torch.ops import brick_dda
+    o, d, alive = o.contiguous(), d.contiguous(), alive.contiguous()
+    return Held("K2", name,
+                lambda: brick_dda.coarse_dda_kernel(tab, o, d, G, 3 * G,
+                                                    alive),
+                lambda: brick_dda.coarse_dda_plain(tab, o, d, G, 3 * G,
+                                                   alive),
+                o.shape[0] * (12 + 12 + 1 + 4 * 6) + tab.numel() * 4,
+                lambda r: int(r["steps"].sum()) + int(alive.sum()))
+
+
+class capture:
+    """Within ``with``, record the arguments of every call of
+    ``module.<name>`` (the call itself runs as usual)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        orig = self.orig = getattr(self.module, self.name)
+
+        def recorded(*a, **kw):
+            self.calls.append((a, kw))
+            return orig(*a, **kw)
+
+        setattr(self.module, self.name, recorded)
+        return self.calls
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def build_esvo_world(dev, hm, mm, size):
+    """The octree world of a heightmap on dev: voxel chunk, device build,
+    packed node table and the SKIP_G^3 skip grid, each step timed.
+    Returns (DeviceOctree, packed, skip table)."""
+    import torch
+    from svo_raytracer_torch.core import build_device
+    from svo_raytracer_torch.models import heightmap
+    from svo_raytracer_torch.ops import brick_scene, skip_grid, traverse
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    secs = {}
+
+    def step(name, fn):
+        t0 = time.time()
+        out = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        secs[name] = round(time.time() - t0, 3)
+        return out
+
+    vox = step("voxels", lambda: heightmap.generate_chunk_heightmap(
+        hm, mm, chunk_size=size, height_scale=size // 2, device=dev))
+    solid = int((vox != 0).sum())
+    tree = step("octree", lambda: build_device.build_octree_device(vox))
+    del vox
+    packed = step("packed", lambda: traverse.make_packed_table(tree))
+    tab = step("skip grid", lambda: torch.from_numpy(brick_scene.table_rows(
+        skip_grid.build_skip_grid(tree, SKIP_G))).to(dev))
+    nbytes = sum(a.numel() * 4 for a in tree.arrays())
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    say(f"[esvo {size}] octree world on {dev}: solid voxels {solid}, "
+        f"n_nodes {tree.n_nodes}, seconds {secs}; node table {nbytes} B, "
+        f"packed {packed.numel() * 4} B, skip grid {tab.numel() * 4} B; "
+        f"peak device memory {peak / 2**30:.3f} GiB ({peak} B)")
+    return tree, packed, tab
+
+
+def esvo_small_checks(dev):
+    """KE and K2 vs their plain versions on sphere-64 and terrain-64: 4,096
+    random rays each (and again cone-traced with max_depth 8), and the
+    scenes' skip grids at G = 8 and 32 on the same rays."""
+    import torch
+    from svo_raytracer_torch.core import build_np
+    from svo_raytracer_torch.ops import brick_scene, skip_grid, traverse
+    ke, k2 = [], []
+    for sname, vox, seed in (("sphere-64", sphere_voxels(64, 24), 11),
+                             ("terrain-64", terrain_voxels(64, 7), 12)):
+        tree = build_np.build_octree_np(vox).to_device(dev)
+        packed = traverse.make_packed_table(tree)
+        o, d = (torch.from_numpy(a).to(dev) for a in random_rays(4096, seed))
+        alive = torch.ones(4096, dtype=torch.bool, device=dev)
+        ke.append(hold_ke(sname, packed, o, d, alive))
+        ke.append(hold_ke(f"{sname} cone max_depth 8", packed, o, d, alive,
+                          cone_trace=True, max_depth=8))
+        for G in (8, 32):
+            tab = torch.from_numpy(brick_scene.table_rows(
+                skip_grid.build_skip_grid(tree, G))).to(dev)
+            k2.append(hold_k2(f"{sname} G={G}", tab, G, (o - 1.0) * float(G),
+                              d, alive))
+    return ke, k2
+
+
+def esvo_frames(tree, packed, tab, cam5):
+    """The ESVO main path: 1920x1080 frames in mode 2 without and with the
+    skip grid, and mode 0 (gi-1) with it; one with per-segment stats, then
+    ESVO_WARM_FRAMES and ESVO_TIMED_FRAMES timed alone each.  Gates: finite
+    colour on >= 99.9% of pixels, primary hit fraction in (0.05, 0.95),
+    a KE launch in every segment, and skip on vs off equal in hit class on
+    every pixel with t within 2e-3 (tests/test_skip_grid.py)."""
+    import torch
+    from svo_raytracer_torch.ops import brick_dda, shade, traverse
+    configs = (("mode-2", dict(render_mode=2)),
+               ("mode-2 skip", dict(render_mode=2, skip_tab=tab)),
+               ("mode-0 gi-1 skip", dict(render_mode=0, gi_bounces=1,
+                                         skip_tab=tab)))
+    out = {}
+    for label, kw in configs:
+        def render(frame, stats=None):
+            return shade.render_image(tree, cam5, W, H, packed=packed,
+                                      frame_number=frame, stats=stats, **kw)
+        stats = []
+        ke0, k20 = traverse.KE.launches, brick_dda.K2.launches
+        col, depth, _ = render(1, stats)
+        torch.cuda.synchronize()
+        ke, k2 = traverse.KE.launches - ke0, brick_dda.K2.launches - k20
+        times = []
+        for i in range(ESVO_WARM_FRAMES + ESVO_TIMED_FRAMES):
+            t0 = time.perf_counter()
+            render(i + 2)
+            torch.cuda.synchronize()
+            if i >= ESVO_WARM_FRAMES:
+                times.append((time.perf_counter() - t0) * 1e3)
+        ms = float(np.median(times))
+        rays = sum(s["rays"] for s in stats)
+        # mode 2: depth 0 on a primary miss; mode 0: -1
+        hit = depth > 0 if kw["render_mode"] == 2 else depth != -1.0
+        hitfrac = hit.float().mean().item()
+        finite = torch.isfinite(col).all(-1).float().mean().item()
+        out[label] = dict(ms=ms, times=times, rays=rays, mrays=rays / ms /
+                          1e3, ke=ke, k2=k2, hitfrac=hitfrac, depth=depth,
+                          capped=[s["capped"] for s in stats])
+        say(f"[esvo frame {label}] {W}x{H}: median {ms:.3f} ms/frame of "
+            f"{ESVO_TIMED_FRAMES} (min {min(times):.3f}, max "
+            f"{max(times):.3f}); rays traced {rays} "
+            f"({rays / ms / 1e3:.2f} Mrays/s); KE launches {ke}, K2 "
+            f"launches {k2} per frame; primary hit fraction {hitfrac:.4f}; "
+            f"finite colour {finite:.6f}")
+        for i, s in enumerate(stats):
+            say(f"  segment {i}: rays {s['rays']} hits {s['hits']} "
+                f"ITER_CAP-retired {s['capped']} KE launches "
+                f"{s['launches']}")
+        if not 0.05 < hitfrac < 0.95:
+            raise AssertionError(f"hit fraction {hitfrac} out of range")
+        if finite < 0.999:
+            raise AssertionError(f"finite colour on {finite} of pixels")
+        if any(s["launches"] < 1 for s in stats):
+            raise AssertionError("a segment did not launch KE")
+        if "skip_tab" in kw and k2 < 1:
+            raise AssertionError("a skip-grid frame did not launch K2")
+    a, b = out["mode-2"]["depth"], out["mode-2 skip"]["depth"]
+    same = (a > 0) == (b > 0)
+    dt = (a - b)[a > 0].abs().max().item()
+    say(f"[esvo skip on/off] hit class equal on {same.float().mean():.7f} "
+        f"of pixels ({int((~same).sum())} differ), max |dt| {dt:.3e}")
+    if not bool(same.all()) or dt > 2e-3:
+        raise AssertionError("the skip grid changed a hit class or t")
+    return out
+
+
+def esvo_segment_checks(tree, packed, tab, cam5, sampled):
+    """KE and K2 against their plain versions on every segment of one
+    mode-2 skip-grid frame (their inputs recorded as render_image makes
+    them), and KE on the sampled rays of the world."""
+    import torch
+    from svo_raytracer_torch.ops import brick_dda, shade, traverse
+    with capture(traverse, "trace") as ke_calls, \
+            capture(brick_dda, "coarse_dda") as k2_calls:
+        shade.render_image(tree, cam5, W, H, render_mode=2, packed=packed,
+                           skip_tab=tab)
+    segs = ("primary", "shadow")
+    ke = [hold_ke(f"mode-2 {n} segment", a[0], a[1], a[2], a[3], **kw)
+          for n, (a, kw) in zip(segs, ke_calls)]
+    k2 = []
+    for n, ((occ, o, d), kw) in zip(segs, k2_calls):
+        alive = kw["active"]
+        if alive is None:
+            alive = torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
+        k2.append(hold_k2(f"mode-2 {n} segment", occ, kw["grid_size"], o, d,
+                          alive))
+    ke.append(hold_ke("world-16384", packed, *sampled))
+    return ke, k2
+
+
+def esvo_sampled_rays(tree, packed, cam5):
+    """16,384 rays of the octree world: 8,192 sampled primaries and the
+    8,192 shadow rays toward the sun of sampled primary hits."""
+    import torch
+    from svo_raytracer_torch.ops import shade, traverse
+    dev = cam5.device
+    gen = np.random.default_rng(SEED)
+    dirs = shade._normalize(shade.pixel_dirs_device(cam5, W, H))
+    pick = torch.from_numpy(gen.choice(dirs.shape[0], 8192,
+                                       replace=False)).to(dev)
+    o, d = cam5[0].expand(8192, 3), dirs[pick]
+    prim = traverse.intersect_octree(tree, o, d, packed=packed)
+    hits = torch.nonzero(prim.hit).flatten()
+    src = hits[torch.from_numpy(gen.integers(0, hits.numel(), 8192)).to(dev)]
+    sun = torch.tensor(shade.SUN_DIR_DIRECT, device=dev).expand(8192, 3)
+    o = torch.cat([o, prim.voxel_pos[src]]).contiguous()
+    d = torch.cat([d, sun]).contiguous()
+    return o, d, torch.ones(o.shape[0], dtype=torch.bool, device=dev)
+
+
+def esvo_skip_reading(tree, cam5):
+    """A reading, not a gate: the share of a frame's primary rays that the
+    skip grid keeps (may hit) and their mean skip in voxels, at SKIP_G
+    and at twice its resolution."""
+    import torch
+    from svo_raytracer_torch.ops import brick_scene, shade, skip_grid
+    dirs = shade._normalize(shade.pixel_dirs_device(cam5, W, H))
+    origins = cam5[0].expand_as(dirs)
+    out = {}
+    for G in (SKIP_G, 2 * SKIP_G):
+        tab = torch.from_numpy(brick_scene.table_rows(
+            skip_grid.build_skip_grid(tree, G))).to(cam5.device)
+        skip, maybe = skip_grid.skip_distances(tab, origins, dirs,
+                                               grid_size=G)
+        kept = maybe.float().mean().item()
+        vox = (skip[maybe].mean().item() * tree.world_size
+               if bool(maybe.any()) else 0.0)
+        out[G] = dict(kept=kept, mean_skip_voxels=vox)
+        say(f"[esvo skip reading G={G}] primary rays kept {kept:.4f}, mean "
+            f"skip {vox:.2f} voxels")
+    return out
+
+
+def esvo_phase(dev, size, cam5, ws):
+    """The ESVO path on the octree world of the size^3 heightmap, seen from
+    the wavefront world's camera ``cam5``; ``ws`` is that wavefront world,
+    for the hit-mask reading.  Returns (summary, kernel entries)."""
+    import torch
+    from svo_raytracer_torch.models import bigworld
+    from svo_raytracer_torch.ops import brick_dda, render_wave, shade
+    from svo_raytracer_torch.ops import traverse
+    t0 = time.time()
+    hm, mm = bigworld.fractal_heightmap(size, seed=SEED)
+    tree, packed, tab = build_esvo_world(dev, hm, mm, size)
+    say("[esvo compare] KE and K2 vs their plain versions on the card")
+    ke_small, k2_small = esvo_small_checks(dev)
+    # ---- the main path, with the launch counts set to 0 just before
+    traverse.KE.launches = brick_dda.K2.launches = 0
+    frames = esvo_frames(tree, packed, tab, cam5)
+    launches = dict(KE=traverse.KE.launches, K2=brick_dda.K2.launches)
+    say(f"[esvo main path {size}] launches {launches}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"the ESVO main path missed a kernel: "
+                             f"{launches}")
+    sampled = esvo_sampled_rays(tree, packed, cam5)
+    ke_seg, k2_seg = esvo_segment_checks(tree, packed, tab, cam5, sampled)
+    # a reading, not a gate: ESVO's primary hits vs the wavefront frame's
+    _, wdepth, _ = render_wave.render_frame_wavefront(ws, cam5, W, H,
+                                                      render_mode=3)
+    edepth = frames["mode-2 skip"]["depth"]
+    agree = ((wdepth > 0) == (edepth > 0)).float().mean().item()
+    both = (wdepth > 0) & (edepth > 0)
+    med = (wdepth - edepth)[both].abs().median().item()
+    say(f"[esvo vs wavefront {size}] primary hit mask agrees on "
+        f"{agree:.6f} of pixels; median |depth difference| on common hits "
+        f"{med:.3e}")
+    skip_reading = esvo_skip_reading(tree, cam5)
+    prof = {mode: profile_window(
+        f"esvo {size} mode-{mode} skip",
+        lambda i: shade.render_image(tree, cam5, W, H, render_mode=mode,
+                                     packed=packed, skip_tab=tab,
+                                     frame_number=i + 2),
+        {"KE": "esvo_trace_kernel", "K2": "dda_kernel"},
+        frames[label]["ms"])
+        for mode, label in ((2, "mode-2 skip"), (0, "mode-0 gi-1 skip"))}
+    summary = dict(
+        frames={k: {f: v[f] for f in ("ms", "times", "rays", "mrays", "ke",
+                                      "k2", "hitfrac", "capped")}
+                for k, v in frames.items()},
+        wavefront_hit_agreement=agree, median_abs_ddepth=med, profile=prof,
+        skip_reading=skip_reading,
+        segment_ms=dict(KE=[c.ms for c in ke_seg[:2]],
+                        K2=[c.ms for c in k2_seg]),
+        segment_plain_ms=dict(KE=[c.plain_ms for c in ke_seg[:2]],
+                              K2=[c.plain_ms for c in k2_seg]))
+    kernels = [
+        kernel_entry("K2 skip-grid coarse DDA, G=32",
+                     "svo_raytracer_torch/csrc/brick_dda.cu",
+                     "svo_raytracer_tpu/ops/brick_dda.py:85",
+                     launches["K2"], k2_seg, k2_small + k2_seg),
+        dict(kernel_entry("KE per-ray ESVO traversal, 1024^3 octree",
+                          "svo_raytracer_torch/csrc/esvo.cu",
+                          "svo_raytracer_tpu/ops/traverse.py:382",
+                          launches["KE"], ke_seg[:2], ke_small + ke_seg),
+             tpu_kernel="none: an XLA while_loop (traverse.py:415-423), "
+                        "no Pallas counterpart")]
+    del tree, packed, tab
+    torch.cuda.empty_cache()
+    say(f"[esvo {size}] phase took {time.time() - t0:.1f} s")
+    return summary, kernels
 
 
 def build_world(dev, size, n_mixed_range, **prepare_kw):
@@ -384,7 +756,7 @@ def sampled_rays(ws, cam5):
 def compare_segments(ws, cam5, bounces):
     """K1 vs trace_plain on every segment of a gi-``bounces`` frame."""
     import torch
-    from svo_raytracer_torch.ops import render_wave, rng
+    from svo_raytracer_torch.ops import render_wave, rng, shade
     say(f"[segments {ws.world_size}] K1 vs trace_plain per segment of a "
         f"gi-{bounces} frame")
     dev = cam5.device
@@ -402,69 +774,79 @@ def compare_segments(ws, cam5, bounces):
         a = Agreement(ws, f"segment {seg}", o.contiguous(), d.contiguous(),
                       None if seg == 0 else active)
         out.append(a)
-        accum, mask, depth, iters, active, o, d = render_wave._gi_update(
+        accum, mask, depth, iters, active, o, d = shade.gi_update(
             seg == 0, (), accum, mask, depth, iters, active, o, d, rand,
             a.res_k)
     return out
 
 
-def profile_frames(ws, cam5, frames):
-    """Device time of gi-1 and gi-3 frames from a torch.profiler trace
-    (written to svo_raytracer_torch/_build/profile/): device kernels per
-    frame, device busy (the union of kernel, memcpy and memset intervals),
-    K1's time, the largest kernels, and the idle share of the host-timed
-    profiled span."""
+def profile_window(tag, render, kernels, unprof_ms):
+    """Device time of PROFILED_FRAMES frames ``render(i)`` from a
+    torch.profiler trace (written to svo_raytracer_torch/_build/profile/):
+    device kernels per frame, device busy (the union of kernel, memcpy and
+    memset intervals), the time of each kernel of ``kernels`` (label ->
+    kernel-name substring), the largest kernels, and the idle share of
+    the host-timed profiled span."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from svo_raytracer_torch.ops import kernel_build, render_wave
+    from svo_raytracer_torch.ops import kernel_build
     outdir = kernel_build.BUILD_DIR / "profile"
     outdir.mkdir(parents=True, exist_ok=True)
-    size = ws.world_size
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(PROFILED_FRAMES):
+            render(i)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / PROFILED_FRAMES
+    path = str(outdir / f"trace_{tag.replace(' ', '_')}.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        ev = [e for e in json.load(f)["traceEvents"]
+              if e.get("ph") == "X" and e.get("cat") in
+              ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not ev:
+        raise AssertionError("the profiler recorded no device activity")
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in ev):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    per = {}
+    for e in ev:
+        if e["cat"] == "kernel":
+            per[e["name"]] = per.get(e["name"], 0.0) + e["dur"]
+    n = PROFILED_FRAMES
+    busy_ms = busy / 1e3 / n
+    nk = sum(e["cat"] == "kernel" for e in ev) / n
+    kms = {k: sum(v for name, v in per.items() if sub in name) / 1e3 / n
+           for k, sub in kernels.items()}
+    out = dict(profiled_wall_ms=wall, device_busy_ms=busy_ms,
+               kernels_per_frame=nk, idle_share=1.0 - busy_ms / wall,
+               **{f"{k.lower()}_ms": v for k, v in kms.items()})
+    shares = "; ".join(f"{k} {v:.3f} ms ({v / busy_ms:.1%} of busy)"
+                       for k, v in kms.items())
+    say(f"[profile {tag}] {n} frames: {nk:.0f} device kernels/frame; device "
+        f"busy {busy_ms:.3f} ms/frame; {shares}; profiled span {wall:.3f} "
+        f"ms/frame, idle share {1.0 - busy_ms / wall:.3f}; busy / "
+        f"unprofiled median frame {busy_ms / unprof_ms:.3f}")
+    for k, v in sorted(per.items(), key=lambda kv: -kv[1])[:8]:
+        say(f"    {v / 1e3 / n:8.3f} ms/frame  {k[:100]}")
+    return out
+
+
+def profile_frames(ws, cam5, frames):
+    """profile_window over gi-1 and gi-3 wavefront frames (K1's share)."""
+    from svo_raytracer_torch.ops import render_wave
     out = {}
     for bounces in frames:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for i in range(PROFILED_FRAMES):
-                render_wave.render_frame_wavefront(
-                    ws, cam5, W, H, render_mode=0, frame_number=i + 2,
-                    gi_bounces=bounces)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / PROFILED_FRAMES
-        path = str(outdir / f"trace_{size}_gi{bounces}.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            ev = [e for e in json.load(f)["traceEvents"]
-                  if e.get("ph") == "X" and e.get("cat") in
-                  ("kernel", "gpu_memcpy", "gpu_memset")]
-        if not ev:
-            raise AssertionError("the profiler recorded no device activity")
-        busy, end = 0.0, float("-inf")
-        for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in ev):
-            if b > end:
-                busy += b - max(a, end)
-                end = b
-        per = {}
-        for e in ev:
-            if e["cat"] == "kernel":
-                per[e["name"]] = per.get(e["name"], 0.0) + e["dur"]
-        n = PROFILED_FRAMES
-        busy_ms = busy / 1e3 / n
-        k1_ms = sum(v for k, v in per.items() if "wf_trace_kernel" in k) \
-            / 1e3 / n
-        nk = sum(e["cat"] == "kernel" for e in ev) / n
-        out[f"gi{bounces}"] = dict(
-            profiled_wall_ms=wall, device_busy_ms=busy_ms, k1_ms=k1_ms,
-            kernels_per_frame=nk, idle_share=1.0 - busy_ms / wall)
-        unprof = frames[bounces]["ms"]
-        say(f"[profile {size} gi-{bounces}] {n} frames: {nk:.0f} device "
-            f"kernels/frame; device busy {busy_ms:.3f} ms/frame; K1 "
-            f"{k1_ms:.3f} ms ({k1_ms / busy_ms:.1%} of busy); profiled span "
-            f"{wall:.3f} ms/frame, idle share {1.0 - busy_ms / wall:.3f}; "
-            f"busy / unprofiled median frame {busy_ms / unprof:.3f}")
-        for k, v in sorted(per.items(), key=lambda kv: -kv[1])[:8]:
-            say(f"    {v / 1e3 / n:8.3f} ms/frame  {k[:100]}")
+        out[f"gi{bounces}"] = profile_window(
+            f"{ws.world_size} gi{bounces}",
+            lambda i: render_wave.render_frame_wavefront(
+                ws, cam5, W, H, render_mode=0, frame_number=i + 2,
+                gi_bounces=bounces),
+            {"K1": "wf_trace_kernel"}, frames[bounces]["ms"])
     return out
 
 
@@ -492,14 +874,21 @@ def check_attr16(dev, scene, ws, rays):
         raise AssertionError(f"attr16 differs from int32: {ok}")
 
 
-def kernel_entry(name, replaces, launches, agreements):
+def kernel_entry(name, source, replaces, launches, timed_checks,
+                 all_checks):
+    """A kernel's line of the kernels table: times and bound are the means
+    over ``timed_checks``, max_abs_err the largest over ``all_checks``.
+    No PyTorch call computes what the port's kernels compute, so
+    library_ms is null."""
+    by = [c.bound_by for c in timed_checks]
     return dict(
-        name=name, route="cuda",
-        source="svo_raytracer_torch/csrc/wavefront.cu",
-        replaces=replaces, launches=launches,
-        max_abs_err=max(a.err for a in agreements),
-        ms=float(np.mean([a.ms for a in agreements])),
-        plain_ms=float(np.mean([a.plain_ms for a in agreements])))
+        name=name, route="cuda", source=source, replaces=replaces,
+        launches=launches,
+        max_abs_err=max(c.err for c in all_checks),
+        ms=float(np.mean([c.ms for c in timed_checks])),
+        plain_ms=float(np.mean([c.plain_ms for c in timed_checks])),
+        bound_ms=float(np.mean([c.bound_ms for c in timed_checks])),
+        bound_by=max(set(by), key=by.count), library_ms=None)
 
 
 def main():
@@ -507,7 +896,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     from svo_raytracer_torch.core import build_np
-    from svo_raytracer_torch.ops import brick_scene
+    from svo_raytracer_torch.ops import brick_dda, brick_scene, traverse
     from svo_raytracer_torch.ops import wavefront as wf
 
     t_start = time.time()
@@ -521,10 +910,22 @@ def main():
     say(f"[device] {name} x{torch.cuda.device_count()}; nvidia-smi: {smi}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
-    # ---- build K1 from csrc/
+    # ---- build K1, KE and K2 from csrc/, one nvcc each, all at once
+    def build(k):
+        t0 = time.time()
+        k.load()
+        return time.time() - t0
+
     t0 = time.time()
-    wf.K1.load()
-    say(f"[build] K1 built and loaded in {time.time() - t0:.1f} s")
+    with ThreadPoolExecutor(3) as pool:
+        secs = dict(zip(("K1", "KE", "K2"), pool.map(
+            build, (wf.K1, traverse.KE, brick_dda.K2))))
+    say(f"[build] K1, KE, K2 built and loaded in {time.time() - t0:.1f} s "
+        f"(nvcc seconds {', '.join(f'{k} {v:.1f}' for k, v in secs.items())})")
+    for k in (wf.K1, traverse.KE, brick_dda.K2):
+        for line in k.build_log().splitlines():
+            if "registers" in line or "spill" in line:
+                say(f"  ptxas {k.name}: {line.strip()}")
 
     # ---- kernel vs plain on the test scenes (flat G = 2, G = 64, paged)
     say("[compare] K1 vs trace_plain on the card")
@@ -574,10 +975,16 @@ def main():
             summary[size]["profile"] = profile_frames(ws, cam5, frames)
         if ws.pages:
             check_attr16(dev, scene, ws, rays)
+        k1_checks = seg + [sampled] + [checks[n] for n in small_names]
         kernels.append(kernel_entry(
             f"K1 wavefront traversal {part}, {size}^3",
+            "svo_raytracer_torch/csrc/wavefront.cu",
             f"svo_raytracer_tpu/ops/wavefront.py:{line}", launches,
-            seg + [sampled] + [checks[n] for n in small_names]))
+            k1_checks, k1_checks))
+        if size == 1024:
+            # the ESVO path on the same heightmap, from the same camera
+            summary["esvo"], esvo_kernels = esvo_phase(dev, size, cam5, ws)
+            kernels += esvo_kernels
         del scene, ws
     say(f"[summary] {json.dumps(summary)}")
     say(f"[run] {time.time() - t_start:.1f} s")

@@ -20,4 +20,7 @@ class HitResult(NamedTuple):
     normal: torch.Tensor      # f32 (B,3) decoded digit-packed normal
     hit_pos: torch.Tensor     # f32 (B,3) origin + t*dir + normal*scale_exp2*2
     voxel_pos: torch.Tensor   # f32 (B,3) cube corner + normal offset
-    node: torch.Tensor        # i32 per-voxel id (attr_comb index), -1 on miss
+    # i32, -1 on miss: the SoA node index of the hit node on the ESVO path
+    # (ops/traverse.py), the attr_comb index (the per-voxel id) on the
+    # wavefront path (ops/wavefront.py)
+    node: torch.Tensor

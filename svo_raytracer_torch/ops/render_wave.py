@@ -75,62 +75,6 @@ def _unblock(a, width, height):
     return x.reshape(nby * BLK, width, *a.shape[1:])[:height]
 
 
-def _gi_update(first, mirror_values, accum, mask, depth, iters_out, active,
-               o, d, r, res):
-    """One segment of render mode 0 (svotrace.comp:443-560) given its hit
-    record: miss shading, then the bounce ray of every hit."""
-    hit = active & res.hit
-    miss = active & ~res.hit
-
-    if first:
-        accum = torch.where(miss[:, None], accum + shade.sky(d), accum)
-        iters_out = torch.where(active, res.iters, iters_out)
-    else:
-        sun = shade._vec(shade.SUN_DIR_GI, d)
-        sun_hit = torch.arccos(
-            (d * sun[None, :]).sum(dim=-1).clamp(-1.0, 1.0)) < 0.4
-        add = torch.where(sun_hit[:, None], mask * 7.0,
-                          torch.zeros_like(mask)) + mask
-        accum = torch.where(miss[:, None], accum + add, accum)
-        depth = torch.where(miss, torch.zeros_like(depth), depth)
-        iters_out = torch.where(hit, res.iters, iters_out)
-
-    normal = torch.nan_to_num(res.normal)
-    newdir = shade.cosine_bounce(normal, r)
-    if mirror_values:
-        is_mirror = torch.zeros_like(active)
-        for v in mirror_values:
-            is_mirror = is_mirror | (res.value == v)
-        newdir = torch.where(is_mirror[:, None],
-                             shade.mirror_bounce(d, normal), newdir)
-    newdir = torch.where(torch.isfinite(newdir), newdir, -d)
-    matcolor = shade.material_color(res.value, res.voxel_pos)
-
-    depth = torch.where(hit, res.t, depth)
-    ndotl = (newdir * normal).sum(dim=-1, keepdim=True)
-    if mirror_values:
-        ndotl = torch.where(is_mirror[:, None], torch.ones_like(ndotl),
-                            ndotl)
-    mask = torch.where(hit[:, None], mask * matcolor * ndotl, mask)
-    o = torch.where(hit[:, None], res.voxel_pos, o)
-    d = torch.where(hit[:, None], newdir, d)
-    return accum, mask, depth, iters_out, hit, o, d
-
-
-def _heat_post(res):
-    it = res.iters.float()
-    v = torch.where(res.hit, 0.005 * it, 0.01 * it)
-    return (v[:, None].repeat(1, 3),
-            torch.where(res.hit, res.t, torch.zeros_like(res.t)), res.iters)
-
-
-def _norm_post(res):
-    col = torch.where(res.hit[:, None], res.normal * 0.5 + 0.5,
-                      torch.zeros_like(res.normal))
-    return col, torch.where(res.hit, res.t, torch.zeros_like(res.t)), \
-        res.iters
-
-
 def _segment(wscene, o, d, active, stats):
     """One traversal segment; ``stats`` (a list or None) gets its
     intersect_wavefront profile."""
@@ -158,7 +102,7 @@ def _render_gi(wscene, cam5, width, height, gi_bounces, mirror_values,
     o, d = origins, dirs
     for seg in range(gi_bounces + 1):
         res = _segment(wscene, o, d, None if seg == 0 else active, stats)
-        accum, mask, depth, iters_out, active, o, d = _gi_update(
+        accum, mask, depth, iters_out, active, o, d = shade.gi_update(
             seg == 0, tuple(mirror_values), accum, mask, depth, iters_out,
             active, o, d, rand, res)
     return accum, depth, iters_out
@@ -185,8 +129,8 @@ def render_frame_wavefront(wscene, cam5, width, height, render_mode=0,
     elif render_mode in (1, 3):
         origins, dirs, _, _ = _frame_rays(cam5, width, height)
         res = _segment(wscene, origins, dirs, None, stats)
-        col, depth, it = (_heat_post(res) if render_mode == 1
-                          else _norm_post(res))
+        col, depth, it = (shade.heatmap_colors(res) if render_mode == 1
+                          else shade.normal_colors(res))
     elif render_mode == 2:
         raise NotImplementedError("render mode 2 (direct light + shadow "
                                   "rays) is not ported yet")

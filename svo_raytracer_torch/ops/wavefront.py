@@ -848,33 +848,10 @@ def trace_plain(ws: WaveScene, o, d, alive):
 
 
 # --------------------------------------------------------------- kernel K1
-class _Kernel:
-    """A ctypes-bound CUDA kernel library, built at first use.
-
-    ``launches`` counts the launches of the kernel (one per call that
-    reaches the card); callers reset and read it."""
-
-    def __init__(self, name, sources, symbol, argtypes):
-        self.name, self.sources, self.symbol = name, sources, symbol
-        self.argtypes = argtypes
-        self.fn = None
-        self.launches = 0
-
-    def load(self):
-        if self.fn is None:
-            lib = kernel_build.load(self.name, self.sources,
-                                    kernel_build.nvcc_path(),
-                                    kernel_build.NVCC_FLAGS)
-            fn = getattr(lib, self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self.fn = fn
-        return self.fn
-
-
 _P, _I = ctypes.c_void_p, ctypes.c_int
-K1 = _Kernel("wavefront", ["wavefront.cu"], "wf_trace",
-             [_P] * 6 + [_I] * 4 + [_P] * 3 + [_I] + [_P] * 5 + [_P])
+K1 = kernel_build.Kernel(
+    "wavefront", ["wavefront.cu"], "wf_trace",
+    [_P] * 6 + [_I] * 4 + [_P] * 3 + [_I] + [_P] * 5 + [_P])
 
 
 def _table_args(ws):

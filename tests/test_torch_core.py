@@ -6,8 +6,10 @@ import pytest
 
 from conftest import make_sphere_voxels, make_terrain_voxels
 from svo_raytracer_tpu.core import build_np as jbuild_np
+from svo_raytracer_tpu.utils import constants as jconstants
 from svo_raytracer_tpu.utils.camera import Camera as JCamera
 from svo_raytracer_torch.core import build_np
+from svo_raytracer_torch.utils import constants
 from svo_raytracer_torch.utils.camera import Camera
 
 
@@ -47,3 +49,12 @@ def test_camera_uniform_matches(pos, turns):
     assert (ref.pitch, ref.yaw) == (got.pitch, got.yaw)
     a, b = ref.uniform(), got.uniform()
     assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def test_constants_match():
+    """Every constant the port keeps equals the JAX package's."""
+    names = [n for n in vars(constants) if n.isupper()]
+    assert {"MAX_SCALE", "MAX_DEPTH", "MAX_RAYCAST_ITERATIONS", "EPSILON",
+            "SQRT3", "TAG_BRANCH", "CHILD_OFFSETS"} <= set(names)
+    for n in names:
+        assert getattr(constants, n) == getattr(jconstants, n), n

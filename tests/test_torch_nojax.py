@@ -1,6 +1,8 @@
 """The port never imports jax or the JAX package: with both blocked in
 sys.modules, every svo_raytracer_torch module imports, a few rays trace on
-the CPU, and chip_smoke.py's scene and camera helpers run."""
+the CPU, chip_smoke.py's scene and camera helpers run, and a 32^3
+heightmap octree built by the port renders a mode-2 frame with a skip
+grid through chip_smoke's ESVO world helper."""
 
 import os
 import subprocess
@@ -33,6 +35,15 @@ tree = build_np.build_octree_np(chip_smoke.sphere_voxels(32, 12))
 ws = wavefront.prepare(brick_scene.brickify(tree), "cpu")
 cam5 = chip_smoke.place_camera(ws, "cpu")
 assert cam5.shape == (5, 3) and 1.0 < float(cam5[0, 1]) < 2.0, cam5
+from svo_raytracer_torch.ops import shade
+hm, mm = bigworld.fractal_heightmap(32, seed=1)
+etree, packed, tab = chip_smoke.build_esvo_world(torch.device("cpu"), hm,
+                                                 mm, 32)
+assert etree.n_nodes > 8 and tab.shape == (8, 128)
+col, depth, _ = shade.render_image(etree, cam5, 32, 24, render_mode=2,
+                                   packed=packed, skip_tab=tab)
+assert col.shape == (24, 32, 3) and bool(torch.isfinite(col).all())
+assert 0.0 < float((depth > 0).float().mean()) < 1.0, depth
 assert not any(k.split(".")[0] in ("jax", "svo_raytracer_tpu")
                for k, v in sys.modules.items() if v is not None)
 print("ok")
