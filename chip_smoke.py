@@ -18,17 +18,22 @@ G = 64 and a sparse paged 4096^3 scene) first.
 After the 1024^3 wavefront world, the ESVO path runs on the same
 heightmap and camera: the octree is built on the card
 (models/heightmap.generate_chunk_heightmap, core/build_device), with its
-packed node table and a G = 32 skip grid, and render_image draws 1920x1080
-frames in mode 2 without and with the skip grid and in mode 0 (gi-1)
-with it, through kernels KE (the per-ray ESVO traversal) and K2 (the
-skip grid's coarse DDA).  Both are held equal to their plain versions
-(traverse.intersect_plain, brick_dda.coarse_dda_plain) on small scenes,
-on sampled rays of the world and on every segment of a mode-2 frame.
+packed node table and skip grids at G = 32 and 64, and render_image draws
+1920x1080 frames in mode 2 without a skip grid and with each, and in
+mode 0 (gi-1) with the G = 32 grid, through kernels KE (the per-ray ESVO
+traversal) and K2 (the skip grid's coarse DDA).  Both are held equal to
+their plain versions (traverse.intersect_plain,
+brick_dda.coarse_dda_plain) on small scenes (KE also cut at a depth
+below the trees' and cone-traced), on sampled rays of the world and on
+every segment of each skip-grid frame.
+
+Each check's bound counts the ray inputs and records once, the distinct
+table words its plain version gathers, and its steps' operations.
 
     python3 chip_smoke.py            # needs one CUDA GPU; builds K1, KE
                                      # and K2 with nvcc
 
-The 1024^3 and 4096^3 wavefront frames and the ESVO mode-2 frames are also
+The 1024^3 and 4096^3 wavefront frames and the ESVO skip-grid frames are also
 profiled with torch.profiler (device kernels, device busy, the kernels'
 share, idle share per frame); the chrome traces are left in
 svo_raytracer_torch/_build/profile/.
@@ -60,7 +65,12 @@ WARM_FRAMES, TIMED_FRAMES = 2, 20
 BIG_TIMED_FRAMES = 10     # 2048^3 and 4096^3 worlds
 PROFILED_FRAMES = 5
 ESVO_WARM_FRAMES, ESVO_TIMED_FRAMES = 3, 10
-SKIP_G = 32               # skip-grid cells per edge
+SKIP_G = 32               # skip-grid cells per edge (render_image's default)
+SKIP_GS = (SKIP_G, 2 * SKIP_G)   # the frames' skip grids; K2 marches at 64
+# share of pixels whose first hit may move when a skip restarts the ray
+# nearer a grazed voxel edge (esvo_skip_checks; 15 of 2,073,600 primaries
+# from the 1024^3 probe camera at G = 64 on an H100)
+SKIP_RESTART_SHARE = 1e-4
 
 # The least time the card could take (NVIDIA's data-sheet peaks of the
 # H100 SXM): bytes over the HBM rate, or operations over the
@@ -228,13 +238,52 @@ def timed(fn, reps=1, warm=True):
     return out, start.elapsed_time(end) / reps
 
 
+class Gathered:
+    """Within ``with``, the distinct words of ``tables`` that indexing
+    (``Tensor.__getitem__``, the plain versions' gathers) reads, through
+    a torch function mode; ``words()`` counts them."""
+
+    def __init__(self, tables):
+        import torch
+        from torch.overrides import TorchFunctionMode
+        seen = {t.data_ptr(): torch.zeros(t.numel(), dtype=torch.bool,
+                                          device=t.device)
+                for t in tables if t.numel()}
+
+        class Mode(TorchFunctionMode):
+            def __torch_function__(self, func, types, args=(), kwargs=None):
+                t = args[0] if func is torch.Tensor.__getitem__ else None
+                if (t is not None and t.dim() == 1
+                        and isinstance(args[1], (int, torch.Tensor))):
+                    mark = seen.get(t.data_ptr())
+                    if mark is not None and t.numel() == mark.numel():
+                        mark[args[1]] = True
+                return func(*args, **(kwargs or {}))
+
+        self.seen, self.mode = seen, Mode()
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.mode.__exit__(*exc)
+
+    def words(self):
+        return sum(int(m.sum()) for m in self.seen.values())
+
+
 class Held:
     """A kernel against its plain version on one input set: every field of
     the (dict) records equal on every ray, NaN equal to NaN.  Times the
-    kernel by CUDA events (ms per launch) and its plain version once;
-    ``bound_ms`` is the least time for the record's own work."""
+    kernel by CUDA events (ms per launch) and its plain version once.
+    ``bound_ms`` is the least time for the set's own work: ``ray_bytes``
+    (ray inputs and records, once) plus the distinct words of ``tables``
+    that the plain version gathers (counted on a second, untimed run), and
+    the steps times OPS_PER_STEP."""
 
-    def __init__(self, kname, name, kernel, plain, nbytes, steps, reps=3):
+    def __init__(self, kname, name, kernel, plain, ray_bytes, tables, steps,
+                 reps=3):
         rec_k, self.ms = timed(kernel, reps)
         rec_p, self.plain_ms = timed(plain, warm=False)
         diff, self.err = {}, 0.0
@@ -249,11 +298,15 @@ class Held:
                 same = a == b
             diff[f] = int((~same).sum())
         self.rec = rec_k
+        with Gathered(tables) as g:
+            plain()
+        self.words = g.words()
         n_steps = steps(rec_k)
-        self.bound_ms, self.bound_by = bound(nbytes,
-                                             n_steps * OPS_PER_STEP[kname])
+        self.nbytes = ray_bytes + 4 * self.words
+        self.ops = n_steps * OPS_PER_STEP[kname]
+        self.bound_ms, self.bound_by = bound(self.nbytes, self.ops)
         say(f"  {kname} {name}: rays {len(next(iter(rec_k.values())))} "
-            f"steps {n_steps} unequal fields "
+            f"steps {n_steps} table words read {self.words} unequal fields "
             f"{ {f: n for f, n in diff.items() if n} or 0} kernel "
             f"{self.ms:.3f} ms plain {self.plain_ms:.1f} ms bound "
             f"{self.bound_ms:.4f} ms ({self.bound_by})")
@@ -277,13 +330,12 @@ class Agreement(Held):
         def record(trace):
             return lambda: dict(zip(self.FIELDS, trace(ws, o, d, alive)))
 
-        # ray inputs and records once, the tables K1 reads once
-        tables = sum(getattr(ws, f).numel() * 4 for f in (
-            "l0_occ", "l0_mixed", "l0_sc", "brick_slot", "occ_words",
-            "sc_words"))
+        tables = [getattr(ws, f) for f in ("l0_occ", "l0_mixed", "l0_sc",
+                                           "brick_slot", "occ_words",
+                                           "sc_words")]
         super().__init__("K1", name, record(wf.trace_kernel),
                          record(wf.trace_plain),
-                         o.shape[0] * (12 + 12 + 1 + 20) + tables,
+                         o.shape[0] * (12 + 12 + 1 + 20), tables,
                          lambda r: int(r["iters"][alive].sum()), reps)
         self.res_k = wf._finish(ws, tuple(self.rec[f] for f in self.FIELDS),
                                 origins, dirs)
@@ -303,9 +355,8 @@ def hold_ke(name, packed, o, d, alive, **kw):
                 lambda: tr.intersect_kernel(packed, o, d, alive, **kw),
                 lambda: tr.intersect_plain(packed, o, d, alive, **kw),
                 o.shape[0] * (12 + 12 + 1 + 4 * (len(tr.F_FIELDS)
-                                                 + len(tr.I_FIELDS)))
-                + packed.numel() * 4,
-                lambda r: int(r["iters"].sum()))
+                                                 + len(tr.I_FIELDS))),
+                [packed], lambda r: int(r["iters"].sum()))
 
 
 def hold_k2(name, tab, G, o, d, alive):
@@ -318,7 +369,7 @@ def hold_k2(name, tab, G, o, d, alive):
                                                     alive),
                 lambda: brick_dda.coarse_dda_plain(tab, o, d, G, 3 * G,
                                                    alive),
-                o.shape[0] * (12 + 12 + 1 + 4 * 6) + tab.numel() * 4,
+                o.shape[0] * (12 + 12 + 1 + 4 * 6), [tab],
                 lambda r: int(r["steps"].sum()) + int(alive.sum()))
 
 
@@ -345,8 +396,8 @@ class capture:
 
 def build_esvo_world(dev, hm, mm, size):
     """The octree world of a heightmap on dev: voxel chunk, device build,
-    packed node table and the SKIP_G^3 skip grid, each step timed.
-    Returns (DeviceOctree, packed, skip table)."""
+    packed node table and a skip grid for each G of SKIP_GS, each step
+    timed.  Returns (DeviceOctree, packed, {G: skip table})."""
     import torch
     from svo_raytracer_torch.core import build_device
     from svo_raytracer_torch.models import heightmap
@@ -370,21 +421,25 @@ def build_esvo_world(dev, hm, mm, size):
     tree = step("octree", lambda: build_device.build_octree_device(vox))
     del vox
     packed = step("packed", lambda: traverse.make_packed_table(tree))
-    tab = step("skip grid", lambda: torch.from_numpy(brick_scene.table_rows(
-        skip_grid.build_skip_grid(tree, SKIP_G))).to(dev))
+    tabs = {G: step(f"skip grid {G}", lambda: torch.from_numpy(
+        brick_scene.table_rows(skip_grid.build_skip_grid(tree, G))).to(dev))
+        for G in SKIP_GS}
     nbytes = sum(a.numel() * 4 for a in tree.arrays())
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     say(f"[esvo {size}] octree world on {dev}: solid voxels {solid}, "
         f"n_nodes {tree.n_nodes}, seconds {secs}; node table {nbytes} B, "
-        f"packed {packed.numel() * 4} B, skip grid {tab.numel() * 4} B; "
+        f"packed {packed.numel() * 4} B, skip grids "
+        f"{ {G: t.numel() * 4 for G, t in tabs.items()} } B; "
         f"peak device memory {peak / 2**30:.3f} GiB ({peak} B)")
-    return tree, packed, tab
+    return tree, packed, tabs
 
 
 def esvo_small_checks(dev):
-    """KE and K2 vs their plain versions on sphere-64 and terrain-64: 4,096
-    random rays each (and again cone-traced with max_depth 8), and the
-    scenes' skip grids at G = 8 and 32 on the same rays."""
+    """KE and K2 vs their plain versions on sphere-64 and terrain-64 (octree
+    depth 6): 4,096 random rays each, traced in full, cut at max_depth 3,
+    and cone-traced from max_depth 3 (the LOD clamp lifts rays past
+    t = 0.05 to depth 11); the scenes' skip grids at G = 8 and 32 on the
+    same rays.  Gates that the depth cutoff and the clamp both fired."""
     import torch
     from svo_raytracer_torch.core import build_np
     from svo_raytracer_torch.ops import brick_scene, skip_grid, traverse
@@ -395,9 +450,23 @@ def esvo_small_checks(dev):
         packed = traverse.make_packed_table(tree)
         o, d = (torch.from_numpy(a).to(dev) for a in random_rays(4096, seed))
         alive = torch.ones(4096, dtype=torch.bool, device=dev)
-        ke.append(hold_ke(sname, packed, o, d, alive))
-        ke.append(hold_ke(f"{sname} cone max_depth 8", packed, o, d, alive,
-                          cone_trace=True, max_depth=8))
+        full, cut, cone = (
+            hold_ke(f"{sname}{label}", packed, o, d, alive, **kw)
+            for label, kw in (("", {}), (" max_depth 3", dict(max_depth=3)),
+                              (" cone max_depth 3",
+                               dict(cone_trace=True, max_depth=3))))
+        ke += [full, cut, cone]
+
+        def deeper(h, n):   # finished rays that ended deeper than depth n
+            r = h.rec
+            return int(((r["done"] == 1)
+                        & (traverse.MAX_SCALE - r["scale"] > n)).sum())
+
+        say(f"    {sname}: finished deeper than 3: full {deeper(full, 3)}, "
+            f"max_depth 3 {deeper(cut, 3)}, cone {deeper(cone, 3)}")
+        if deeper(full, 3) == 0 or deeper(cut, 3) or deeper(cone, 3) == 0:
+            raise AssertionError(f"{sname}: the depth cutoff or the cone "
+                                 f"clamp did not fire")
         for G in (8, 32):
             tab = torch.from_numpy(brick_scene.table_rows(
                 skip_grid.build_skip_grid(tree, G))).to(dev)
@@ -406,21 +475,29 @@ def esvo_small_checks(dev):
     return ke, k2
 
 
-def esvo_frames(tree, packed, tab, cam5):
-    """The ESVO main path: 1920x1080 frames in mode 2 without and with the
-    skip grid, and mode 0 (gi-1) with it; one with per-segment stats, then
-    ESVO_WARM_FRAMES and ESVO_TIMED_FRAMES timed alone each.  Gates: finite
-    colour on >= 99.9% of pixels, primary hit fraction in (0.05, 0.95),
-    a KE launch in every segment, and skip on vs off equal in hit class on
-    every pixel with t within 2e-3 (tests/test_skip_grid.py)."""
+def esvo_configs(tabs):
+    """render_image arguments of the ESVO frames, by label."""
+    def skip(G):
+        return dict(skip_tab=tabs[G], skip_grid_size=G)
+
+    return {"mode-2": dict(render_mode=2),
+            **{f"mode-2 skip G={G}": dict(render_mode=2, **skip(G))
+               for G in SKIP_GS},
+            f"mode-0 gi-1 skip G={SKIP_G}": dict(render_mode=0, gi_bounces=1,
+                                                 **skip(SKIP_G))}
+
+
+def esvo_frames(tree, packed, tabs, cam5):
+    """The ESVO main path: 1920x1080 frames in mode 2 without the skip grid
+    and with it at each G of SKIP_GS, and mode 0 (gi-1) with the G = 32
+    grid; one with per-segment stats, then ESVO_WARM_FRAMES and
+    ESVO_TIMED_FRAMES timed alone each.  Gates: finite colour on >= 99.9%
+    of pixels, primary hit fraction in (0.05, 0.95), a KE launch in every
+    segment and a K2 launch in every skip-grid frame."""
     import torch
     from svo_raytracer_torch.ops import brick_dda, shade, traverse
-    configs = (("mode-2", dict(render_mode=2)),
-               ("mode-2 skip", dict(render_mode=2, skip_tab=tab)),
-               ("mode-0 gi-1 skip", dict(render_mode=0, gi_bounces=1,
-                                         skip_tab=tab)))
     out = {}
-    for label, kw in configs:
+    for label, kw in esvo_configs(tabs).items():
         def render(frame, stats=None):
             return shade.render_image(tree, cam5, W, H, packed=packed,
                                       frame_number=frame, stats=stats, **kw)
@@ -463,38 +540,39 @@ def esvo_frames(tree, packed, tab, cam5):
             raise AssertionError("a segment did not launch KE")
         if "skip_tab" in kw and k2 < 1:
             raise AssertionError("a skip-grid frame did not launch K2")
-    a, b = out["mode-2"]["depth"], out["mode-2 skip"]["depth"]
-    same = (a > 0) == (b > 0)
-    dt = (a - b)[a > 0].abs().max().item()
-    say(f"[esvo skip on/off] hit class equal on {same.float().mean():.7f} "
-        f"of pixels ({int((~same).sum())} differ), max |dt| {dt:.3e}")
-    if not bool(same.all()) or dt > 2e-3:
-        raise AssertionError("the skip grid changed a hit class or t")
     return out
 
 
-def esvo_segment_checks(tree, packed, tab, cam5, sampled):
-    """KE and K2 against their plain versions on every segment of one
-    mode-2 skip-grid frame (their inputs recorded as render_image makes
-    them), and KE on the sampled rays of the world."""
+def esvo_segment_checks(tree, packed, tabs, cam5):
+    """KE and K2 against their plain versions on every segment of one frame
+    of each skip-grid configuration (their inputs recorded as
+    render_image makes them).  Returns {label: (KE checks, K2 checks)}.
+    Gates that K2 marches (takes steps) on the G = 64 frame."""
     import torch
     from svo_raytracer_torch.ops import brick_dda, shade, traverse
-    with capture(traverse, "trace") as ke_calls, \
-            capture(brick_dda, "coarse_dda") as k2_calls:
-        shade.render_image(tree, cam5, W, H, render_mode=2, packed=packed,
-                           skip_tab=tab)
-    segs = ("primary", "shadow")
-    ke = [hold_ke(f"mode-2 {n} segment", a[0], a[1], a[2], a[3], **kw)
-          for n, (a, kw) in zip(segs, ke_calls)]
-    k2 = []
-    for n, ((occ, o, d), kw) in zip(segs, k2_calls):
-        alive = kw["active"]
-        if alive is None:
-            alive = torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
-        k2.append(hold_k2(f"mode-2 {n} segment", occ, kw["grid_size"], o, d,
-                          alive))
-    ke.append(hold_ke("world-16384", packed, *sampled))
-    return ke, k2
+    out = {}
+    for label, kw in esvo_configs(tabs).items():
+        if "skip_tab" not in kw:
+            continue
+        with capture(traverse, "trace") as ke_calls, \
+                capture(brick_dda, "coarse_dda") as k2_calls:
+            shade.render_image(tree, cam5, W, H, packed=packed, **kw)
+        segs = ("primary", "shadow" if kw["render_mode"] == 2 else "bounce")
+        ke = [hold_ke(f"{label} {n} segment", *a, **k)
+              for n, (a, k) in zip(segs, ke_calls)]
+        k2 = []
+        for n, ((occ, o, d), k) in zip(segs, k2_calls):
+            alive = k["active"]
+            if alive is None:
+                alive = torch.ones(o.shape[0], dtype=torch.bool,
+                                   device=o.device)
+            k2.append(hold_k2(f"{label} {n} segment", occ, k["grid_size"], o,
+                              d, alive))
+        out[label] = (ke, k2)
+    marched = int(out[f"mode-2 skip G={2 * SKIP_G}"][1][0].rec["steps"].sum())
+    if marched == 0:
+        raise AssertionError("K2 took no step on the G=64 primary segment")
+    return out
 
 
 def esvo_sampled_rays(tree, packed, cam5):
@@ -517,26 +595,47 @@ def esvo_sampled_rays(tree, packed, cam5):
     return o, d, torch.ones(o.shape[0], dtype=torch.bool, device=dev)
 
 
-def esvo_skip_reading(tree, cam5):
-    """A reading, not a gate: the share of a frame's primary rays that the
-    skip grid keeps (may hit) and their mean skip in voxels, at SKIP_G
-    and at twice its resolution."""
-    import torch
-    from svo_raytracer_torch.ops import brick_scene, shade, skip_grid
+def esvo_skip_checks(tree, cam5, tabs, frames):
+    """The skip grids against the mode-2 frame without one.  Gates, exact:
+    the skip is conservative (no primary hit of the skip-off frame lies in
+    a ray the grid calls a definite miss or before its skip distance).
+    Then skip on vs off (tests/test_skip_grid.py): equal in hit class on
+    every pixel with t within 2e-3 where no ray moves (G = 32: every
+    primary starts in an occupied cell); where rays restart nearer the
+    surface, the restarted ray's float rounding (origin ~1e-4 voxel at
+    1024^3) may flip a hit that grazes a voxel edge, so at most a share
+    SKIP_RESTART_SHARE of pixels may differ.  A reading: the share of
+    primaries each grid keeps and their mean skip in voxels."""
+    from svo_raytracer_torch.ops import shade, skip_grid
     dirs = shade._normalize(shade.pixel_dirs_device(cam5, W, H))
     origins = cam5[0].expand_as(dirs)
+    t_off = frames["mode-2"]["depth"].reshape(-1)
+    hit = t_off > 0
     out = {}
-    for G in (SKIP_G, 2 * SKIP_G):
-        tab = torch.from_numpy(brick_scene.table_rows(
-            skip_grid.build_skip_grid(tree, G))).to(cam5.device)
+    for G, tab in tabs.items():
         skip, maybe = skip_grid.skip_distances(tab, origins, dirs,
                                                grid_size=G)
         kept = maybe.float().mean().item()
         vox = (skip[maybe].mean().item() * tree.world_size
                if bool(maybe.any()) else 0.0)
-        out[G] = dict(kept=kept, mean_skip_voxels=vox)
-        say(f"[esvo skip reading G={G}] primary rays kept {kept:.4f}, mean "
-            f"skip {vox:.2f} voxels")
+        lost = int((hit & ~maybe).sum())
+        past = int((hit & (skip > t_off)).sum())
+        t_on = frames[f"mode-2 skip G={G}"]["depth"].reshape(-1)
+        flips = int(((t_on > 0) != hit).sum())
+        far = int((hit & (t_on > 0) & ((t_on - t_off).abs() > 2e-3)).sum())
+        moved = bool((skip > 0).any())
+        out[G] = dict(kept=kept, mean_skip_voxels=vox, hit_class_differ=flips,
+                      t_differ=far)
+        say(f"[esvo skip G={G}] primary rays kept {kept:.4f}, mean skip "
+            f"{vox:.2f} voxels; skip-off hits called misses {lost}, skipped "
+            f"past {past}; skip on vs off: hit class differs on {flips}, "
+            f"|dt| > 2e-3 on {far} of {t_off.numel()} pixels")
+        if lost or past:
+            raise AssertionError(f"the G={G} skip grid is not conservative")
+        limit = SKIP_RESTART_SHARE * t_off.numel() if moved else 0
+        if flips + far > limit:
+            raise AssertionError(f"the G={G} skip grid changed {flips} hit "
+                                 f"classes and {far} t (limit {limit})")
     return out
 
 
@@ -550,60 +649,68 @@ def esvo_phase(dev, size, cam5, ws):
     from svo_raytracer_torch.ops import traverse
     t0 = time.time()
     hm, mm = bigworld.fractal_heightmap(size, seed=SEED)
-    tree, packed, tab = build_esvo_world(dev, hm, mm, size)
+    tree, packed, tabs = build_esvo_world(dev, hm, mm, size)
     say("[esvo compare] KE and K2 vs their plain versions on the card")
     ke_small, k2_small = esvo_small_checks(dev)
     # ---- the main path, with the launch counts set to 0 just before
     traverse.KE.launches = brick_dda.K2.launches = 0
-    frames = esvo_frames(tree, packed, tab, cam5)
+    frames = esvo_frames(tree, packed, tabs, cam5)
     launches = dict(KE=traverse.KE.launches, K2=brick_dda.K2.launches)
     say(f"[esvo main path {size}] launches {launches}")
     if min(launches.values()) < 1:
         raise AssertionError(f"the ESVO main path missed a kernel: "
                              f"{launches}")
-    sampled = esvo_sampled_rays(tree, packed, cam5)
-    ke_seg, k2_seg = esvo_segment_checks(tree, packed, tab, cam5, sampled)
+    seg = esvo_segment_checks(tree, packed, tabs, cam5)
+    sampled = hold_ke("world-16384", packed,
+                      *esvo_sampled_rays(tree, packed, cam5))
     # a reading, not a gate: ESVO's primary hits vs the wavefront frame's
     _, wdepth, _ = render_wave.render_frame_wavefront(ws, cam5, W, H,
                                                       render_mode=3)
-    edepth = frames["mode-2 skip"]["depth"]
+    edepth = frames["mode-2"]["depth"]
     agree = ((wdepth > 0) == (edepth > 0)).float().mean().item()
     both = (wdepth > 0) & (edepth > 0)
     med = (wdepth - edepth)[both].abs().median().item()
     say(f"[esvo vs wavefront {size}] primary hit mask agrees on "
         f"{agree:.6f} of pixels; median |depth difference| on common hits "
         f"{med:.3e}")
-    skip_reading = esvo_skip_reading(tree, cam5)
-    prof = {mode: profile_window(
-        f"esvo {size} mode-{mode} skip",
-        lambda i: shade.render_image(tree, cam5, W, H, render_mode=mode,
-                                     packed=packed, skip_tab=tab,
-                                     frame_number=i + 2),
+    skip_reading = esvo_skip_checks(tree, cam5, tabs, frames)
+    configs = esvo_configs(tabs)
+    prof = {label: profile_window(
+        f"esvo {size} {label}",
+        lambda i, kw=configs[label]: shade.render_image(
+            tree, cam5, W, H, packed=packed, frame_number=i + 2, **kw),
         {"KE": "esvo_trace_kernel", "K2": "dda_kernel"},
         frames[label]["ms"])
-        for mode, label in ((2, "mode-2 skip"), (0, "mode-0 gi-1 skip"))}
+        for label in configs if "skip_tab" in configs[label]}
     summary = dict(
         frames={k: {f: v[f] for f in ("ms", "times", "rays", "mrays", "ke",
                                       "k2", "hitfrac", "capped")}
                 for k, v in frames.items()},
         wavefront_hit_agreement=agree, median_abs_ddepth=med, profile=prof,
         skip_reading=skip_reading,
-        segment_ms=dict(KE=[c.ms for c in ke_seg[:2]],
-                        K2=[c.ms for c in k2_seg]),
-        segment_plain_ms=dict(KE=[c.plain_ms for c in ke_seg[:2]],
-                              K2=[c.plain_ms for c in k2_seg]))
+        segment_ms={label: dict(KE=[c.ms for c in ke], K2=[c.ms for c in k2])
+                    for label, (ke, k2) in seg.items()},
+        segment_plain_ms={label: dict(KE=[c.plain_ms for c in ke],
+                                      K2=[c.plain_ms for c in k2])
+                          for label, (ke, k2) in seg.items()})
+    ke_seg = [c for ke, _ in seg.values() for c in ke]
+    k2_seg = [c for _, k2 in seg.values() for c in k2]
+    G2 = 2 * SKIP_G
     kernels = [
-        kernel_entry("K2 skip-grid coarse DDA, G=32",
+        kernel_entry(f"K2 skip-grid coarse DDA, G={G2} mode-2 segments",
                      "svo_raytracer_torch/csrc/brick_dda.cu",
                      "svo_raytracer_tpu/ops/brick_dda.py:85",
-                     launches["K2"], k2_seg, k2_small + k2_seg),
-        dict(kernel_entry("KE per-ray ESVO traversal, 1024^3 octree",
+                     launches["K2"], seg[f"mode-2 skip G={G2}"][1],
+                     k2_small + k2_seg),
+        dict(kernel_entry(f"KE per-ray ESVO traversal, {size}^3 octree, "
+                          f"mode-2 segments",
                           "svo_raytracer_torch/csrc/esvo.cu",
                           "svo_raytracer_tpu/ops/traverse.py:382",
-                          launches["KE"], ke_seg[:2], ke_small + ke_seg),
+                          launches["KE"], seg[f"mode-2 skip G={SKIP_G}"][0],
+                          ke_small + ke_seg + [sampled]),
              tpu_kernel="none: an XLA while_loop (traverse.py:415-423), "
                         "no Pallas counterpart")]
-    del tree, packed, tab
+    del tree, packed, tabs
     torch.cuda.empty_cache()
     say(f"[esvo {size}] phase took {time.time() - t0:.1f} s")
     return summary, kernels
@@ -876,19 +983,19 @@ def check_attr16(dev, scene, ws, rays):
 
 def kernel_entry(name, source, replaces, launches, timed_checks,
                  all_checks):
-    """A kernel's line of the kernels table: times and bound are the means
-    over ``timed_checks``, max_abs_err the largest over ``all_checks``.
-    No PyTorch call computes what the port's kernels compute, so
-    library_ms is null."""
-    by = [c.bound_by for c in timed_checks]
+    """A kernel's line of the kernels table: times are the means over
+    ``timed_checks``, the bound that of their mean bytes and operations,
+    max_abs_err the largest over ``all_checks``.  No PyTorch call computes
+    what the port's kernels compute, so library_ms is null."""
+    bound_ms, bound_by = bound(np.mean([c.nbytes for c in timed_checks]),
+                               np.mean([c.ops for c in timed_checks]))
     return dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=launches,
         max_abs_err=max(c.err for c in all_checks),
         ms=float(np.mean([c.ms for c in timed_checks])),
         plain_ms=float(np.mean([c.plain_ms for c in timed_checks])),
-        bound_ms=float(np.mean([c.bound_ms for c in timed_checks])),
-        bound_by=max(set(by), key=by.count), library_ms=None)
+        bound_ms=float(bound_ms), bound_by=bound_by, library_ms=None)
 
 
 def main():
@@ -910,19 +1017,13 @@ def main():
     say(f"[device] {name} x{torch.cuda.device_count()}; nvidia-smi: {smi}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
-    # ---- build K1, KE and K2 from csrc/, one nvcc each, all at once
-    def build(k):
-        t0 = time.time()
-        k.load()
-        return time.time() - t0
-
+    # ---- build K1, KE and K2 from csrc/: one nvcc each, started together
+    kernels = (wf.K1, traverse.KE, brick_dda.K2)
     t0 = time.time()
-    with ThreadPoolExecutor(3) as pool:
-        secs = dict(zip(("K1", "KE", "K2"), pool.map(
-            build, (wf.K1, traverse.KE, brick_dda.K2))))
-    say(f"[build] K1, KE, K2 built and loaded in {time.time() - t0:.1f} s "
-        f"(nvcc seconds {', '.join(f'{k} {v:.1f}' for k, v in secs.items())})")
-    for k in (wf.K1, traverse.KE, brick_dda.K2):
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        list(pool.map(lambda k: k.load(), kernels))
+    say(f"[build] K1, KE, K2 built and loaded in {time.time() - t0:.1f} s")
+    for k in kernels:
         for line in k.build_log().splitlines():
             if "registers" in line or "spill" in line:
                 say(f"  ptxas {k.name}: {line.strip()}")

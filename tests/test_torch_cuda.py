@@ -84,7 +84,9 @@ def _equal_fields(want, got):
 @pytest.mark.parametrize("name", ["sphere-64", "terrain-64"])
 def test_esvo_kernel_equals_plain_on_gpu(name):
     """Kernel KE against traverse.intersect_plain: every field of every
-    ray, with and without cone tracing, inactive and non-finite rays."""
+    ray, with and without cone tracing, inactive and non-finite rays.
+    max_depth 3 lies below the trees' depth 6, so the cutoff fires; with
+    cone tracing the LOD clamp lifts rays past t = 0.05 to depth 11."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     from svo_raytracer_torch.core import build_np
@@ -96,8 +98,8 @@ def test_esvo_kernel_equals_plain_on_gpu(name):
     o, d = _rays(8192, seed=5)
     alive = torch.ones(8192, dtype=torch.bool, device="cuda")
     alive[3::40] = False
-    for kw in (dict(), dict(cone_trace=True, max_depth=8),
-               dict(max_iterations=7)):
+    for kw in (dict(), dict(cone_trace=True, max_depth=3),
+               dict(max_iterations=7), dict(max_depth=3)):
         before = traverse.KE.launches
         got = traverse.trace(packed, o, d, alive, **kw)
         torch.cuda.synchronize()
@@ -105,6 +107,10 @@ def test_esvo_kernel_equals_plain_on_gpu(name):
         want = traverse.intersect_plain(packed, o, d, alive, **kw)
         assert _equal_fields(want, got) == [], kw
         assert (want["done"] == 1).any()
+        deeper = ((want["done"] == 1)
+                  & (traverse.MAX_SCALE - want["scale"] > 3))
+        assert bool(deeper.any()) == (kw.get("max_depth", 13) > 3
+                                      or kw.get("cone_trace", False)), kw
 
 
 @pytest.mark.gpu

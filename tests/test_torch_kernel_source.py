@@ -121,11 +121,13 @@ def _esvo_tree(name):
 
 @pytest.mark.parametrize("name", ["sphere-64", "terrain-64", "checker-16",
                                   "terrain-64-skip"])
-@pytest.mark.parametrize("kw", [dict(), dict(cone_trace=True, max_depth=8),
-                                dict(max_iterations=5)])
+@pytest.mark.parametrize("kw", [dict(), dict(cone_trace=True, max_depth=3),
+                                dict(max_iterations=5), dict(max_depth=3)])
 def test_esvo_source_body_equals_plain(name, kw):
     """"-skip": the rays as the skip grid hands them to KE (moved to their
-    skip distance, definite misses inactive)."""
+    skip distance, definite misses inactive).  max_depth 3 lies below every
+    tree's depth, so the cutoff fires; with cone tracing the LOD clamp
+    lifts rays past t = 0.05 to depth 11, below the cutoff."""
     fn = _host_fn("esvo_host", "esvo_host.cpp", "esvo_trace_host",
                   traverse.KE.argtypes)
     jt = _esvo_tree(name.removesuffix("-skip"))
@@ -157,6 +159,10 @@ def test_esvo_source_body_equals_plain(name, kw):
     got.update(zip(traverse.I_FIELDS, i_out))
     assert _equal(want, got) == []
     assert (want["done"] == 1).any() and (want["scale"] < 23).any()
+    deeper = (want["done"] == 1) & (traverse.MAX_SCALE - want["scale"] > 3)
+    if not name.endswith("-skip"):  # skipped rays hit before t = 0.05
+        assert bool(deeper.any()) == (kw.get("max_depth", 13) > 3
+                                      or kw.get("cone_trace", False))
     if "max_iterations" in kw:
         assert (want["done"] == 0).any()
 

@@ -37,11 +37,11 @@ cam5 = chip_smoke.place_camera(ws, "cpu")
 assert cam5.shape == (5, 3) and 1.0 < float(cam5[0, 1]) < 2.0, cam5
 from svo_raytracer_torch.ops import shade
 hm, mm = bigworld.fractal_heightmap(32, seed=1)
-etree, packed, tab = chip_smoke.build_esvo_world(torch.device("cpu"), hm,
-                                                 mm, 32)
-assert etree.n_nodes > 8 and tab.shape == (8, 128)
+etree, packed, tabs = chip_smoke.build_esvo_world(torch.device("cpu"), hm,
+                                                  mm, 32)
+assert etree.n_nodes > 8 and tabs[32].shape == (8, 128) and 64 in tabs
 col, depth, _ = shade.render_image(etree, cam5, 32, 24, render_mode=2,
-                                   packed=packed, skip_tab=tab)
+                                   packed=packed, skip_tab=tabs[32])
 assert col.shape == (24, 32, 3) and bool(torch.isfinite(col).all())
 assert 0.0 < float((depth > 0).float().mean()) < 1.0, depth
 assert not any(k.split(".")[0] in ("jax", "svo_raytracer_tpu")
