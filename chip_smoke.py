@@ -4,38 +4,49 @@
 Drives the port's main path at full size on three seeded heightmap worlds
 (value noise, built directly as BrickScenes), each through its own part of
 kernel K1, with the camera placed by bench.py's downward-probe rule and
-render mode 0 at 1920x1080:
+render mode 0 at 1920x1080; every primary segment runs in K1's camera
+mode (each thread derives its ray from its id and the camera):
 
-  * 1024^3, flat L0 (G = 32): gi-1 and gi-3 frames;
+  * 1024^3, flat L0 (G = 32): gi-1 and gi-3 frames, and a mode-2 frame
+    (direct light with a shadow segment);
   * 2048^3, flat L0 with two-word mixed columns (G = 64): gi-1 frames;
   * 4096^3, paged L0 (G = 128, 2^3 pages): gi-1 and gi-3 frames, and the
     same world prepared with half-word (attr16) attributes.
 
 Every world's K1 records are held equal to its plain PyTorch version,
 trace_plain, on the card, as are those of the small test scenes (G = 2,
-G = 64 and a sparse paged 4096^3 scene) first.
+G = 64 and a sparse paged 4096^3 scene) first.  On every world K1's
+camera mode is held equal to trace_camera_plain on the 1080p primary
+segment, and against explicit rays to the JAX package's contract.
 
-After the 1024^3 wavefront world, the ESVO path runs on the same
-heightmap and camera: the octree is built on the card
-(models/heightmap.generate_chunk_heightmap, core/build_device), with its
-packed node table and skip grids at G = 32 and 64, and render_image draws
-1920x1080 frames in mode 2 without a skip grid and with each, and in
-mode 0 (gi-1) with the G = 32 grid, through kernels KE (the per-ray ESVO
-traversal) and K2 (the skip grid's coarse DDA).  Both are held equal to
-their plain versions (traverse.intersect_plain,
-brick_dda.coarse_dda_plain) on small scenes (KE also cut at a depth
-below the trees' and cone-traced), on sampled rays of the world and on
-every segment of each skip-grid frame.
+After the 1024^3 wavefront world, its host BrickScene goes to the card
+for kernel K3, the v1 brick-round engine (brick_pallas.
+intersect_bricks_tpu), which renders 1920x1080 mode-2 frames as the
+intersect_fn of shade.shade_direct; K3 is held equal to its plain version
+(brick_pallas.trace_plain) on the small scenes (also cut at a few rounds)
+and on both segments of a frame, and its primary hit mask against the
+wavefront mode-2 frame's.
+
+Then the ESVO path runs on the same heightmap and camera: the octree is
+built on the card (models/heightmap.generate_chunk_heightmap,
+core/build_device), with its packed node table and skip grids at G = 32
+and 64, and render_image draws 1920x1080 frames in mode 2 without a skip
+grid and with each, and in mode 0 (gi-1) with the G = 32 grid, through
+kernels KE (the per-ray ESVO traversal) and K2 (the skip grid's coarse
+DDA).  Both are held equal to their plain versions
+(traverse.intersect_plain, brick_dda.coarse_dda_plain) on small scenes (KE
+also cut at a depth below the trees' and cone-traced), on sampled rays of
+the world and on every segment of each skip-grid frame.
 
 Each check's bound counts the ray inputs and records once, the distinct
 table words its plain version gathers, and its steps' operations.
 
-    python3 chip_smoke.py            # needs one CUDA GPU; builds K1, KE
-                                     # and K2 with nvcc
+    python3 chip_smoke.py            # needs one CUDA GPU; builds K1, KE,
+                                     # K2 and K3 with nvcc
 
-The 1024^3 and 4096^3 wavefront frames and the ESVO skip-grid frames are also
-profiled with torch.profiler (device kernels, device busy, the kernels'
-share, idle share per frame); the chrome traces are left in
+The 1024^3 and 4096^3 wavefront frames and the ESVO skip-grid frames are
+also profiled with torch.profiler (device kernels, device busy, the
+kernels' share, idle share per frame); the chrome traces are left in
 svo_raytracer_torch/_build/profile/.
 
 Phases print their own lines; any failure raises (exit code != 0).  The
@@ -53,7 +64,6 @@ import resource
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -81,8 +91,25 @@ PEAK_OPS_PER_S = 67e12
 # loop-body operations per step (arithmetic, compares, address math),
 # counted from the kernels' sources: K1's coarse DDA step
 # (csrc/wf_ray.cuh dda_cr), KE's ESVO step (csrc/esvo_ray.cuh, PUSH or
-# ADVANCE + POP), K2's grid step (csrc/brick_dda.cuh)
-OPS_PER_STEP = {"K1": 40, "KE": 50, "K2": 30}
+# ADVANCE + POP), K2's grid step (csrc/brick_dda.cuh), K3's voxel or L0
+# DDA step (csrc/brick_round.cuh dda_vec)
+OPS_PER_STEP = {"K1": 40, "KE": 50, "K2": 30, "K3": 30}
+K3_ROUNDS = 24            # intersect_bricks_tpu's default max_rounds
+K3_CUT_ROUNDS = 2         # few enough rounds that some rays run out
+
+# The worlds of the main path, each through its part of kernel K1 (every
+# primary segment in camera mode, sub-slice (b)): (size, n_mixed class,
+# GI bounces, timed frames, profiled, K1 part, its TPU source line, the
+# small scenes that exercised it, first).  The first world also renders a
+# wavefront mode-2 frame and runs the K3 and the ESVO paths on the same
+# heightmap from the same camera.
+WORLDS = (
+    (1024, (2000, 6000), (1, 3), TIMED_FRAMES, True,    # bench: 4,589
+     "(a) flat L0", 891, ("sphere-64", "terrain-64"), True),
+    (2048, (8000, 30000), (1,), BIG_TIMED_FRAMES, False,
+     "(c) G=64 two-word mixed columns", 1358, ("g64",), False),
+    (4096, (30000, 120000), (1, 3), BIG_TIMED_FRAMES, True,
+     "(d) paged L0", 1077, ("paged-4096",), False))
 
 
 def bound(nbytes, ops):
@@ -371,6 +398,97 @@ def hold_k2(name, tab, G, o, d, alive):
                                                    alive),
                 o.shape[0] * (12 + 12 + 1 + 4 * 6), [tab],
                 lambda r: int(r["steps"].sum()) + int(alive.sum()))
+
+
+def hold_camera(ws, cam5):
+    """K1 in camera mode vs trace_camera_plain on the 1080p primary
+    segment (block-major, W*ceil(H/32)*32 rays); the rays' only input is
+    the 16 camera scalars."""
+    from svo_raytracer_torch.ops import render_wave
+    from svo_raytracer_torch.ops import wavefront as wf
+    B, nbx = render_wave._frame_B(W, H), W // 32
+    cam = wf.cam16(cam5)
+
+    def record(trace):
+        return lambda: dict(zip(Agreement.FIELDS,
+                                trace(ws, cam, B, W, H, nbx)))
+
+    tables = [getattr(ws, f) for f in ("l0_occ", "l0_mixed", "l0_sc",
+                                       "brick_slot", "occ_words",
+                                       "sc_words")]
+    return Held("K1", "camera-mode primary segment",
+                record(wf.trace_camera_kernel), record(wf.trace_camera_plain),
+                64 + B * 20, tables, lambda r: int(r["iters"].sum()))
+
+
+def camera_contract(ws, cam_held, explicit, origins, dirs):
+    """Camera mode against explicit rays on the primary segment, to the
+    JAX package's contract (tests/test_wavefront.py
+    test_camera_mode_matches_explicit): hit equal on every ray, value
+    equal where both hit, t within 1e-5.  Prints how many rays differ in
+    any record field."""
+    import torch
+    from svo_raytracer_torch.ops import wavefront as wf
+    fields = Agreement.FIELDS
+    cam = wf._finish(ws, tuple(cam_held.rec[f] for f in fields), origins,
+                     dirs)
+    exp = explicit.res_k
+    diff = torch.zeros_like(cam.hit)
+    for f in fields:
+        diff |= cam_held.rec[f] != explicit.rec[f]
+    differ = int(diff.sum())
+    both = cam.hit & exp.hit
+    hit_eq = bool((cam.hit == exp.hit).all())
+    value_eq = bool((cam.value[both] == exp.value[both]).all())
+    dt = float((cam.t[both] - exp.t[both]).abs().max()) if bool(
+        both.any()) else 0.0
+    say(f"[camera vs explicit {ws.world_size}] primary segment: rays "
+        f"differing in any record field {differ} of {cam.hit.numel()}; hit "
+        f"equal {hit_eq}, value equal on common hits {value_eq}, max |dt| "
+        f"{dt:.3e}")
+    if not (hit_eq and value_eq and dt <= 1e-5):
+        raise AssertionError("camera mode breaks the explicit-mode contract")
+    return dict(rays_differing=differ, max_abs_dt=dt)
+
+
+def hold_k3(name, scene, o, d, alive, max_rounds=24):
+    """K3 vs brick_pallas.trace_plain; steps are the DDA steps over all
+    rounds (both phases)."""
+    from svo_raytracer_torch.ops import brick_pallas as bp
+    o, d, alive = o.contiguous(), d.contiguous(), alive.contiguous()
+    return Held("K3", name,
+                lambda: bp.trace_kernel(scene, o, d, alive, max_rounds),
+                lambda: bp.trace_plain(scene, o, d, alive, max_rounds),
+                o.shape[0] * (12 + 12 + 1 + 4 * len(bp.FIELDS)),
+                [getattr(scene, f) for f in scene.ARRAYS],
+                lambda r: int(r["iters"].sum()))
+
+
+def k3_small_checks(dev, small):
+    """K3 vs its plain version on the small scenes' 4,096 random rays
+    (every 50th inactive), then on terrain-64 cut at K3_CUT_ROUNDS rounds.
+    Gate: the cut leaves some rays pending that finish with all rounds."""
+    import torch
+    out, full = [], {}
+    for sname, scene, (o, d) in small:
+        dscene = scene.to_device(dev)
+        ov = ((torch.from_numpy(o) - 1.0) * float(scene.world_size)).to(dev)
+        dv = torch.from_numpy(d).to(dev)
+        alive = torch.ones(o.shape[0], dtype=torch.bool, device=dev)
+        alive[::50] = False
+        full[sname] = hold_k3(sname, dscene, ov, dv, alive)
+        out.append(full[sname])
+        if sname == "terrain-64":
+            cut = hold_k3(f"{sname} max_rounds {K3_CUT_ROUNDS}", dscene, ov,
+                          dv, alive, K3_CUT_ROUNDS)
+            out.append(cut)
+            ran_out = int((cut.rec["iters"] < full[sname].rec["iters"])
+                          .sum())
+            say(f"    {sname}: rays out of rounds at {K3_CUT_ROUNDS}: "
+                f"{ran_out}")
+            if ran_out == 0:
+                raise AssertionError("no ray ran out of rounds")
+    return out
 
 
 class capture:
@@ -716,6 +834,108 @@ def esvo_phase(dev, size, cam5, ws):
     return summary, kernels
 
 
+def k3_phase(dev, scene, cam5, wave_depth, small_checks):
+    """The K3 path on a world's host BrickScene: shade.shade_direct (render
+    mode 2) at W x H from the probe camera, its intersect_fn
+    brick_pallas.intersect_bricks_tpu over the scene on the card (two K3
+    launches per frame: primary and shadow).  One frame with per-segment
+    stats, then ESVO_WARM_FRAMES and ESVO_TIMED_FRAMES timed alone each,
+    with K3's launch count set to 0 just before and read just after; then
+    K3 vs its plain version on both segments of a frame, and a profile of
+    the frame.  Gates: finite colour on >= 99.9% of pixels and the primary
+    hit mask equal to that of the wavefront mode-2 frame (``wave_depth``)
+    on >= 99.9% of pixels.  Returns (summary, kernel entry)."""
+    import functools
+    import torch
+    from svo_raytracer_torch.ops import brick_pallas as bp
+    from svo_raytracer_torch.ops import shade
+    size = scene.world_size
+    t0 = time.time()
+    dscene = scene.to_device(dev)
+    torch.cuda.synchronize()
+    nbytes = sum(getattr(dscene, f).numel() * 4 for f in dscene.ARRAYS)
+    say(f"[k3 {size}] BrickScene -> {dev} in {time.time() - t0:.1f} s: "
+        f"n_mixed {dscene.n_mixed}, table bytes {nbytes}")
+    dirs = shade._normalize(shade.pixel_dirs_device(cam5, W, H))
+    origins = cam5[0].expand_as(dirs)
+    isect = functools.partial(bp.intersect_bricks_tpu, dscene)
+    stats = []
+
+    def isect_stats(o, d, active=None, **kw):
+        res = isect(o, d, active=active, **kw)
+        stats.append(dict(rays=o.shape[0] if active is None
+                          else int(active.sum()), hits=int(res.hit.sum()),
+                          iters=int(res.iters.sum())))
+        return res
+
+    # ---- the main path, with the launch count set to 0 just before
+    bp.K3.launches = 0
+    col, depth, _ = shade.shade_direct(None, origins, dirs,
+                                       intersect_fn=isect_stats)
+    times = []
+    for i in range(ESVO_WARM_FRAMES + ESVO_TIMED_FRAMES):
+        t1 = time.perf_counter()
+        shade.shade_direct(None, origins, dirs, intersect_fn=isect)
+        torch.cuda.synchronize()
+        if i >= ESVO_WARM_FRAMES:
+            times.append((time.perf_counter() - t1) * 1e3)
+    launches = bp.K3.launches
+    ms = float(np.median(times))
+    rays = sum(s["rays"] for s in stats)
+    finite = torch.isfinite(col).all(-1).float().mean().item()
+    hit = (depth > 0).reshape(H, W)
+    agree = (hit == (wave_depth > 0)).float().mean().item()
+    both = hit & (wave_depth > 0)
+    med = (depth.reshape(H, W) - wave_depth)[both].abs().median().item()
+    say(f"[k3 frame {size} mode-2] {W}x{H}: median {ms:.3f} ms/frame of "
+        f"{ESVO_TIMED_FRAMES} (min {min(times):.3f}, max {max(times):.3f}); "
+        f"rays traced {rays} ({rays / ms / 1e3:.2f} Mrays/s); K3 launches "
+        f"{launches} on the main path; primary hit fraction "
+        f"{hit.float().mean().item():.4f}; finite colour {finite:.6f}")
+    for i, s in enumerate(stats):
+        say(f"  segment {i}: rays {s['rays']} hits {s['hits']} DDA steps "
+            f"{s['iters']}")
+    # the primaries where the masks differ, traced again with 4x the
+    # rounds: those that change ran out of rounds in the frame
+    off = torch.nonzero((hit != (wave_depth > 0)).reshape(-1)).flatten()
+    more = isect(origins[off], dirs[off], max_rounds=4 * K3_ROUNDS)
+    changed = int((more.hit != hit.reshape(-1)[off]).sum())
+    say(f"[k3 vs wavefront {size}] mode-2 primary hit mask agrees on "
+        f"{agree:.6f} of pixels ({off.numel()} differ; of these, "
+        f"{changed} change with {4 * K3_ROUNDS} rounds instead of "
+        f"{K3_ROUNDS}); median |depth difference| on common hits "
+        f"{med:.3e}")
+    if launches < 1:
+        raise AssertionError("the K3 main path never launched K3")
+    if finite < 0.999:
+        raise AssertionError(f"finite colour on {finite} of pixels")
+    if agree < 0.999:
+        raise AssertionError(f"K3 and wavefront hit masks agree on {agree}")
+    # ---- K3 vs plain on both segments of a frame
+    with capture(bp, "trace") as calls:
+        shade.shade_direct(None, origins, dirs, intersect_fn=isect)
+    segs = [hold_k3(f"mode-2 {n} segment", *a, **k)
+            for n, (a, k) in zip(("primary", "shadow"), calls)]
+    prof = profile_window(
+        f"k3 {size} mode-2",
+        lambda i: shade.shade_direct(None, origins, dirs, intersect_fn=isect),
+        {"K3": "round_kernel"}, ms)
+    summary = dict(frame_ms_median=ms, frame_ms=times, rays=rays,
+                   mrays=rays / ms / 1e3, launches=launches, profile=prof,
+                   wavefront_hit_agreement=agree, median_abs_ddepth=med,
+                   differing_pixels=off.numel(),
+                   differing_changed_by_more_rounds=changed,
+                   segment_ms=[c.ms for c in segs],
+                   segment_plain_ms=[c.plain_ms for c in segs])
+    entry = kernel_entry(f"K3 v1 brick-round traversal, {size}^3 mode-2 "
+                         f"segments", "svo_raytracer_torch/csrc/brick_round.cu",
+                         "svo_raytracer_tpu/ops/brick_pallas.py:149",
+                         launches, segs, small_checks + segs)
+    del dscene
+    torch.cuda.empty_cache()
+    return summary, entry
+
+
 def build_world(dev, size, n_mixed_range, **prepare_kw):
     """A seeded size^3 heightmap world, built on the host and prepared on
     dev; returns (host BrickScene, WaveScene)."""
@@ -773,67 +993,86 @@ def place_camera(ws, dev):
     return torch.tensor(cam.uniform(), dtype=torch.float32, device=dev)
 
 
-def render_frames(ws, cam5, bounces_list, timed_frames):
-    """Mode-0 frames at W x H: one with per-segment stats, then WARM_FRAMES
-    and ``timed_frames`` timed alone each (host clock, synchronized).
-    Checks the primary hit fraction, finite colour and a K1 launch in
-    every segment."""
+def frame_configs(bounces_list, timed_frames, mode2=False):
+    """The wavefront frames of a world's main path: label -> (render
+    arguments, warm frames, timed frames).  Mode 0 at each GI bounce
+    count, and with ``mode2`` a mode-2 frame (ESVO_WARM_FRAMES,
+    ESVO_TIMED_FRAMES, as the ESVO frames)."""
+    out = {f"gi{b}": (dict(render_mode=0, gi_bounces=b), WARM_FRAMES,
+                      timed_frames) for b in bounces_list}
+    if mode2:
+        out["mode2"] = (dict(render_mode=2), ESVO_WARM_FRAMES,
+                        ESVO_TIMED_FRAMES)
+    return out
+
+
+def render_frames(ws, cam5, configs):
+    """Frames at W x H for each of ``configs`` (frame_configs): one with
+    per-segment stats, then the warm frames and the timed frames timed
+    alone each (host clock, synchronized).  Checks the primary hit
+    fraction, finite colour, a K1 launch in every segment and camera mode
+    on every primary segment.  Mrays/s: mode 0 counts (bounces + 1) * W * H
+    rays per frame (bench.py's convention), mode 2 the rays traced."""
     import torch
     from svo_raytracer_torch.ops import render_wave
     size = ws.world_size
     frames = {}
-    for bounces in bounces_list:
+    for label, (kw, warm, n_timed) in configs.items():
         stats, times = [], []
         col, depth, _ = render_wave.render_frame_wavefront(
-            ws, cam5, W, H, render_mode=0, frame_number=1,
-            gi_bounces=bounces, stats=stats)
+            ws, cam5, W, H, frame_number=1, stats=stats, **kw)
         torch.cuda.synchronize()
-        for i in range(WARM_FRAMES + timed_frames):
+        for i in range(warm + n_timed):
             t0 = time.perf_counter()
-            col, depth, _ = render_wave.render_frame_wavefront(
-                ws, cam5, W, H, render_mode=0, frame_number=i + 2,
-                gi_bounces=bounces)
+            render_wave.render_frame_wavefront(ws, cam5, W, H,
+                                               frame_number=i + 2, **kw)
             torch.cuda.synchronize()
-            if i >= WARM_FRAMES:
+            if i >= warm:
                 times.append((time.perf_counter() - t0) * 1e3)
         ms = float(np.median(times))
-        mrays = (bounces + 1) * W * H / (ms * 1e-3) / 1e6
+        rays = (kw["gi_bounces"] + 1) * W * H if kw["render_mode"] == 0 \
+            else sum(s["rays"] for s in stats)
+        mrays = rays / (ms * 1e-3) / 1e6
         finite = torch.isfinite(col).all(-1).float().mean().item()
         hitfrac = stats[0]["hits"] / stats[0]["rays"]
-        frames[bounces] = dict(ms=ms, mrays=mrays, times=times)
-        say(f"[frame {size} gi-{bounces}] {W}x{H}: median {ms:.3f} ms/frame "
-            f"of {timed_frames} (min {min(times):.3f}, max {max(times):.3f}; "
-            f"{mrays:.2f} Mrays/s, {bounces + 1} segments x W*H rays), "
-            f"primary hit fraction {hitfrac:.4f}, finite colour "
-            f"{finite:.6f}")
+        frames[label] = dict(ms=ms, mrays=mrays, times=times, depth=depth)
+        say(f"[frame {size} {label}] {W}x{H}: median {ms:.3f} ms/frame "
+            f"of {n_timed} (min {min(times):.3f}, max {max(times):.3f}; "
+            f"{mrays:.2f} Mrays/s), primary hit fraction {hitfrac:.4f}, "
+            f"finite colour {finite:.6f}")
         for i, s in enumerate(stats):
             say(f"  segment {i}: rays {s['rays']} hits {s['hits']} "
                 f"ITER_CAP-retired {s['capped']} K1 launches "
-                f"{s['launches']}")
+                f"{s['launches']}{' (camera mode)' if s['camera'] else ''}")
         if not 0.05 < hitfrac < 0.95:
             raise AssertionError(f"hit fraction {hitfrac} out of range")
         if finite < 0.999:
             raise AssertionError(f"finite colour on {finite} of pixels")
         if any(s["launches"] < 1 for s in stats):
             raise AssertionError("a segment did not launch K1")
+        if not stats[0]["camera"]:
+            raise AssertionError("the primary segment was not camera mode")
     return frames
 
 
-def main_path(dev, ws, bounces_list, timed_frames):
+def main_path(dev, ws, configs):
     """The main path on one world: camera probe and frames, with K1's
-    launch count set to 0 just before and read just after."""
+    launch counts set to 0 just before and read just after.  K1.launches
+    counts both entry points of the library, so the explicit-ray entry's
+    launches are K1's less K1_CAMERA's."""
     import torch
     from svo_raytracer_torch.ops import wavefront as wf
     torch.cuda.reset_peak_memory_stats()
-    wf.K1.launches = 0
+    wf.K1.launches = wf.K1_CAMERA.launches = 0
     cam5 = place_camera(ws, dev)
-    frames = render_frames(ws, cam5, bounces_list, timed_frames)
-    launches = wf.K1.launches
+    frames = render_frames(ws, cam5, configs)
+    launches = dict(K1_explicit=wf.K1.launches - wf.K1_CAMERA.launches,
+                    K1_camera=wf.K1_CAMERA.launches)
     peak = torch.cuda.max_memory_allocated()
-    say(f"[main path {ws.world_size}] K1 launches {launches}; "
+    say(f"[main path {ws.world_size}] launches {launches}; "
         f"max_memory_allocated {peak / 2**30:.3f} GiB ({peak} B)")
-    if launches < 1:
-        raise AssertionError("the main path never launched K1")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"the main path missed a kernel: {launches}")
     return cam5, frames, launches, peak
 
 
@@ -943,18 +1182,15 @@ def profile_window(tag, render, kernels, unprof_ms):
     return out
 
 
-def profile_frames(ws, cam5, frames):
-    """profile_window over gi-1 and gi-3 wavefront frames (K1's share)."""
+def profile_frames(ws, cam5, configs, frames):
+    """profile_window over the world's wavefront frames (K1's share)."""
     from svo_raytracer_torch.ops import render_wave
-    out = {}
-    for bounces in frames:
-        out[f"gi{bounces}"] = profile_window(
-            f"{ws.world_size} gi{bounces}",
-            lambda i: render_wave.render_frame_wavefront(
-                ws, cam5, W, H, render_mode=0, frame_number=i + 2,
-                gi_bounces=bounces),
-            {"K1": "wf_trace_kernel"}, frames[bounces]["ms"])
-    return out
+    return {label: profile_window(
+        f"{ws.world_size} {label}",
+        lambda i, kw=kw: render_wave.render_frame_wavefront(
+            ws, cam5, W, H, frame_number=i + 2, **kw),
+        {"K1": "wf_"}, frames[label]["ms"])
+        for label, (kw, _, _) in configs.items()}
 
 
 def check_attr16(dev, scene, ws, rays):
@@ -998,12 +1234,27 @@ def kernel_entry(name, source, replaces, launches, timed_checks,
         bound_ms=float(bound_ms), bound_by=bound_by, library_ms=None)
 
 
+def build_kernels():
+    """Build K1, KE, K2 and K3 from csrc/, one nvcc after another; prints
+    each kernel's build-and-load seconds and ptxas's registers and
+    spills."""
+    from svo_raytracer_torch.ops import brick_dda, brick_pallas, traverse
+    from svo_raytracer_torch.ops import wavefront as wf
+    for k in (wf.K1, traverse.KE, brick_dda.K2, brick_pallas.K3):
+        t0 = time.time()
+        k.load()
+        say(f"[build] {k.name} built and loaded in {time.time() - t0:.1f} s")
+        for line in k.build_log().splitlines():
+            if "registers" in line or "spill" in line:
+                say(f"  ptxas {k.name}: {line.strip()}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     from svo_raytracer_torch.core import build_np
-    from svo_raytracer_torch.ops import brick_dda, brick_scene, traverse
+    from svo_raytracer_torch.ops import brick_scene, render_wave
     from svo_raytracer_torch.ops import wavefront as wf
 
     t_start = time.time()
@@ -1017,16 +1268,7 @@ def main():
     say(f"[device] {name} x{torch.cuda.device_count()}; nvidia-smi: {smi}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
-    # ---- build K1, KE and K2 from csrc/: one nvcc each, started together
-    kernels = (wf.K1, traverse.KE, brick_dda.K2)
-    t0 = time.time()
-    with ThreadPoolExecutor(len(kernels)) as pool:
-        list(pool.map(lambda k: k.load(), kernels))
-    say(f"[build] K1, KE, K2 built and loaded in {time.time() - t0:.1f} s")
-    for k in kernels:
-        for line in k.build_log().splitlines():
-            if "registers" in line or "spill" in line:
-                say(f"  ptxas {k.name}: {line.strip()}")
+    build_kernels()
 
     # ---- kernel vs plain on the test scenes (flat G = 2, G = 64, paged)
     say("[compare] K1 vs trace_plain on the card")
@@ -1045,44 +1287,56 @@ def main():
         ws = wf.prepare(scene, dev)
         checks[sname] = Agreement(ws, sname, torch.from_numpy(o).to(dev),
                                   torch.from_numpy(d).to(dev))
+    say("[compare] K3 vs brick_pallas.trace_plain on the card")
+    k3_small = k3_small_checks(dev, small[:2])
 
-    # ---- the main path on each world, through its part of K1:
-    # (size, n_mixed class, GI bounces, timed frames, profiled, K1 part,
-    #  its TPU source line, the small scenes that exercised it above)
-    worlds = (
-        (1024, (2000, 6000), (1, 3), TIMED_FRAMES, True,    # bench: 4,589
-         "(a) flat L0", 891, ("sphere-64", "terrain-64")),
-        (2048, (8000, 30000), (1,), BIG_TIMED_FRAMES, False,
-         "(c) G=64 two-word mixed columns", 1358, ("g64",)),
-        (4096, (30000, 120000), (1, 3), BIG_TIMED_FRAMES, True,
-         "(d) paged L0", 1077, ("paged-4096",)))
+    # ---- the main path on each world (WORLDS), through its part of K1
     summary, kernels = {}, []
     for (size, n_range, bounces, n_timed, profiled, part, line,
-         small_names) in worlds:
+         small_names, first) in WORLDS:
         scene, ws = build_world(dev, size, n_range)
-        cam5, frames, launches, peak = main_path(dev, ws, bounces, n_timed)
+        configs = frame_configs(bounces, n_timed, mode2=first)
+        cam5, frames, launches, peak = main_path(dev, ws, configs)
         say(f"[compare {size}] K1 vs trace_plain on 16384 sampled rays")
         rays = sampled_rays(ws, cam5)
         sampled = Agreement(ws, "world-16384", *rays)
         seg = compare_segments(ws, cam5, max(bounces))
+        # K1 (b): camera mode on the primary segment, against its plain
+        # version and against explicit rays (segment 0 above)
+        say(f"[camera {size}] K1 camera mode vs trace_camera_plain")
+        cam = hold_camera(ws, cam5)
+        origins, dirs, _, _ = render_wave._frame_rays(cam5, W, H)
+        contract = camera_contract(ws, cam, seg[0], origins, dirs)
+        del origins, dirs
         summary[size] = dict(
-            frame_ms_median={f"gi{b}": frames[b]["ms"] for b in frames},
-            mrays={f"gi{b}": frames[b]["mrays"] for b in frames},
-            frame_ms={f"gi{b}": frames[b]["times"] for b in frames},
+            frame_ms_median={k: f["ms"] for k, f in frames.items()},
+            mrays={k: f["mrays"] for k, f in frames.items()},
+            frame_ms={k: f["times"] for k, f in frames.items()},
             segment_ms=[a.ms for a in seg],
             segment_plain_ms=[a.plain_ms for a in seg],
-            max_memory_allocated=peak)
+            launches=launches, max_memory_allocated=peak,
+            camera_vs_explicit=contract)
         if profiled:
-            summary[size]["profile"] = profile_frames(ws, cam5, frames)
+            summary[size]["profile"] = profile_frames(ws, cam5, configs,
+                                                      frames)
         if ws.pages:
             check_attr16(dev, scene, ws, rays)
         k1_checks = seg + [sampled] + [checks[n] for n in small_names]
         kernels.append(kernel_entry(
             f"K1 wavefront traversal {part}, {size}^3",
             "svo_raytracer_torch/csrc/wavefront.cu",
-            f"svo_raytracer_tpu/ops/wavefront.py:{line}", launches,
-            k1_checks, k1_checks))
-        if size == 1024:
+            f"svo_raytracer_tpu/ops/wavefront.py:{line}",
+            launches["K1_explicit"], k1_checks, k1_checks))
+        kernels.append(kernel_entry(
+            f"K1 wavefront traversal (b) camera-mode primaries on {part}, "
+            f"{size}^3", "svo_raytracer_torch/csrc/wavefront.cu",
+            "svo_raytracer_tpu/ops/wavefront.py:987",
+            launches["K1_camera"], [cam], [cam]))
+        if first:
+            # the K3 path on the same world, from the same camera
+            summary["k3"], k3_entry = k3_phase(
+                dev, scene, cam5, frames["mode2"]["depth"], k3_small)
+            kernels.append(k3_entry)
             # the ESVO path on the same heightmap, from the same camera
             summary["esvo"], esvo_kernels = esvo_phase(dev, size, cam5, ws)
             kernels += esvo_kernels

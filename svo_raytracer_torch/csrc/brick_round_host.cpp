@@ -1,0 +1,31 @@
+// CPU build of kernel K3's per-ray body (brick_round.cuh) for the parity
+// test tests/test_torch_kernel_source.py, which compiles this file with
+// g++ -D__host__= -D__device__= -ffp-contract=off and compares it with
+// ops/brick_pallas.py::trace_plain.  No runtime path uses it: on a GPU the
+// same header is compiled into brick_round.cu.
+
+#include <stdint.h>
+
+#include "brick_round.cuh"
+
+extern "C" int brick_round_host(const int32_t* l0, const int32_t* brick_slot,
+                                const int32_t* brick_attr,
+                                const int32_t* occ, const int32_t* attrs,
+                                int G, int max_rounds, const float* origins,
+                                const float* dirs, const uint8_t* alive,
+                                int n, int32_t* hit, int32_t* attr,
+                                int32_t* hvox, float* t, int32_t* iters) {
+  const br::Scene S = {l0, brick_slot, brick_attr, occ, attrs, G, 32 * G};
+  for (int i = 0; i < n; ++i) {
+    const br::Out r = br::trace_ray(S, origins[3 * i], origins[3 * i + 1],
+                                    origins[3 * i + 2], dirs[3 * i],
+                                    dirs[3 * i + 1], dirs[3 * i + 2],
+                                    alive[i] != 0, max_rounds);
+    hit[i] = r.hit;
+    attr[i] = r.attr;
+    hvox[i] = r.hvox;
+    t[i] = r.t;
+    iters[i] = r.iters;
+  }
+  return 0;
+}

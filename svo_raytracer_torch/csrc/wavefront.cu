@@ -1,9 +1,13 @@
 // Kernel K1: the brick-wavefront traversal, one thread per ray.
 //
 // Replaces svo_raytracer_tpu/ops/wavefront.py::_wf_kernel (the Pallas
-// round kernel, launched by _call_kernel's pl.pallas_call) for explicit
-// rays: flat L0 worlds up to G = 64 (2048^3) and paged L0 worlds of
-// G = 128 and 256 (4096^3, 8192^3).  The per-ray body is wf_ray.cuh.
+// round kernel, launched by _call_kernel's pl.pallas_call): flat L0
+// worlds up to G = 64 (2048^3) and paged L0 worlds of G = 128 and 256
+// (4096^3, 8192^3).  Two entry points: wf_trace for explicit rays, and
+// wf_trace_camera for camera-mode primaries, each derived in the thread
+// from its id and the 16 camera scalars (the TPU kernel's camera mode),
+// so a 1080p primary segment reads no origin or direction arrays (~50 MB
+// less traffic).  The per-ray body is wf_ray.cuh.
 //
 // What bounds it on Hopper: each DDA step is a dependent load of a table
 // word (L0 coarse/byte words or a page's rows, a brick's coarse and
@@ -42,12 +46,21 @@ wf_trace_kernel(wf::Tables T, const float* __restrict__ origins,
   const wf::RayOut r = wf::trace_ray(
       T, origins[3 * i], origins[3 * i + 1], origins[3 * i + 2],
       dirs[3 * i], dirs[3 * i + 1], dirs[3 * i + 2], alive[i] != 0);
-  status[i] = r.status;
-  t[i] = r.t;
-  cell[i] = r.cell;
-  widx[i] = r.widx;
-  iters[i] = r.iters;
+  wf::store(r, i, status, t, cell, widx, iters);
 }
+
+__global__ void __launch_bounds__(128)
+wf_camera_kernel(wf::Tables T, wf::Camera cam, int n,
+                 int32_t* __restrict__ status, float* __restrict__ t,
+                 int32_t* __restrict__ cell, int32_t* __restrict__ widx,
+                 int32_t* __restrict__ iters) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  wf::store(wf::trace_camera_ray(T, cam, i), i, status, t, cell, widx,
+            iters);
+}
+
+constexpr int THREADS = 128;
 
 }  // namespace
 
@@ -63,20 +76,35 @@ extern "C" int wf_trace(const int32_t* l0_occ, const int32_t* l0_mixed,
                         int32_t* status, float* t, int32_t* cell,
                         int32_t* widx, int32_t* iters, void* stream) {
   if (n <= 0) return 0;
-  wf::Tables T;
-  T.l0_occ = l0_occ;
-  T.l0_mixed = l0_mixed;
-  T.l0_sc = l0_sc;
-  T.brick_slot = brick_slot;
-  T.occ_words = occ_words;
-  T.sc_words = sc_words;
-  T.G = G;
-  T.l0_coarse_base = l0_coarse_base;
-  T.zw = zw;
-  T.pages = pages;
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
-  wf_trace_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      T, origins, dirs, alive, n, status, t, cell, widx, iters);
+  const wf::Tables T = wf::make_tables(l0_occ, l0_mixed, l0_sc, brick_slot,
+                                       occ_words, sc_words, G,
+                                       l0_coarse_base, zw, pages);
+  wf_trace_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
+                    (cudaStream_t)stream>>>(T, origins, dirs, alive, n,
+                                            status, t, cell, widx, iters);
+  return (int)cudaGetLastError();
+}
+
+// Camera mode: the n primaries of a W x H frame (nbx > 0: block-major
+// ids, nbx 32-pixel blocks per row) from cam, 16 f32 scalars on the card;
+// world_size scales the origin to voxel units.  Outputs as wf_trace.
+extern "C" int wf_trace_camera(const int32_t* l0_occ, const int32_t* l0_mixed,
+                               const int32_t* l0_sc,
+                               const int32_t* brick_slot,
+                               const int32_t* occ_words,
+                               const int32_t* sc_words, int G,
+                               int l0_coarse_base, int zw, int pages,
+                               const float* cam, int W, int H, int nbx,
+                               int world_size, int n, int32_t* status,
+                               float* t, int32_t* cell, int32_t* widx,
+                               int32_t* iters, void* stream) {
+  if (n <= 0) return 0;
+  const wf::Tables T = wf::make_tables(l0_occ, l0_mixed, l0_sc, brick_slot,
+                                       occ_words, sc_words, G,
+                                       l0_coarse_base, zw, pages);
+  const wf::Camera C = {cam, W, H, nbx, (float)world_size};
+  wf_camera_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
+                     (cudaStream_t)stream>>>(T, C, n, status, t, cell, widx,
+                                             iters);
   return (int)cudaGetLastError();
 }

@@ -3,8 +3,9 @@
 // Replaces the per-lane arithmetic of svo_raytracer_tpu/ops/wavefront.py
 // ::_wf_kernel (its `crossing`, :1252-1423), the coarse-refine DDA
 // `_dda_cr` (:645-883) and the paged L0 march `_paged_march`
-// (:1077-1241), for explicit rays: flat L0 worlds up to G = 64 bricks per
-// edge (2048^3) and paged worlds of G = 128 and 256 (4096^3, 8192^3).
+// (:1077-1241), for explicit and camera-mode rays: flat L0 worlds up to
+// G = 64 bricks per edge (2048^3) and paged worlds of G = 128 and 256
+// (4096^3, 8192^3).
 // The TPU kernel advances 1024-ray tiles in sorted rounds against KMAX
 // prefetched candidate bricks and KPAGE candidate pages, because Mosaic
 // has no arbitrary gather.  Here one thread owns one ray and loads any
@@ -13,6 +14,10 @@
 // (wavefront.py:1479-1534).  Every page's tables are at hand, so a ray
 // never punts off an unserved page: the TPU's page-band keys (:1262-1263,
 // :1399-1402) have no counterpart.
+//
+// Camera mode (the kernel's camera branch, :987-1027) derives each
+// primary ray from its id and 16 camera scalars instead of reading origin
+// and direction arrays: `camera_ray` below.
 //
 // The record is the port's own (status, t, cell, widx, iters) at every G:
 // the hit cell gives the mixed slot through brick_slot, so the TPU's
@@ -56,6 +61,26 @@ struct Tables {
   int pages;                  // pages per edge (G/64), 0 for a flat L0
 };
 
+// The Tables of the entry points' flat argument list (wavefront.cu and
+// its CPU build take the same list).
+inline Tables make_tables(const int32_t* l0_occ, const int32_t* l0_mixed,
+                          const int32_t* l0_sc, const int32_t* brick_slot,
+                          const int32_t* occ_words, const int32_t* sc_words,
+                          int G, int l0_coarse_base, int zw, int pages) {
+  Tables T;
+  T.l0_occ = l0_occ;
+  T.l0_mixed = l0_mixed;
+  T.l0_sc = l0_sc;
+  T.brick_slot = brick_slot;
+  T.occ_words = occ_words;
+  T.sc_words = sc_words;
+  T.G = G;
+  T.l0_coarse_base = l0_coarse_base;
+  T.zw = zw;
+  T.pages = pages;
+  return T;
+}
+
 struct RayOut {
   int32_t status;  // MISS, MIXED, UNIFORM or CAPPED
   float t;         // voxel units: hit entry t, 0 on miss, march t if capped
@@ -63,6 +88,17 @@ struct RayOut {
   int32_t widx;    // hit voxel within the brick (vx*32 + vy)*32 + vz
   int32_t iters;   // coarse DDA steps over both phases
 };
+
+// Writes ray i's record into the (n,) output arrays.
+__host__ __device__ inline void store(const RayOut& r, int i, int32_t* status,
+                                      float* t, int32_t* cell, int32_t* widx,
+                                      int32_t* iters) {
+  status[i] = r.status;
+  t[i] = r.t;
+  cell[i] = r.cell;
+  widx[i] = r.widx;
+  iters[i] = r.iters;
+}
 
 struct DdaOut {
   bool hit;
@@ -496,6 +532,61 @@ __host__ __device__ inline RayOut trace_ray(const Tables& T, float ox,
   out.t = tw;
   out.iters = it;
   return out;
+}
+
+// Camera mode: a primary ray is derived from its id and the 16 camera
+// scalars (pos, l1, l2, r1, r2, one pad; Camera.uniform order), so the
+// rays carry no origin or direction arrays.
+struct Camera {
+  const float* c;  // the 16 scalars
+  int W, H;        // image size
+  int nbx;         // > 0: ids walk 32x32-pixel blocks, nbx blocks per row
+  float ws;        // world size: voxel-unit origin (pos - 1) * ws
+};
+
+// Primary ray `rid` (wavefront.py::_wf_kernel's camera branch, :997-1027,
+// operation for operation): block-major or row-major pixel decode, pad
+// rows (block mode, y >= H) clamped to the last real row, the corner mix
+// of svotrace.comp:662-664, then normalization.
+__host__ __device__ inline void camera_ray(const Camera& cam, int rid,
+                                           float* o, float* d) {
+  int pyi, pxi;
+  if (cam.nbx > 0) {
+    const int bi = rid / 1024;
+    const int off = rid - bi * 1024;
+    const int by = bi / cam.nbx;
+    const int bx = bi - by * cam.nbx;
+    const int ly = off / 32;
+    pyi = by * 32 + ly;
+    pxi = bx * 32 + (off - ly * 32);
+  } else {
+    pyi = rid / cam.W;
+    pxi = rid - pyi * cam.W;
+  }
+  pyi = pyi < cam.H - 1 ? pyi : cam.H - 1;
+  const float u = ((float)pxi + 0.5f) / (float)cam.W;
+  const float v = ((float)pyi + 0.5f) / (float)cam.H;
+  const float* c = cam.c;
+  float dun[3];
+  for (int ax = 0; ax < 3; ++ax) {
+    const float left = c[3 + ax] + (c[6 + ax] - c[3 + ax]) * v;
+    const float right = c[9 + ax] + (c[12 + ax] - c[9 + ax]) * v;
+    dun[ax] = left + (right - left) * u;
+  }
+  const float nrm = sqrtf(dun[0] * dun[0] + dun[1] * dun[1] + dun[2] * dun[2]);
+  for (int ax = 0; ax < 3; ++ax) {
+    d[ax] = dun[ax] / nrm;
+    o[ax] = (c[ax] - 1.0f) * cam.ws;
+  }
+}
+
+// trace_ray of camera-mode primary `rid`; every primary is traced.
+__host__ __device__ inline RayOut trace_camera_ray(const Tables& T,
+                                                   const Camera& cam,
+                                                   int rid) {
+  float o[3], d[3];
+  camera_ray(cam, rid, o, d);
+  return trace_ray(T, o[0], o[1], o[2], d[0], d[1], d[2], true);
 }
 
 }  // namespace wf

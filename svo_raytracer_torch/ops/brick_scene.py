@@ -59,7 +59,8 @@ def table_rows(words) -> np.ndarray:
 
 @dataclasses.dataclass
 class BrickScene:
-    """Host (NumPy) brick decomposition of one octree scene."""
+    """Brick decomposition of one octree scene: NumPy arrays on the host,
+    or int32 tensors on a device after :meth:`to_device`."""
 
     world_size: int          # voxel resolution of the world cube [1,2]^3
     grid_size: int           # bricks per edge (world_size // 32)
@@ -69,6 +70,17 @@ class BrickScene:
     brick_attr: np.ndarray   # (G^3,) i32 — uniform attr (value 0 => air)
     occ_words: np.ndarray    # (n_mixed, 8, 128) i32 — 32^3 occupancy bits
     attrs: np.ndarray        # (n_mixed, 256, 128) i32 — per-voxel attr words
+
+    ARRAYS = ("l0_table", "brick_slot", "brick_attr", "occ_words", "attrs")
+
+    def to_device(self, device) -> BrickScene:
+        """The same scene with its arrays as contiguous int32 tensors on
+        ``device`` (the JAX package's BrickScene.to_device)."""
+        import torch
+        return dataclasses.replace(self, **{
+            name: torch.as_tensor(np.ascontiguousarray(getattr(self, name),
+                                                       np.int32)).to(device)
+            for name in self.ARRAYS})
 
 
 def _attr_word(value, raw_normal, depth):

@@ -1,13 +1,16 @@
 """Frame rendering through the wavefront engine (port of
-svo_raytracer_tpu/ops/render_wave.py, render modes 0, 1 and 3).
+svo_raytracer_tpu/ops/render_wave.py, render modes 0-3).
 
 A frame is a few traversal segments (``wavefront.intersect_wavefront``,
 one launch of kernel K1 each on the GPU) with elementwise shading between
 them.  Rays are generated in 32x32-pixel block-major order, as in the JAX
 package, so that one warp's rays are neighbouring pixels; ``_unblock``
-turns the flat result back into an image.  The JAX engine's static
-schedule replay and camera-mode segments have no counterpart here: each
-segment is one kernel launch over explicit rays.
+turns the flat result back into an image.  Every primary segment runs in
+camera mode, as the JAX package's do: K1 derives each primary ray from
+its id and the camera, and the explicit rays of ``_frame_rays`` only
+decode the hits and shade.  Bounce and shadow segments trace explicit
+rays.  The JAX engine's static schedule replay has no counterpart here:
+each segment is one kernel launch.
 """
 
 from __future__ import annotations
@@ -35,32 +38,36 @@ def _frame_B(width, height):
 def _frame_rays(cam5, width, height):
     """(origins, unit dirs, px, py) of a frame in block-major order: index
     i walks 32x32-pixel blocks (row-major blocks, row-major pixels within
-    a block).  Pad rows (py >= height) reuse the last real row's
-    direction and are cropped by _unblock."""
+    a block); row-major when the width is not a multiple of 32.  Pad rows
+    (py >= height) reuse the last real row's direction and are cropped by
+    _unblock.  The directions are the camera-mode kernel's, operation for
+    operation (wavefront.camera_rays), with true divisions: on the card a
+    tensor divided by a Python scalar is multiplied by its reciprocal."""
     dev = cam5.device
-    if not _use_block(width):
-        dirs = shade._normalize(shade.pixel_dirs_device(cam5, width, height))
+    if _use_block(width):
+        nbx = width // BLK
+        nby = -(-height // BLK)
+        shp = (nby, nbx, BLK, BLK)
+        ar = torch.arange(BLK, dtype=torch.int32, device=dev)
+        by = torch.arange(nby, dtype=torch.int32,
+                          device=dev)[:, None, None, None]
+        bx = torch.arange(nbx, dtype=torch.int32,
+                          device=dev)[None, :, None, None]
+        px = (bx * BLK + ar[None, None, None, :]).expand(shp).reshape(-1)
+        py = (by * BLK + ar[None, None, :, None]).expand(shp).reshape(-1)
+        px, py = px.float(), py.float()
+    else:
         px = torch.arange(width, dtype=torch.float32,
                           device=dev).repeat(height)
         py = torch.arange(height, dtype=torch.float32,
                           device=dev).repeat_interleave(width)
-        return cam5[0].expand_as(dirs), dirs, px, py
-    nbx = width // BLK
-    nby = -(-height // BLK)
-    shp = (nby, nbx, BLK, BLK)
-    ar = torch.arange(BLK, dtype=torch.int32, device=dev)
-    by = torch.arange(nby, dtype=torch.int32, device=dev)[:, None, None, None]
-    bx = torch.arange(nbx, dtype=torch.int32, device=dev)[None, :, None, None]
-    ly = ar[None, None, :, None]
-    lx = ar[None, None, None, :]
-    px = (bx * BLK + lx).expand(shp).reshape(-1).float()
-    py = (by * BLK + ly).expand(shp).reshape(-1).float()
-    u = (px + 0.5) / float(width)
-    v = (py.clamp_max(float(height - 1)) + 0.5) / float(height)
+    u = (px + 0.5) / torch.full_like(px, float(width))
+    v = ((py.clamp_max(float(height - 1)) + 0.5)
+         / torch.full_like(py, float(height)))
     l1, l2, r1, r2 = cam5[1], cam5[2], cam5[3], cam5[4]
     left = l1[None] + (l2 - l1)[None] * v[:, None]
     right = r1[None] + (r2 - r1)[None] * v[:, None]
-    dirs = shade._normalize(left + (right - left) * u[:, None])
+    dirs = wavefront.unit_rows(left + (right - left) * u[:, None])
     return cam5[0].expand_as(dirs), dirs, px, py
 
 
@@ -75,15 +82,26 @@ def _unblock(a, width, height):
     return x.reshape(nby * BLK, width, *a.shape[1:])[:height]
 
 
-def _segment(wscene, o, d, active, stats):
+def _segment(wscene, o, d, active, stats, camera=None):
     """One traversal segment; ``stats`` (a list or None) gets its
-    intersect_wavefront profile."""
+    intersect_wavefront profile.  ``camera`` (cam5, W, H) traces the
+    frame's primaries in camera mode."""
     profile = None if stats is None else {}
+    cam_block = camera is not None and _use_block(camera[1])
     res = wavefront.intersect_wavefront(wscene, o, d, active=active,
-                                        profile=profile)
+                                        profile=profile, camera=camera,
+                                        cam_block=cam_block)
     if stats is not None:
         stats.append(profile)
     return res
+
+
+def _shadow_rays(res):
+    """Mode-2 shadow rays: from each primary hit's voxel toward the sun,
+    active on hits only."""
+    sun = torch.tensor(shade.SUN_DIR_DIRECT, dtype=torch.float32,
+                       device=res.voxel_pos.device)
+    return res.voxel_pos, sun.expand_as(res.voxel_pos), res.hit
 
 
 def _render_gi(wscene, cam5, width, height, gi_bounces, mirror_values,
@@ -101,7 +119,10 @@ def _render_gi(wscene, cam5, width, height, gi_bounces, mirror_values,
     active = torch.ones((B,), dtype=torch.bool, device=dev)
     o, d = origins, dirs
     for seg in range(gi_bounces + 1):
-        res = _segment(wscene, o, d, None if seg == 0 else active, stats)
+        if seg == 0:
+            res = _segment(wscene, o, d, None, stats, (cam5, width, height))
+        else:
+            res = _segment(wscene, o, d, active, stats)
         accum, mask, depth, iters_out, active, o, d = shade.gi_update(
             seg == 0, tuple(mirror_values), accum, mask, depth, iters_out,
             active, o, d, rand, res)
@@ -117,10 +138,11 @@ def render_frame_wavefront(wscene, cam5, width, height, render_mode=0,
     r2 corner directions) as a float32 tensor on the scene's device.
     Returns (color (H,W,3), depth (H,W), iters (H,W)); row 0 is the GL
     bottom scanline.  Modes: 0 pathtraced GI (glsl random), 1 iteration
-    heatmap, 3 normals.  ``stats`` (a list) collects one dict per
-    traversal segment.
+    heatmap, 2 direct light with a shadow ray toward the sun, 3 normals.
+    ``stats`` (a list) collects one dict per traversal segment.
     """
     cam5 = cam5.to(torch.float32)
+    camera = (cam5, width, height)
     if render_mode == 0:
         _, _, px, py = _frame_rays(cam5, width, height)
         rand = rng.pixel_rand(px, py, frame_number)
@@ -128,12 +150,15 @@ def render_frame_wavefront(wscene, cam5, width, height, render_mode=0,
                                     mirror_values, rand, stats)
     elif render_mode in (1, 3):
         origins, dirs, _, _ = _frame_rays(cam5, width, height)
-        res = _segment(wscene, origins, dirs, None, stats)
+        res = _segment(wscene, origins, dirs, None, stats, camera)
         col, depth, it = (shade.heatmap_colors(res) if render_mode == 1
                           else shade.normal_colors(res))
     elif render_mode == 2:
-        raise NotImplementedError("render mode 2 (direct light + shadow "
-                                  "rays) is not ported yet")
+        origins, dirs, _, _ = _frame_rays(cam5, width, height)
+        res = _segment(wscene, origins, dirs, None, stats, camera)
+        sh = _segment(wscene, *_shadow_rays(res), stats)
+        col, depth, it = shade.direct_shade_math(dirs, res, sh,
+                                                 torch.zeros_like(res.t))
     else:
         raise ValueError(f"unknown render mode {render_mode}")
     return (_unblock(col, width, height), _unblock(depth, width, height),

@@ -1,5 +1,5 @@
-"""Kernels K1, KE and K2 on a CUDA GPU against their plain PyTorch
-versions.  Needs a card and nvcc; skipped elsewhere.  The file imports no
+"""Kernels K1 (explicit and camera mode), KE, K2 and K3 on a CUDA GPU
+against their plain PyTorch versions.  Needs a card and nvcc; skipped elsewhere.  The file imports no
 jax, so on a GPU host without JAX it runs from the repository root with
 ``python -m pytest --noconftest tests/test_torch_cuda.py``."""
 
@@ -138,3 +138,61 @@ def test_dda_kernel_equals_plain_on_gpu(G):
     want = brick_dda.coarse_dda_plain(tab, o, d, G, 3 * G, alive)
     assert _equal_fields(want, got) == []
     assert want["hit"].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W, H", [(64, 40), (48, 40), (1920, 1080)])
+def test_camera_kernel_equals_plain_on_gpu(W, H):
+    """K1 in camera mode against trace_camera_plain: block-major frames
+    with pad rows (W % 32 == 0) and a row-major one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from svo_raytracer_torch.ops import render_wave
+    from svo_raytracer_torch.utils.camera import Camera
+    hm, mm = bigworld.fractal_heightmap(256, seed=3, lo=0.3, hi=0.9)
+    ws = wavefront.prepare(bigworld.heightmap_brick_scene(hm, mm, 256),
+                           "cuda")
+    cam = Camera(pos=np.array([1.3, 1.8, 1.3]))
+    cam.rotate(-0.5, 0.6)
+    cam16 = wavefront.cam16(torch.tensor(cam.uniform(), dtype=torch.float32,
+                                         device="cuda"))
+    n = render_wave._frame_B(W, H)
+    nbx = W // 32 if render_wave._use_block(W) else 0
+    before = wavefront.K1.launches, wavefront.K1_CAMERA.launches
+    got = wavefront.trace_camera(ws, cam16, n, W, H, nbx)
+    torch.cuda.synchronize()
+    assert (wavefront.K1.launches, wavefront.K1_CAMERA.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = wavefront.trace_camera_plain(ws, cam16, n, W, H, nbx)
+    for field, a, b in zip(("status", "t", "cell", "widx", "iters"), want,
+                           got):
+        assert torch.equal(a, b), field
+    hits = (want[0] == wavefront.MIXED) | (want[0] == wavefront.UNIFORM)
+    assert hits.any() and not hits.all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["sphere-64", "terrain-64"])
+def test_brick_round_kernel_equals_plain_on_gpu(name):
+    """Kernel K3 against brick_pallas.trace_plain: every field of every
+    ray, inactive and non-finite rays included, and with few rounds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from svo_raytracer_torch.core import build_np
+    from svo_raytracer_torch.ops import brick_pallas, brick_scene
+    vox = (chip_smoke.sphere_voxels(64, 24) if name == "sphere-64"
+           else chip_smoke.terrain_voxels(64, 7))
+    scene = brick_scene.brickify(build_np.build_octree_np(vox)).to_device(
+        "cuda")
+    o, d = _rays(8192, seed=7)
+    ov = ((o - 1.0) * float(scene.world_size)).contiguous()
+    alive = torch.isfinite(o).all(1) & torch.isfinite(d).all(1)
+    alive[3::40] = False
+    for rounds in (24, 2):
+        before = brick_pallas.K3.launches
+        got = brick_pallas.trace(scene, ov, d, alive, rounds)
+        torch.cuda.synchronize()
+        assert brick_pallas.K3.launches == before + 1
+        want = brick_pallas.trace_plain(scene, ov, d, alive, rounds)
+        assert _equal_fields(want, got) == [], rounds
+        assert want["hit"].any() and not want["hit"].all()

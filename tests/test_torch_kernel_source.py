@@ -1,9 +1,10 @@
 """The kernels' own sources on the CPU: the per-ray bodies that the GPU
-kernels run (csrc/wf_ray.cuh for K1, csrc/esvo_ray.cuh for KE,
-csrc/brick_dda.cuh for K2) compiled with g++, their CUDA qualifiers
+kernels run (csrc/wf_ray.cuh for K1 with its camera-mode ray derivation,
+csrc/esvo_ray.cuh for KE, csrc/brick_dda.cuh for K2,
+csrc/brick_round.cuh for K3) compiled with g++, their CUDA qualifiers
 defined away, into ctypes libraries, against their plain PyTorch versions
-(wavefront.trace_plain, traverse.intersect_plain,
-brick_dda.coarse_dda_plain).
+(wavefront.trace_plain and trace_camera_plain, traverse.intersect_plain,
+brick_dda.coarse_dda_plain, brick_pallas.trace_plain).
 
 With no fused multiply-add on either side the two compute the same
 float32 operations in the same order, so every record field must be
@@ -21,8 +22,10 @@ import chip_smoke
 from conftest import make_sphere_voxels
 from svo_raytracer_tpu.core import build_np
 from svo_raytracer_torch.models import bigworld
-from svo_raytracer_torch.ops import brick_dda, brick_scene, kernel_build
-from svo_raytracer_torch.ops import skip_grid, traverse, wavefront
+from svo_raytracer_torch.ops import brick_dda, brick_pallas, brick_scene
+from svo_raytracer_torch.ops import kernel_build, render_wave, skip_grid
+from svo_raytracer_torch.ops import traverse, wavefront
+from svo_raytracer_torch.utils.camera import Camera
 from test_traverse_batch import random_rays
 
 GXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off",
@@ -207,5 +210,66 @@ def test_dda_source_body_equals_plain(name):
               got["t"].data_ptr(), got["cell"].data_ptr(),
               got["steps"].data_ptr()) == 0
     got["hit"] = hit != 0
+    assert _equal(want, got) == []
+    assert want["hit"].any() and not want["hit"].all()
+
+
+@pytest.mark.parametrize("name, W, H", [("terrain-64", 64, 40),
+                                        ("terrain-64", 48, 40),
+                                        ("heightmap-256", 96, 70),
+                                        ("paged-4096", 64, 48)])
+def test_camera_source_body_equals_plain(name, W, H):
+    """K1's camera mode: block-major frames with pad rows (W % 32 == 0)
+    and row-major ones, flat and paged worlds."""
+    fn = _host_fn("wf_ray_host", "wf_ray_host.cpp", "wf_trace_camera_host",
+                  wavefront.K1_CAMERA.argtypes)
+    scene = (brick_scene.brickify(_esvo_tree(name)) if name == "terrain-64"
+             else _scene(name))
+    ws = wavefront.prepare(scene, "cpu")
+    if name == "paged-4096":     # looking down on the sparse bricks
+        cam = Camera(pos=np.array([1.5, 1.45, 1.3]))
+        cam.rotate(-0.9, 3.14)
+    else:
+        cam = Camera(pos=np.array([1.37, 1.81, 1.29]))
+        cam.rotate(-0.6, 0.7)
+    cam16 = wavefront.cam16(torch.tensor(cam.uniform(), dtype=torch.float32))
+    n = render_wave._frame_B(W, H)
+    nbx = W // 32 if render_wave._use_block(W) else 0
+    want = wavefront.trace_camera_plain(ws, cam16, n, W, H, nbx)
+    got = [torch.empty(n, dtype=a.dtype) for a in want]
+    assert fn(*wavefront._table_args(ws), cam16.data_ptr(), W, H, nbx,
+              ws.world_size, n, *[x.data_ptr() for x in got]) == 0
+    for field, a, b in zip(("status", "t", "cell", "widx", "iters"), want,
+                           got):
+        assert torch.equal(a, b), field
+    hits = (want[0] == wavefront.MIXED) | (want[0] == wavefront.UNIFORM)
+    assert hits.any() and not hits.all()
+
+
+@pytest.mark.parametrize("name", ["sphere-64", "terrain-64",
+                                  "heightmap-256"])
+@pytest.mark.parametrize("max_rounds", [24, 2])
+def test_brick_round_source_body_equals_plain(name, max_rounds):
+    """K3 on random rays, with inactive and non-finite ones, with every
+    round and cut at 2 rounds."""
+    fn = _host_fn("brick_round_host", "brick_round_host.cpp",
+                  "brick_round_host", brick_pallas.K3.argtypes)
+    scene = (brick_scene.brickify(_esvo_tree(name)) if name != "heightmap-256"
+             else _scene(name)).to_device("cpu")
+    o, d = random_rays(2048, seed=19)
+    o[::97] = np.nan
+    o = ((torch.from_numpy(o) - 1.0) * float(scene.world_size)).contiguous()
+    d = torch.from_numpy(d)
+    alive = torch.isfinite(o).all(1)
+    alive[5::50] = False
+    want = brick_pallas.trace_plain(scene, o, d, alive, max_rounds)
+    got = {f: torch.empty_like(want[f], dtype=torch.int32 if f == "hit"
+                               else want[f].dtype)
+           for f in brick_pallas.FIELDS}
+    al = alive.to(torch.uint8)
+    assert fn(*brick_pallas._args(scene), max_rounds, o.data_ptr(),
+              d.data_ptr(), al.data_ptr(), o.shape[0],
+              *[got[f].data_ptr() for f in brick_pallas.FIELDS]) == 0
+    got["hit"] = got["hit"] != 0
     assert _equal(want, got) == []
     assert want["hit"].any() and not want["hit"].all()

@@ -1,8 +1,10 @@
 """The port never imports jax or the JAX package: with both blocked in
 sys.modules, every svo_raytracer_torch module imports, a few rays trace on
-the CPU, chip_smoke.py's scene and camera helpers run, and a 32^3
-heightmap octree built by the port renders a mode-2 frame with a skip
-grid through chip_smoke's ESVO world helper."""
+the CPU through the wavefront engine and through the v1 brick engine
+(brick_pallas), chip_smoke.py's scene and camera helpers run, a wavefront
+mode-2 frame renders with camera-mode primaries, and a 32^3 heightmap
+octree built by the port renders a mode-2 frame with a skip grid through
+chip_smoke's ESVO world helper."""
 
 import os
 import subprocess
@@ -23,11 +25,16 @@ for m in pkgutil.walk_packages(svo_raytracer_torch.__path__,
 from svo_raytracer_torch.models import bigworld
 from svo_raytracer_torch.ops import wavefront
 hm, mm = bigworld.fractal_heightmap(64, seed=0)
-ws = wavefront.prepare(bigworld.heightmap_brick_scene(hm, mm, 64), "cpu")
+scene64 = bigworld.heightmap_brick_scene(hm, mm, 64)
+ws = wavefront.prepare(scene64, "cpu")
 o = torch.tensor([[1.5, 1.9, 1.5], [1.1, 1.9, 1.7]])
 d = torch.tensor([[0.0, -1.0, 0.0], [0.3, -1.0, 0.1]])
 res = wavefront.intersect_wavefront(ws, o, d / d.norm(dim=1, keepdim=True))
 assert res.hit.all(), res
+from svo_raytracer_torch.ops import brick_pallas, render_wave
+res3 = brick_pallas.intersect_bricks_tpu(scene64.to_device("cpu"), o,
+                                         d / d.norm(dim=1, keepdim=True))
+assert res3.hit.all() and torch.equal(res3.value, res.value), res3
 import chip_smoke
 from svo_raytracer_torch.core import build_np
 from svo_raytracer_torch.ops import brick_scene
@@ -35,6 +42,10 @@ tree = build_np.build_octree_np(chip_smoke.sphere_voxels(32, 12))
 ws = wavefront.prepare(brick_scene.brickify(tree), "cpu")
 cam5 = chip_smoke.place_camera(ws, "cpu")
 assert cam5.shape == (5, 3) and 1.0 < float(cam5[0, 1]) < 2.0, cam5
+stats = []
+col, depth, _ = render_wave.render_frame_wavefront(ws, cam5, 32, 24,
+                                                   render_mode=2, stats=stats)
+assert bool(torch.isfinite(col).all()) and stats[0]["camera"], stats
 from svo_raytracer_torch.ops import shade
 hm, mm = bigworld.fractal_heightmap(32, seed=1)
 etree, packed, tabs = chip_smoke.build_esvo_world(torch.device("cpu"), hm,

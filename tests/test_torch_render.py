@@ -1,5 +1,7 @@
 """Port frames vs the JAX package's render_frame_wavefront (Pallas kernel
-in interpret mode, dynamic schedules) on terrain-64 at 64x40.
+in interpret mode, dynamic schedules) on terrain-64 at 64x40.  Both trace
+every primary segment in camera mode (the kernel derives the rays from
+the camera); mode 2's shadow segment traces explicit rays.
 
 Mode 0 feeds both packages the same per-pixel random: the numbers the
 JAX frame itself draws (its jitted _gi_init; XLA contracts the sin
@@ -23,9 +25,10 @@ from svo_raytracer_torch.ops import brick_scene, render_wave, rng, wavefront
 W, H = 64, 40
 FRAME = 3
 # (render_mode, gi_bounces, width); mode 0 with mirror_values=(2,), mode 1
-# the iteration heatmap, mode 3 normals.  Width
-# 48 is not a multiple of 32: row-major rays instead of 32x32 blocks.
-CASES = [(0, 3, W), (0, 1, W), (1, 1, W), (3, 1, W), (3, 1, 48)]
+# the iteration heatmap, mode 2 direct light with shadow rays, mode 3
+# normals.  Width 48 is not a multiple of 32: row-major rays instead of
+# 32x32 blocks.
+CASES = [(0, 3, W), (0, 1, W), (1, 1, W), (2, 1, W), (3, 1, W), (3, 1, 48)]
 
 
 @pytest.fixture(scope="module")
