@@ -15,9 +15,14 @@ mode (each thread derives its ray from its id and the camera):
 
 Every world's K1 records are held equal to its plain PyTorch version,
 trace_plain, on the card, as are those of the small test scenes (G = 2,
-G = 64 and a sparse paged 4096^3 scene) first.  On every world K1's
-camera mode is held equal to trace_camera_plain on the 1080p primary
-segment, and against explicit rays to the JAX package's contract.
+G = 64 and a sparse paged 4096^3 scene) first.  K1 traces explicit rays
+in the order of their sort keys (wavefront.ray_order: K1's key kernel,
+held equal to ray_keys_plain on every set, then torch.sort); each check
+prints the key-and-sort time apart from K1's own, and on bounce segment
+1 of every world K1 also runs in frame order, held to the same records.
+On every world K1's camera mode is held equal to trace_camera_plain on
+the 1080p primary segment, and against explicit rays to the JAX
+package's contract.
 
 After the 1024^3 wavefront world, its host BrickScene goes to the card
 for kernel K3, the v1 brick-round engine (brick_pallas.
@@ -42,7 +47,7 @@ Each check's bound counts the ray inputs and records once, the distinct
 table words its plain version gathers, and its steps' operations.
 
     python3 chip_smoke.py            # needs one CUDA GPU; builds K1, KE,
-                                     # K2 and K3 with nvcc
+                                     # K2 and K3 with nvcc, all at once
 
 The 1024^3 and 4096^3 wavefront frames and the ESVO skip-grid frames are
 also profiled with torch.profiler (device kernels, device busy, the
@@ -92,8 +97,10 @@ PEAK_OPS_PER_S = 67e12
 # counted from the kernels' sources: K1's coarse DDA step
 # (csrc/wf_ray.cuh dda_cr), KE's ESVO step (csrc/esvo_ray.cuh, PUSH or
 # ADVANCE + POP), K2's grid step (csrc/brick_dda.cuh), K3's voxel or L0
-# DDA step (csrc/brick_round.cuh dda_vec)
-OPS_PER_STEP = {"K1": 40, "KE": 50, "K2": 30, "K3": 30}
+# DDA step (csrc/brick_round.cuh dda_vec); and K1's key kernel per ray
+# (csrc/wf_ray.cuh ray_key: six finiteness tests, three brick coordinates,
+# three Morton spreads, the octant)
+OPS_PER_STEP = {"K1": 40, "KE": 50, "K2": 30, "K3": 30, "K1 keys": 75}
 K3_ROUNDS = 24            # intersect_bricks_tpu's default max_rounds
 K3_CUT_ROUNDS = 2         # few enough rounds that some rays run out
 
@@ -300,6 +307,22 @@ class Gathered:
         return sum(int(m.sum()) for m in self.seen.values())
 
 
+def unequal(rec_a, rec_b):
+    """({field: rays that differ}, max |a - b| over float fields) of two
+    records (dicts), NaN equal to NaN."""
+    diff, err = {}, 0.0
+    for f, a in rec_a.items():
+        b = rec_b[f]
+        if a.is_floating_point():
+            same = (a == b) | (a.isnan() & b.isnan())
+            if a.numel():
+                err = max(err, (a - b).abs().nan_to_num().max().item())
+        else:
+            same = a == b
+        diff[f] = int((~same).sum())
+    return diff, err
+
+
 class Held:
     """A kernel against its plain version on one input set: every field of
     the (dict) records equal on every ray, NaN equal to NaN.  Times the
@@ -313,18 +336,8 @@ class Held:
                  reps=3):
         rec_k, self.ms = timed(kernel, reps)
         rec_p, self.plain_ms = timed(plain, warm=False)
-        diff, self.err = {}, 0.0
-        for f, a in rec_k.items():
-            b = rec_p[f]
-            if a.is_floating_point():
-                same = (a == b) | (a.isnan() & b.isnan())
-                if a.numel():
-                    self.err = max(self.err, (a - b).abs().nan_to_num()
-                                   .max().item())
-            else:
-                same = a == b
-            diff[f] = int((~same).sum())
-        self.rec = rec_k
+        diff, self.err = unequal(rec_k, rec_p)
+        self.rec, self.rec_p = rec_k, rec_p
         with Gathered(tables) as g:
             plain()
         self.words = g.words()
@@ -342,36 +355,74 @@ class Held:
                                  f"from its plain version on {diff}")
 
 
+def hold_keys(ws, name, o, d, alive):
+    """K1's key kernel vs ray_keys_plain on voxel-unit rays; one step per
+    ray."""
+    from svo_raytracer_torch.ops import wavefront as wf
+    return Held("K1 keys", name,
+                lambda: dict(key=wf.ray_keys_kernel(ws, o, d, alive)),
+                lambda: dict(key=wf.ray_keys_plain(ws, o, d, alive)),
+                o.shape[0] * (12 + 12 + 1 + 4), [],
+                lambda r: r["key"].numel())
+
+
 class Agreement(Held):
-    """K1 vs trace_plain on one ray set: every record field (status, t,
-    cell, widx, iters) of every ray, as Held.  Keeps the kernel's decoded
-    HitResult (``res_k``) for the next segment of a frame and prints K1's
-    hits, coarse steps per active ray and step rate."""
+    """K1 vs trace_plain on one ray set, the rays in key order
+    (wavefront.ray_order, as the main path traces explicit rays): every
+    record field (status, t, cell, widx, iters) of every ray, as Held.
+    Holds K1's key kernel against ray_keys_plain on the set (``keys``)
+    and times the keys and their sort (``key_sort_ms``) apart from K1.
+    With ``frame_order``, K1 also runs over the rays in frame order, held
+    to the same records and timed (``frame_ms``).  Keeps the kernel's
+    decoded HitResult (``res_k``) for the next segment of a frame and
+    prints K1's active rays, hits, coarse steps per active ray and step
+    rate."""
 
     FIELDS = ("status", "t", "cell", "widx", "iters")
 
-    def __init__(self, ws, name, origins, dirs, active=None, reps=3):
+    def __init__(self, ws, name, origins, dirs, active=None, reps=3,
+                 frame_order=False):
         from svo_raytracer_torch.ops import wavefront as wf
         o, d, alive = wf._rays(ws, origins, dirs, active)
+        self.keys = hold_keys(ws, name, o, d, alive)
+        order, self.key_sort_ms = timed(lambda: wf.ray_order(ws, o, d,
+                                                             alive), reps)
 
-        def record(trace):
-            return lambda: dict(zip(self.FIELDS, trace(ws, o, d, alive)))
+        def record(trace, *perm):
+            return lambda: dict(zip(self.FIELDS, trace(ws, o, d, alive,
+                                                       *perm)))
 
         tables = [getattr(ws, f) for f in ("l0_occ", "l0_mixed", "l0_sc",
                                            "brick_slot", "occ_words",
                                            "sc_words")]
-        super().__init__("K1", name, record(wf.trace_kernel),
+        super().__init__("K1", name, record(wf.trace_kernel, order),
                          record(wf.trace_plain),
                          o.shape[0] * (12 + 12 + 1 + 20), tables,
                          lambda r: int(r["iters"][alive].sum()), reps)
         self.res_k = wf._finish(ws, tuple(self.rec[f] for f in self.FIELDS),
                                 origins, dirs)
         steps = self.rec["iters"][alive].double()
-        say(f"    active {int(alive.sum())} hits "
+        self.active = int(alive.sum())
+        self.rate = rate = steps.sum().item() / 1e6   # G steps per ms
+        say(f"    active {self.active} hits "
             f"{int(self.res_k.hit.sum())}; coarse steps per ray mean "
             f"{steps.mean().item():.1f} max "
-            f"{int(steps.max().item()) if steps.numel() else 0}, "
-            f"{steps.sum().item() / self.ms / 1e6:.3f} G steps/s")
+            f"{int(steps.max().item()) if steps.numel() else 0}; K1 in key "
+            f"order {self.ms:.4f} ms, {rate / self.ms:.3f} G steps/s; keys "
+            f"+ sort {self.key_sort_ms:.4f} ms")
+        self.frame_ms = None
+        if frame_order:
+            rec_f, self.frame_ms = timed(record(wf.trace_kernel, None), reps)
+            diff, _ = unequal(rec_f, self.rec_p)
+            say(f"    K1 in frame order {self.frame_ms:.4f} ms, "
+                f"{rate / self.frame_ms:.3f} G steps/s; unequal fields "
+                f"{ {f: n for f, n in diff.items() if n} or 0}; key order "
+                f"{self.frame_ms / self.ms:.3f}x faster, "
+                f"{self.frame_ms / (self.ms + self.key_sort_ms):.3f}x with "
+                f"its keys and sort")
+            if any(diff.values()):
+                raise AssertionError(f"K1 {name} in frame order differs from "
+                                     f"trace_plain on {diff}")
 
 
 def hold_ke(name, packed, o, d, alive, **kw):
@@ -1057,17 +1108,18 @@ def render_frames(ws, cam5, configs):
 
 def main_path(dev, ws, configs):
     """The main path on one world: camera probe and frames, with K1's
-    launch counts set to 0 just before and read just after.  K1.launches
-    counts both entry points of the library, so the explicit-ray entry's
-    launches are K1's less K1_CAMERA's."""
+    launch counts (and its key kernel's) set to 0 just before and read
+    just after.  K1.launches counts both entry points of the library, so
+    the explicit-ray entry's launches are K1's less K1_CAMERA's."""
     import torch
     from svo_raytracer_torch.ops import wavefront as wf
     torch.cuda.reset_peak_memory_stats()
-    wf.K1.launches = wf.K1_CAMERA.launches = 0
+    wf.K1.launches = wf.K1_CAMERA.launches = wf.K1_KEYS.launches = 0
     cam5 = place_camera(ws, dev)
     frames = render_frames(ws, cam5, configs)
     launches = dict(K1_explicit=wf.K1.launches - wf.K1_CAMERA.launches,
-                    K1_camera=wf.K1_CAMERA.launches)
+                    K1_camera=wf.K1_CAMERA.launches,
+                    K1_keys=wf.K1_KEYS.launches)
     peak = torch.cuda.max_memory_allocated()
     say(f"[main path {ws.world_size}] launches {launches}; "
         f"max_memory_allocated {peak / 2**30:.3f} GiB ({peak} B)")
@@ -1100,7 +1152,8 @@ def sampled_rays(ws, cam5):
 
 
 def compare_segments(ws, cam5, bounces):
-    """K1 vs trace_plain on every segment of a gi-``bounces`` frame."""
+    """K1 vs trace_plain on every segment of a gi-``bounces`` frame, as
+    explicit rays in key order; bounce segment 1 in frame order too."""
     import torch
     from svo_raytracer_torch.ops import render_wave, rng, shade
     say(f"[segments {ws.world_size}] K1 vs trace_plain per segment of a "
@@ -1118,7 +1171,7 @@ def compare_segments(ws, cam5, bounces):
     out = []
     for seg in range(bounces + 1):
         a = Agreement(ws, f"segment {seg}", o.contiguous(), d.contiguous(),
-                      None if seg == 0 else active)
+                      None if seg == 0 else active, frame_order=seg == 1)
         out.append(a)
         accum, mask, depth, iters, active, o, d = shade.gi_update(
             seg == 0, (), accum, mask, depth, iters, active, o, d, rand,
@@ -1170,7 +1223,8 @@ def profile_window(tag, render, kernels, unprof_ms):
            for k, sub in kernels.items()}
     out = dict(profiled_wall_ms=wall, device_busy_ms=busy_ms,
                kernels_per_frame=nk, idle_share=1.0 - busy_ms / wall,
-               **{f"{k.lower()}_ms": v for k, v in kms.items()})
+               **{f"{k.lower().replace(' ', '_')}_ms": v
+                  for k, v in kms.items()})
     shares = "; ".join(f"{k} {v:.3f} ms ({v / busy_ms:.1%} of busy)"
                        for k, v in kms.items())
     say(f"[profile {tag}] {n} frames: {nk:.0f} device kernels/frame; device "
@@ -1189,7 +1243,8 @@ def profile_frames(ws, cam5, configs, frames):
         f"{ws.world_size} {label}",
         lambda i, kw=kw: render_wave.render_frame_wavefront(
             ws, cam5, W, H, frame_number=i + 2, **kw),
-        {"K1": "wf_"}, frames[label]["ms"])
+        {"K1": "wf_persistent", "K1 keys": "ray_key", "sort": "RadixSort"},
+        frames[label]["ms"])
         for label, (kw, _, _) in configs.items()}
 
 
@@ -1235,18 +1290,39 @@ def kernel_entry(name, source, replaces, launches, timed_checks,
 
 
 def build_kernels():
-    """Build K1, KE, K2 and K3 from csrc/, one nvcc after another; prints
-    each kernel's build-and-load seconds and ptxas's registers and
-    spills."""
+    """Build K1, KE, K2 and K3 from csrc/, one nvcc each, all started
+    together; prints each kernel's build-and-load seconds and ptxas's
+    registers, shared memory and spills."""
+    import concurrent.futures as cf
     from svo_raytracer_torch.ops import brick_dda, brick_pallas, traverse
     from svo_raytracer_torch.ops import wavefront as wf
-    for k in (wf.K1, traverse.KE, brick_dda.K2, brick_pallas.K3):
+
+    def load(k):
         t0 = time.time()
         k.load()
-        say(f"[build] {k.name} built and loaded in {time.time() - t0:.1f} s")
+        return time.time() - t0
+
+    t0 = time.time()
+    ks = (wf.K1, traverse.KE, brick_dda.K2, brick_pallas.K3)
+    with cf.ThreadPoolExecutor(len(ks)) as ex:
+        secs = list(ex.map(load, ks))
+    for k, sec in zip(ks, secs):
+        say(f"[build] {k.name} built and loaded in {sec:.1f} s")
         for line in k.build_log().splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry" in line:
                 say(f"  ptxas {k.name}: {line.strip()}")
+    say(f"[build] all four in {time.time() - t0:.1f} s")
+
+
+def print_grids(ws):
+    """K1's persistent launch (resident blocks per SM, SMs, threads,
+    shared-memory bytes per block, grid) for the world's layout, explicit
+    and camera mode."""
+    from svo_raytracer_torch.ops import wavefront as wf
+    out = {m: wf.launch_info(ws, camera=m == "camera")
+           for m in ("explicit", "camera")}
+    say(f"[grid {ws.world_size}] K1 persistent launch: {out}")
+    return out
 
 
 def main():
@@ -1292,9 +1368,12 @@ def main():
 
     # ---- the main path on each world (WORLDS), through its part of K1
     summary, kernels = {}, []
+    key_launches, key_timed, key_all = 0, [], [c.keys
+                                                for c in checks.values()]
     for (size, n_range, bounces, n_timed, profiled, part, line,
          small_names, first) in WORLDS:
         scene, ws = build_world(dev, size, n_range)
+        grids = print_grids(ws)
         configs = frame_configs(bounces, n_timed, mode2=first)
         cam5, frames, launches, peak = main_path(dev, ws, configs)
         say(f"[compare {size}] K1 vs trace_plain on 16384 sampled rays")
@@ -1314,8 +1393,17 @@ def main():
             frame_ms={k: f["times"] for k, f in frames.items()},
             segment_ms=[a.ms for a in seg],
             segment_plain_ms=[a.plain_ms for a in seg],
+            segment_key_sort_ms=[a.key_sort_ms for a in seg],
+            segment_key_kernel_ms=[a.keys.ms for a in seg],
+            segment_active=[a.active for a in seg],
+            segment_g_steps_per_s=[a.rate / a.ms for a in seg],
+            bounce1_frame_order_ms=seg[1].frame_ms,
+            camera_ms=cam.ms, grids=grids,
             launches=launches, max_memory_allocated=peak,
             camera_vs_explicit=contract)
+        key_launches += launches["K1_keys"]
+        key_timed += [a.keys for a in seg[1:]]
+        key_all += [a.keys for a in seg + [sampled]]
         if profiled:
             summary[size]["profile"] = profile_frames(ws, cam5, configs,
                                                       frames)
@@ -1341,6 +1429,13 @@ def main():
             summary["esvo"], esvo_kernels = esvo_phase(dev, size, cam5, ws)
             kernels += esvo_kernels
         del scene, ws
+    kernels.append(dict(kernel_entry(
+        "K1 ray keys (direction octant over the origin brick's Morton "
+        "code), explicit segments of every world",
+        "svo_raytracer_torch/csrc/wavefront.cu",
+        "svo_raytracer_tpu/ops/wavefront.py:1920", key_launches, key_timed,
+        key_all), tpu_kernel="none: _sort_stage's brick key (XLA glue), "
+                             "with OCT_SORT's octant (wavefront.py:1032)"))
     say(f"[summary] {json.dumps(summary)}")
     say(f"[run] {time.time() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))

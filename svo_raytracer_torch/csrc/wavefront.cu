@@ -1,88 +1,306 @@
-// Kernel K1: the brick-wavefront traversal, one thread per ray.
+// Kernel K1: the brick-wavefront traversal, persistent warps over ordered
+// rays.
 //
 // Replaces svo_raytracer_tpu/ops/wavefront.py::_wf_kernel (the Pallas
 // round kernel, launched by _call_kernel's pl.pallas_call): flat L0
 // worlds up to G = 64 (2048^3) and paged L0 worlds of G = 128 and 256
 // (4096^3, 8192^3).  Two entry points: wf_trace for explicit rays, and
-// wf_trace_camera for camera-mode primaries, each derived in the thread
-// from its id and the 16 camera scalars (the TPU kernel's camera mode),
-// so a 1080p primary segment reads no origin or direction arrays (~50 MB
-// less traffic).  The per-ray body is wf_ray.cuh.
+// wf_trace_camera for camera-mode primaries, each derived in the lane
+// from its id and the 16 camera scalars (the TPU kernel's camera mode).
+// The per-ray body is wf_ray.cuh: `cross`, one brick crossing of a ray
+// held in a RayState.  A third entry point, wf_ray_keys, computes the
+// explicit rays' sort keys (wf_ray.cuh::ray_key).
 //
 // What bounds it on Hopper: each DDA step is a dependent load of a table
-// word (L0 coarse/byte words or a page's rows, a brick's coarse and
-// byte-cell words), so a thread waits on memory latency every step.  The
-// tables of a 1024^3 world (~4.5 KB per mixed brick plus the L0 rows,
-// ~20 MB) fit the 50 MB L2; a 4096^3 heightmap world's brick words (~70k
-// slots x 4.5 KB, ~330 MB) do not, so there each step into a new brick
-// can wait on DRAM.  (The attribute table is read by the decode after
-// K1, not by K1.)  Rays of one warp take
-// different numbers of steps and crossings, so warps diverge and idle
-// lanes wait for the longest ray.  This version does nothing about
-// either: no ray sorting, no persistent threads, no staging in shared
-// memory; what the DRAM latency costs at 4096^3 is measured, not tuned.
+// word, so a lane waits on memory latency every step, and the rays of a
+// warp take different numbers of steps and crossings.  The tables of a
+// 1024^3 world (~20 MB) fit the 50 MB L2; a 4096^3 heightmap world's
+// brick words (~330 MB) do not, so there a step into a new brick can wait
+// on DRAM.  The design answers each in turn:
+//   * order — the wrapper sorts explicit rays by direction octant and the
+//     Morton code of their origin's brick (ray_key, then torch.sort), and
+//     lane k traces ray order[k], writing its record to slot order[k]:
+//     the rays of a warp start in one brick heading one way, and dead
+//     rays sort to the tail.  Camera-mode primaries keep their
+//     block-major ids (a warp is one row of a 32x32 pixel block);
+//   * persistent warps (Aila & Laine, HPG 2009) — as many blocks as stay
+//     resident; a warp takes ids CHUNK at a time from a global counter
+//     with one atomicAdd, and a lane whose ray ended takes the next id at
+//     a crossing boundary (wf_ray.cuh WarpQueue), so finished lanes do
+//     not wait for the warp's longest ray;
+//   * shared memory — each block copies the flat L0 rows that phase 2
+//     reads on every step (byte and coarse words, supercell nibbles and,
+//     up to G = STAGE_MIXED_MAX_G, the mixed bits) into shared memory
+//     once; a paged world stages its page-occupancy row only (a page's
+//     137 rows stay in device memory).  Brick words and brick_slot are
+//     read through the read-only path (__ldg).
+// What is left is the latency of the brick words and, at 4096^3, of the
+// page rows in DRAM; PERF.md has the measured rates.
 //
 // Built by ops/kernel_build.py with nvcc -gencode arch=compute_90a,
 // code=sm_90a -O3 -fmad=false into a shared library with a plain C entry
 // point; ops/wavefront.py binds it with ctypes and launches it on
-// PyTorch's current stream.
+// PyTorch's current stream.  The step counter is scratch that the wrapper
+// allocates; the entry points zero it on the same stream.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "wf_ray.cuh"
 
+#ifndef K1_THREADS
+#define K1_THREADS 128
+#endif
+#ifndef K1_MIN_BLOCKS
+#define K1_MIN_BLOCKS 8
+#endif
+#ifndef K1_STAGE_MIXED_MAX_G
+#define K1_STAGE_MIXED_MAX_G 64
+#endif
+#ifndef K1_STAGE_L0
+#define K1_STAGE_L0 1
+#endif
+#ifndef K1_PERSISTENT
+#define K1_PERSISTENT 1
+#endif
+#ifndef K1_INNER
+#define K1_INNER 0
+#endif
+
 namespace {
 
-__global__ void __launch_bounds__(128)
-wf_trace_kernel(wf::Tables T, const float* __restrict__ origins,
-                const float* __restrict__ dirs,
-                const uint8_t* __restrict__ alive, int n,
-                int32_t* __restrict__ status, float* __restrict__ t,
-                int32_t* __restrict__ cell, int32_t* __restrict__ widx,
-                int32_t* __restrict__ iters) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const wf::RayOut r = wf::trace_ray(
-      T, origins[3 * i], origins[3 * i + 1], origins[3 * i + 2],
-      dirs[3 * i], dirs[3 * i + 1], dirs[3 * i + 2], alive[i] != 0);
-  wf::store(r, i, status, t, cell, widx, iters);
+constexpr int THREADS = K1_THREADS;
+constexpr int STAGE_MIXED_MAX_G = K1_STAGE_MIXED_MAX_G;
+constexpr unsigned FULL = 0xFFFFFFFFu;
+
+struct Rays {
+  const float* __restrict__ origins;  // (n, 3) voxel units
+  const float* __restrict__ dirs;     // (n, 3)
+  const uint8_t* __restrict__ alive;  // (n,)
+  const int64_t* __restrict__ order;  // (n,) lane k traces order[k]; or null
+  wf::Camera cam;
+};
+
+struct Records {
+  int32_t* status;
+  float* t;
+  int32_t* cell;
+  int32_t* widx;
+  int32_t* iters;
+};
+
+// Words of the L0 rows a block stages: [l0_occ | l0_sc | l0_mixed].
+struct Stage {
+  int occ, sc, mixed;
+  int bytes() const { return 4 * (occ + sc + mixed); }
+};
+
+__host__ __device__ inline Stage stage_words(const wf::Tables& T) {
+  Stage w;
+  if (!K1_STAGE_L0) {
+    w.occ = w.sc = w.mixed = 0;
+    return w;
+  }
+  if (T.pages > 0) {
+    w.occ = 128;  // the page-occupancy row
+    w.sc = 0;
+    w.mixed = 0;
+    return w;
+  }
+  const int hh = T.G / 2 > 1 ? T.G / 2 : 1;
+  w.occ = T.l0_coarse_base + (hh * hh * hh + 31) / 32;
+  w.sc = 128;
+  w.mixed = T.G <= STAGE_MIXED_MAX_G ? T.G * T.G * T.zw : 0;
+  return w;
 }
 
-__global__ void __launch_bounds__(128)
-wf_camera_kernel(wf::Tables T, wf::Camera cam, int n,
-                 int32_t* __restrict__ status, float* __restrict__ t,
-                 int32_t* __restrict__ cell, int32_t* __restrict__ widx,
-                 int32_t* __restrict__ iters) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  wf::store(wf::trace_camera_ray(T, cam, i), i, status, t, cell, widx,
-            iters);
+// The block's copy of the L0 rows; returns the tables that read it.
+__device__ wf::Tables stage(const wf::Tables& T, int32_t* smem) {
+  const Stage w = stage_words(T);
+  for (int i = threadIdx.x; i < w.occ; i += blockDim.x) {
+    smem[i] = __ldg(T.l0_occ + i);
+  }
+  for (int i = threadIdx.x; i < w.sc; i += blockDim.x) {
+    smem[w.occ + i] = __ldg(T.l0_sc + i);
+  }
+  for (int i = threadIdx.x; i < w.mixed; i += blockDim.x) {
+    smem[w.occ + w.sc + i] = __ldg(T.l0_mixed + i);
+  }
+  __syncthreads();
+  wf::Tables S = T;
+  if (w.occ) S.l0_occ = smem;
+  if (w.sc) S.l0_sc = smem + w.occ;
+  if (w.mixed) S.l0_mixed = smem + w.occ + w.sc;
+  return S;
 }
 
-constexpr int THREADS = 128;
+// Starts the lane on id k: returns the record slot of its ray, or -1 if
+// the ray is dead (its miss record is written at once).
+template <bool CAMERA>
+__device__ inline int begin(const Rays& R, int k, wf::RayState* s,
+                            const Records& out) {
+  if (CAMERA) {
+    *s = wf::start_camera_ray(R.cam, k);
+    return k;
+  }
+  const int r = R.order ? (int)R.order[k] : k;
+  if (!R.alive[r]) {
+    wf::store(wf::miss_record(), r, out.status, out.t, out.cell, out.widx,
+              out.iters);
+    return -1;
+  }
+  const float* o = R.origins + 3 * (size_t)r;
+  const float* d = R.dirs + 3 * (size_t)r;
+  *s = wf::start_ray(o[0], o[1], o[2], d[0], d[1], d[2]);
+  return r;
+}
+
+template <bool CAMERA, bool PAGED>
+__global__ void __launch_bounds__(K1_THREADS, K1_MIN_BLOCKS)
+wf_persistent(wf::Tables T, Rays R, int n, int* __restrict__ counter,
+              Records out) {
+  extern __shared__ int32_t smem[];
+  const wf::Tables S = stage(T, smem);
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  wf::WarpQueue q = {0, 0, n > 0};
+  if (!K1_PERSISTENT) {
+    const int w0 = (blockIdx.x * (THREADS / 32) + threadIdx.x / 32) *
+                   wf::CHUNK;
+    q = {w0 < n ? w0 : n, w0 + wf::CHUNK < n ? w0 + wf::CHUNK : n, false};
+  }
+  wf::RayState s;
+  int slot = -1;  // record slot of the lane's ray, -1 while idle
+  for (;;) {
+    const unsigned idle = __ballot_sync(FULL, slot < 0);
+    const int need = __popc(idle);
+    if ((need >= wf::REFILL || idle == FULL) && wf::queue_left(q)) {
+      int fresh = -1;
+      if (wf::queue_short(q, need)) {
+        if (lane == 0) fresh = atomicAdd(counter, wf::CHUNK);
+        fresh = __shfl_sync(FULL, fresh, 0);
+      }
+      if (slot < 0) {
+        const int k = wf::queue_id(q, __popc(idle & below), fresh, n);
+        if (k >= 0) slot = begin<CAMERA>(R, k, &s, out);
+      }
+      wf::queue_take(q, need, fresh, n);
+    }
+    if (__ballot_sync(FULL, slot >= 0) == 0) {
+      if (!wf::queue_left(q)) break;
+      continue;
+    }
+    if (slot >= 0) {
+      wf::RayOut r;
+      bool done = wf::cross<PAGED>(S, s, &r);
+      while (K1_INNER && !done) done = wf::cross<PAGED>(S, s, &r);
+      if (done) {
+        wf::store(r, slot, out.status, out.t, out.cell, out.widx, out.iters);
+        slot = -1;
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(256)
+ray_key_kernel(const float* __restrict__ origins,
+               const float* __restrict__ dirs,
+               const uint8_t* __restrict__ alive, int n, int G,
+               int32_t* __restrict__ keys) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  keys[i] = wf::ray_key(origins[3 * i], origins[3 * i + 1],
+                        origins[3 * i + 2], dirs[3 * i], dirs[3 * i + 1],
+                        dirs[3 * i + 2], alive[i] != 0, G);
+}
+
+using KernelFn = void (*)(wf::Tables, Rays, int, int*, Records);
+
+template <bool CAMERA>
+KernelFn pick(const wf::Tables& T) {
+  return T.pages > 0 ? wf_persistent<CAMERA, true>
+                     : wf_persistent<CAMERA, false>;
+}
+
+// Resident blocks of `kern` per SM at `smem` bytes of shared memory, and
+// the SM count; the last answer is kept per kernel.
+cudaError_t resident(KernelFn kern, int smem, int* per_sm, int* sms) {
+  struct Entry {
+    KernelFn kern;
+    int dev, smem, per_sm, sms;
+  };
+  static Entry cache[4] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  Entry* slot = nullptr;
+  for (Entry& c : cache) {
+    if (c.kern == kern || c.kern == nullptr) {
+      slot = &c;
+      break;
+    }
+  }
+  if (slot && slot->kern == kern && slot->dev == dev && slot->smem == smem) {
+    *per_sm = slot->per_sm;
+    *sms = slot->sms;
+    return cudaSuccess;
+  }
+  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute((const void*)kern,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern, THREADS,
+                                                    smem);
+  if (e != cudaSuccess) return e;
+  if (*per_sm < 1) return cudaErrorInvalidConfiguration;
+  if (slot) *slot = {kern, dev, smem, *per_sm, *sms};
+  return cudaSuccess;
+}
+
+// Launches the persistent grid over n ids: min(resident blocks, blocks
+// that n ids fill), after zeroing the id counter on the same stream.
+int launch(KernelFn kern, const wf::Tables& T, const Rays& R, int n,
+           int* counter, const Records& out, cudaStream_t stream) {
+  if (n <= 0) return 0;
+  const int smem = stage_words(T).bytes();
+  int per_sm = 0, sms = 0;
+  cudaError_t e = resident(kern, smem, &per_sm, &sms);
+  if (e != cudaSuccess) return (int)e;
+  const int per_block = THREADS / 32 * wf::CHUNK;
+  const int fill = (n + per_block - 1) / per_block;
+  const int blocks =
+      per_sm * sms < fill && K1_PERSISTENT ? per_sm * sms : fill;
+  e = cudaMemsetAsync(counter, 0, sizeof(int), stream);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<blocks, THREADS, smem, stream>>>(T, R, n, counter, out);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
 // origins: (n, 3) f32 voxel-unit ray origins; dirs: (n, 3) f32 directions
-// (clamped inside); alive: (n,) u8.  Outputs (n,) each.  Returns the
-// cudaError_t of the launch (0 on success).
+// (clamped inside); alive: (n,) u8; order: (n,) i64 permutation (lane k
+// traces ray order[k]) or null for frame order; counter: one int32 of
+// scratch.  Outputs (n,) each, written at the rays' own slots.  Returns
+// the cudaError_t of the launch (0 on success).
 extern "C" int wf_trace(const int32_t* l0_occ, const int32_t* l0_mixed,
                         const int32_t* l0_sc, const int32_t* brick_slot,
                         const int32_t* occ_words, const int32_t* sc_words,
                         int G, int l0_coarse_base, int zw, int pages,
-                        const float* origins,
-                        const float* dirs, const uint8_t* alive, int n,
-                        int32_t* status, float* t, int32_t* cell,
-                        int32_t* widx, int32_t* iters, void* stream) {
-  if (n <= 0) return 0;
+                        const float* origins, const float* dirs,
+                        const uint8_t* alive, const int64_t* order, int n,
+                        int* counter, int32_t* status, float* t,
+                        int32_t* cell, int32_t* widx, int32_t* iters,
+                        void* stream) {
   const wf::Tables T = wf::make_tables(l0_occ, l0_mixed, l0_sc, brick_slot,
                                        occ_words, sc_words, G,
                                        l0_coarse_base, zw, pages);
-  wf_trace_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
-                    (cudaStream_t)stream>>>(T, origins, dirs, alive, n,
-                                            status, t, cell, widx, iters);
-  return (int)cudaGetLastError();
+  const Rays R = {origins, dirs, alive, order, {}};
+  const Records out = {status, t, cell, widx, iters};
+  return launch(pick<false>(T), T, R, n, counter, out,
+                (cudaStream_t)stream);
 }
 
 // Camera mode: the n primaries of a W x H frame (nbx > 0: block-major
@@ -95,16 +313,42 @@ extern "C" int wf_trace_camera(const int32_t* l0_occ, const int32_t* l0_mixed,
                                const int32_t* sc_words, int G,
                                int l0_coarse_base, int zw, int pages,
                                const float* cam, int W, int H, int nbx,
-                               int world_size, int n, int32_t* status,
-                               float* t, int32_t* cell, int32_t* widx,
-                               int32_t* iters, void* stream) {
-  if (n <= 0) return 0;
+                               int world_size, int n, int* counter,
+                               int32_t* status, float* t, int32_t* cell,
+                               int32_t* widx, int32_t* iters, void* stream) {
   const wf::Tables T = wf::make_tables(l0_occ, l0_mixed, l0_sc, brick_slot,
                                        occ_words, sc_words, G,
                                        l0_coarse_base, zw, pages);
-  const wf::Camera C = {cam, W, H, nbx, (float)world_size};
-  wf_camera_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
-                     (cudaStream_t)stream>>>(T, C, n, status, t, cell, widx,
-                                             iters);
+  Rays R = {};
+  R.cam = {cam, W, H, nbx, (float)world_size};
+  const Records out = {status, t, cell, widx, iters};
+  return launch(pick<true>(T), T, R, n, counter, out, (cudaStream_t)stream);
+}
+
+// The sort keys of n explicit rays (wf_ray.cuh::ray_key) into keys (n,)
+// i32, for a world of G bricks per edge.
+extern "C" int wf_ray_keys(const float* origins, const float* dirs,
+                           const uint8_t* alive, int n, int G, int32_t* keys,
+                           void* stream) {
+  if (n <= 0) return 0;
+  ray_key_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      origins, dirs, alive, n, G, keys);
   return (int)cudaGetLastError();
+}
+
+// The persistent launch of a world's layout: info[0] resident blocks per
+// SM, info[1] SMs, info[2] threads per block, info[3] shared-memory bytes
+// per block (camera selects the camera-mode kernel).  Returns the
+// cudaError_t of the occupancy query.
+extern "C" int wf_launch_info(int G, int l0_coarse_base, int zw, int pages,
+                              int camera, int* info) {
+  const wf::Tables T = wf::make_tables(nullptr, nullptr, nullptr, nullptr,
+                                       nullptr, nullptr, G, l0_coarse_base,
+                                       zw, pages);
+  const int smem = stage_words(T).bytes();
+  const cudaError_t e = resident(camera ? pick<true>(T) : pick<false>(T),
+                                 smem, &info[0], &info[1]);
+  info[2] = THREADS;
+  info[3] = smem;
+  return (int)e;
 }

@@ -8,12 +8,14 @@
 // (4096^3, 8192^3).
 // The TPU kernel advances 1024-ray tiles in sorted rounds against KMAX
 // prefetched candidate bricks and KPAGE candidate pages, because Mosaic
-// has no arbitrary gather.  Here one thread owns one ray and loads any
-// table word it needs, looping crossings until the ray hits, misses or
-// passes ITER_CAP — the per-ray answer the TPU's serve loop computes
-// (wavefront.py:1479-1534).  Every page's tables are at hand, so a ray
-// never punts off an unserved page: the TPU's page-band keys (:1262-1263,
-// :1399-1402) have no counterpart.
+// has no arbitrary gather.  Here a lane owns one ray at a time and loads
+// any table word it needs, one crossing per call of `cross` below, until
+// the ray hits, misses or passes ITER_CAP — the per-ray answer the TPU's
+// serve loop computes (wavefront.py:1479-1534).  Between crossings the
+// ray lives in a RayState, so the kernel (wavefront.cu) can hand a lane
+// whose ray ended the next ray.  Every page's tables are at hand, so a
+// ray never punts off an unserved page: the TPU's page-band keys
+// (:1262-1263, :1399-1402) have no counterpart.
 //
 // Camera mode (the kernel's camera branch, :987-1027) derives each
 // primary ray from its id and 16 camera scalars instead of reading origin
@@ -46,6 +48,9 @@ constexpr int PAGE_ROWS = 137;       // 128-word rows of one page's tables
 
 enum : int32_t { MISS = 0, MIXED = 1, UNIFORM = 2, CAPPED = 3 };
 
+// In the kernel the L0 rows (l0_occ, l0_sc and, up to a G that
+// wavefront.cu sets, l0_mixed) point to the block's copy in shared memory,
+// and are read with plain loads; the rest is read through ldg().
 struct Tables {
   const int32_t* l0_occ;      // L0 byte-cell words, then coarse-bit words;
                               // paged: page-occupancy bits
@@ -116,6 +121,26 @@ __host__ __device__ inline float clamp_dir(float d) {
   return fabsf(d) < DIR_EPS ? (d >= 0.0f ? DIR_EPS : -DIR_EPS) : d;
 }
 
+// A read-only table word in device memory: through the non-coherent
+// read-only path (__ldg) on the card, a plain load in the CPU build.
+// Words staged in shared memory are read with plain loads.
+#ifndef K1_LDG
+#define K1_LDG 1
+#endif
+__host__ __device__ inline int32_t ldg(const int32_t* p) {
+#if defined(__CUDA_ARCH__) && K1_LDG
+  return __ldg(p);
+#else
+  return *p;
+#endif
+}
+
+// A table word: read-only device memory (RO) or shared memory.
+template <bool RO>
+__host__ __device__ inline uint32_t word(const int32_t* p) {
+  return (uint32_t)(RO ? ldg(p) : *p);
+}
+
 // 32^3 mixed brick: 16^3 coarse any-bits (128 words) and byte-cell words
 // (byte c&3 of word c>>2 holds coarse cell c's eight fine bits).
 struct BrickProbe {
@@ -123,18 +148,20 @@ struct BrickProbe {
   const int32_t* sc;
   __host__ __device__ bool coarse(int cx, int cy, int cz) const {
     int c = (cx * 16 + cy) * 16 + cz;
-    return (((uint32_t)sc[c >> 5] >> (c & 31)) & 1u) != 0;
+    return ((word<true>(sc + (c >> 5)) >> (c & 31)) & 1u) != 0;
   }
   __host__ __device__ uint32_t fine_byte(int cx, int cy, int cz) const {
     int c = (cx * 16 + cy) * 16 + cz;
-    return ((uint32_t)occ[c >> 2] >> ((c & 3) * 8)) & 0xFFu;
+    return (word<true>(occ + (c >> 2)) >> ((c & 3) * 8)) & 0xFFu;
   }
   __host__ __device__ int sc_dist(int, int, int) const { return 0; }
 };
 
 // A brick grid in the same coarse-refine layout over occupied bricks,
-// plus the supercell (8^3-brick) distance nibbles: the flat L0, or one
-// 64^3-brick page of a paged world.
+// plus the supercell (8^3-brick) distance nibbles: the flat L0 (staged in
+// shared memory by the kernel, RO false), or one 64^3-brick page of a
+// paged world (RO true).
+template <bool RO>
 struct GridProbe {
   const int32_t* byte_words;    // byte c&3 of word c>>2: coarse cell c
   const int32_t* coarse_words;  // bit c&31 of word c>>5: coarse cell c
@@ -143,15 +170,15 @@ struct GridProbe {
   int nsc;  // supercells per edge (G/8)
   __host__ __device__ bool coarse(int cx, int cy, int cz) const {
     int c = (cx * hh + cy) * hh + cz;
-    return (((uint32_t)coarse_words[c >> 5] >> (c & 31)) & 1u) != 0;
+    return ((word<RO>(coarse_words + (c >> 5)) >> (c & 31)) & 1u) != 0;
   }
   __host__ __device__ uint32_t fine_byte(int cx, int cy, int cz) const {
     int c = (cx * hh + cy) * hh + cz;
-    return ((uint32_t)byte_words[c >> 2] >> ((c & 3) * 8)) & 0xFFu;
+    return (word<RO>(byte_words + (c >> 2)) >> ((c & 3) * 8)) & 0xFFu;
   }
   __host__ __device__ int sc_dist(int sx, int sy, int sz) const {
     int b = (sx * nsc + sy) * nsc + sz;
-    return (int)(((uint32_t)sc_words[b >> 3] >> ((b & 7) * 4)) & 0xFu);
+    return (int)((word<RO>(sc_words + (b >> 3)) >> ((b & 7) * 4)) & 0xFu);
   }
 };
 
@@ -382,7 +409,7 @@ __host__ __device__ inline DdaOut paged_march(
       continue;
     }
     const int32_t* tab = T.l0_mixed + (size_t)pg * PAGE_ROWS * 128;
-    GridProbe pp;
+    GridProbe<true> pp;
     pp.byte_words = tab;
     pp.coarse_words = tab + 64 * 128;
     pp.sc_words = tab + 136 * 128;
@@ -399,7 +426,7 @@ __host__ __device__ inline DdaOut paged_march(
       const int ciz = clampi(d.iz, 0, PAGE - 1);
       const int cc = ((cix >> 1) * 32 + (ciy >> 1)) * 32 + (ciz >> 1);
       const uint32_t byte =
-          ((uint32_t)tab[72 * 128 + (cc >> 2)] >> ((cc & 3) * 8)) & 0xFFu;
+          (word<true>(tab + 72 * 128 + (cc >> 2)) >> ((cc & 3) * 8)) & 0xFFu;
       *mixed = ((byte >> (((cix & 1) << 2) | ((ciy & 1) << 1) | (ciz & 1)))
                 & 1u) != 0;
       r.hit = true;
@@ -420,118 +447,250 @@ __host__ __device__ inline DdaOut paged_march(
   return r;
 }
 
-// One ray from its voxel-unit origin to a hit, a miss or the cap.  Each
-// crossing runs phase 1 (the voxel DDA inside the current mixed brick)
-// and phase 2 (the L0 march to the next occupied brick, classified mixed
-// or uniform); a uniform-solid brick is a hit on its entry face.
-__host__ __device__ inline RayOut trace_ray(const Tables& T, float ox,
-                                            float oy, float oz, float dx,
-                                            float dy, float dz, bool alive) {
+// A ray between two crossings: its voxel-unit origin, clamped direction
+// and reciprocals, and the loop state of the crossing walk (the brick to
+// enter or KEY_INIT, the march t, the coarse steps so far, the crossings
+// taken).  A lane of K1 holds one and may switch to another ray between
+// crossings.
+struct RayState {
+  float ox, oy, oz;
+  float dxc, dyc, dzc;
+  float inv_x, inv_y, inv_z;
+  int32_t key;  // KEY_INIT or the mixed brick cell to enter
+  float tw;
+  int it;
+  int crossing;
+};
+
+__host__ __device__ inline RayState start_ray(float ox, float oy, float oz,
+                                              float dx, float dy, float dz) {
+  RayState s;
+  s.ox = ox;
+  s.oy = oy;
+  s.oz = oz;
+  s.dxc = clamp_dir(dx);
+  s.dyc = clamp_dir(dy);
+  s.dzc = clamp_dir(dz);
+  s.inv_x = 1.0f / s.dxc;
+  s.inv_y = 1.0f / s.dyc;
+  s.inv_z = 1.0f / s.dzc;
+  s.key = KEY_INIT;
+  s.tw = 0.0f;
+  s.it = 0;
+  s.crossing = 0;
+  return s;
+}
+
+// The record of a ray that is not traced (inactive or non-finite).
+__host__ __device__ inline RayOut miss_record() {
   RayOut out;
   out.status = MISS;
   out.t = 0.0f;
   out.cell = 0;
   out.widx = 0;
   out.iters = 0;
-  if (!alive) return out;
-  const int G = T.G;
-  const float dxc = clamp_dir(dx), dyc = clamp_dir(dy), dzc = clamp_dir(dz);
-  const float inv_x = 1.0f / dxc, inv_y = 1.0f / dyc, inv_z = 1.0f / dzc;
-  GridProbe l0;
-  l0.byte_words = T.l0_occ;
-  l0.coarse_words = T.l0_occ + T.l0_coarse_base;
-  l0.sc_words = T.l0_sc;
-  l0.hh = G / 2 > 1 ? G / 2 : 1;
-  l0.nsc = G / 8;
-
-  int32_t key = KEY_INIT;  // KEY_INIT or the mixed brick cell to enter
-  float tw = 0.0f;
-  int it = 0;
-  for (int crossing = 0; crossing < MAX_CROSSINGS; ++crossing) {
-    const bool m_init = key == KEY_INIT;
-    float t1 = 0.0f;
-    int st1 = 0;
-    if (!m_init) {
-      // ---- phase 1: voxel DDA through mixed brick `key`, brick-local
-      const int kc = key;
-      const float bxv = (float)(kc / (G * G)) * 32.0f;
-      const float byv = (float)((kc / G) % G) * 32.0f;
-      const float bzv = (float)(kc % G) * 32.0f;
-      const float px = ox + tw * dxc;
-      const float py = oy + tw * dyc;
-      const float pz = oz + tw * dzc;
-      const int s = T.brick_slot[kc];
-      const int slot = s > 0 ? s : 0;
-      BrickProbe bp;
-      bp.occ = T.occ_words + (size_t)slot * 1024;
-      bp.sc = T.sc_words + (size_t)slot * 128;
-      const DdaOut r1 = dda_cr(px - bxv, py - byv, pz - bzv, dxc, dyc, dzc,
-                               inv_x, inv_y, inv_z, 32, 1.0f, bp, INNER_CAP,
-                               false);
-      if (r1.hit) {
-        out.status = MIXED;
-        out.t = tw + r1.t;
-        out.cell = kc;
-        out.widx = (r1.ix * 32 + r1.iy) * 32 + r1.iz;
-        out.iters = it + r1.steps;
-        return out;
-      }
-      t1 = r1.t;
-      st1 = r1.steps;
-    }
-    // ---- phase 2: L0 march from just past the brick exit
-    const float t2_0 = m_init ? tw : tw + t1 + EXIT_EPS;
-    const float p2x = ox + t2_0 * dxc;
-    const float p2y = oy + t2_0 * dyc;
-    const float p2z = oz + t2_0 * dzc;
-    bool is_mixed = false;
-    DdaOut r2;
-    if (T.pages > 0) {
-      r2 = paged_march(T, p2x, p2y, p2z, dxc, dyc, dzc, inv_x, inv_y, inv_z,
-                       &is_mixed);
-    } else {
-      r2 = dda_cr(p2x, p2y, p2z, dxc, dyc, dzc, inv_x, inv_y, inv_z, G,
-                  32.0f, l0, 3 * G + 4, G >= 8);
-      if (r2.hit) {
-        const int c2x = clampi(r2.ix, 0, G - 1);
-        const int c2y = clampi(r2.iy, 0, G - 1);
-        const int c2z = clampi(r2.iz, 0, G - 1);
-        is_mixed = (((uint32_t)T.l0_mixed[(c2x * G + c2y) * T.zw + (c2z >> 5)]
-                     >> (c2z & 31)) & 1u) != 0;
-      }
-    }
-    it += st1 + r2.steps;
-    if (r2.hit) {
-      const int cell2 = (r2.ix * G + r2.iy) * G + r2.iz;
-      if (is_mixed) {
-        key = cell2;
-        tw = t2_0 + r2.t;
-      } else {
-        // uniform-solid brick: hit at the entry face
-        const int ux = clampi((int)(p2x + r2.t * dxc) - r2.ix * 32, 0, 31);
-        const int uy = clampi((int)(p2y + r2.t * dyc) - r2.iy * 32, 0, 31);
-        const int uz = clampi((int)(p2z + r2.t * dzc) - r2.iz * 32, 0, 31);
-        out.status = UNIFORM;
-        out.t = t2_0 + r2.t;
-        out.cell = cell2;
-        out.widx = (ux * 32 + uy) * 32 + uz;
-        out.iters = it;
-        return out;
-      }
-    } else if (r2.inside) {
-      // budget spent inside the grid: restart the L0 march further on
-      key = KEY_INIT;
-      tw = t2_0 + r2.t + EXIT_EPS;
-    } else {
-      out.iters = it;
-      return out;
-    }
-    if (it >= ITER_CAP) break;
-  }
-  out.status = CAPPED;
-  out.t = tw;
-  out.iters = it;
   return out;
+}
+
+__host__ __device__ inline bool finish(RayOut* out, int32_t status, float t,
+                                       int32_t cell, int32_t widx,
+                                       int32_t iters) {
+  out->status = status;
+  out->t = t;
+  out->cell = cell;
+  out->widx = widx;
+  out->iters = iters;
+  return true;
+}
+
+// One crossing of a ray: phase 1 (the voxel DDA inside the current mixed
+// brick) and phase 2 (the L0 march to the next occupied brick, classified
+// mixed or uniform); a uniform-solid brick is a hit on its entry face.
+// Returns true when the ray is done (hit, miss, ITER_CAP or
+// MAX_CROSSINGS), with its record in *out; else `s` holds the ray for its
+// next crossing.  Looping it from start_ray until it returns true is the
+// whole per-ray walk; PAGED selects the paged L0 (T.pages > 0).
+template <bool PAGED>
+__host__ __device__ inline bool cross(const Tables& T, RayState& s,
+                                      RayOut* out) {
+  const int G = T.G;
+  const float dxc = s.dxc, dyc = s.dyc, dzc = s.dzc;
+  const float inv_x = s.inv_x, inv_y = s.inv_y, inv_z = s.inv_z;
+  const bool m_init = s.key == KEY_INIT;
+  float t1 = 0.0f;
+  int st1 = 0;
+  if (!m_init) {
+    // ---- phase 1: voxel DDA through mixed brick `key`, brick-local
+    const int kc = s.key;
+    const float bxv = (float)(kc / (G * G)) * 32.0f;
+    const float byv = (float)((kc / G) % G) * 32.0f;
+    const float bzv = (float)(kc % G) * 32.0f;
+    const float px = s.ox + s.tw * dxc;
+    const float py = s.oy + s.tw * dyc;
+    const float pz = s.oz + s.tw * dzc;
+    const int sl = ldg(T.brick_slot + kc);
+    const int slot = sl > 0 ? sl : 0;
+    BrickProbe bp;
+    bp.occ = T.occ_words + (size_t)slot * 1024;
+    bp.sc = T.sc_words + (size_t)slot * 128;
+    const DdaOut r1 = dda_cr(px - bxv, py - byv, pz - bzv, dxc, dyc, dzc,
+                             inv_x, inv_y, inv_z, 32, 1.0f, bp, INNER_CAP,
+                             false);
+    if (r1.hit) {
+      return finish(out, MIXED, s.tw + r1.t, kc,
+                    (r1.ix * 32 + r1.iy) * 32 + r1.iz, s.it + r1.steps);
+    }
+    t1 = r1.t;
+    st1 = r1.steps;
+  }
+  // ---- phase 2: L0 march from just past the brick exit
+  const float t2_0 = m_init ? s.tw : s.tw + t1 + EXIT_EPS;
+  const float p2x = s.ox + t2_0 * dxc;
+  const float p2y = s.oy + t2_0 * dyc;
+  const float p2z = s.oz + t2_0 * dzc;
+  bool is_mixed = false;
+  DdaOut r2;
+  if (PAGED) {
+    r2 = paged_march(T, p2x, p2y, p2z, dxc, dyc, dzc, inv_x, inv_y, inv_z,
+                     &is_mixed);
+  } else {
+    GridProbe<false> l0;
+    l0.byte_words = T.l0_occ;
+    l0.coarse_words = T.l0_occ + T.l0_coarse_base;
+    l0.sc_words = T.l0_sc;
+    l0.hh = G / 2 > 1 ? G / 2 : 1;
+    l0.nsc = G / 8;
+    r2 = dda_cr(p2x, p2y, p2z, dxc, dyc, dzc, inv_x, inv_y, inv_z, G, 32.0f,
+                l0, 3 * G + 4, G >= 8);
+    if (r2.hit) {
+      const int c2x = clampi(r2.ix, 0, G - 1);
+      const int c2y = clampi(r2.iy, 0, G - 1);
+      const int c2z = clampi(r2.iz, 0, G - 1);
+      is_mixed = (((uint32_t)T.l0_mixed[(c2x * G + c2y) * T.zw + (c2z >> 5)]
+                   >> (c2z & 31)) & 1u) != 0;
+    }
+  }
+  s.it += st1 + r2.steps;
+  if (r2.hit) {
+    const int cell2 = (r2.ix * G + r2.iy) * G + r2.iz;
+    if (is_mixed) {
+      s.key = cell2;
+      s.tw = t2_0 + r2.t;
+    } else {
+      // uniform-solid brick: hit at the entry face
+      const int ux = clampi((int)(p2x + r2.t * dxc) - r2.ix * 32, 0, 31);
+      const int uy = clampi((int)(p2y + r2.t * dyc) - r2.iy * 32, 0, 31);
+      const int uz = clampi((int)(p2z + r2.t * dzc) - r2.iz * 32, 0, 31);
+      return finish(out, UNIFORM, t2_0 + r2.t, cell2,
+                    (ux * 32 + uy) * 32 + uz, s.it);
+    }
+  } else if (r2.inside) {
+    // budget spent inside the grid: restart the L0 march further on
+    s.key = KEY_INIT;
+    s.tw = t2_0 + r2.t + EXIT_EPS;
+  } else {
+    return finish(out, MISS, 0.0f, 0, 0, s.it);
+  }
+  if (s.it >= ITER_CAP || ++s.crossing >= MAX_CROSSINGS) {
+    return finish(out, CAPPED, s.tw, 0, 0, s.it);
+  }
+  return false;
+}
+
+// cross() with the L0 layout chosen at run time (the CPU build's loop).
+__host__ __device__ inline bool cross_any(const Tables& T, RayState& s,
+                                          RayOut* out) {
+  return T.pages > 0 ? cross<true>(T, s, out) : cross<false>(T, s, out);
+}
+
+// The sort key of an explicit ray (ops/wavefront.py::ray_keys_plain):
+// the direction octant (bit 2 x, 1 y, 0 z; set where d >= 0, the sign
+// clamp_dir gives) in bits 24-26 above the Morton code of the brick cell
+// that holds the voxel-unit origin (clamped into the grid; bits 3i+2,
+// 3i+1, 3i of the code are bit i of x, y, z; G <= 256).  Rays that are
+// not alive or not finite take KEY_DEAD, so they sort to the tail.
+constexpr int32_t KEY_DEAD = 0x7FFFFFFF;
+
+__host__ __device__ inline uint32_t spread3(uint32_t v) {
+  v = (v | (v << 16)) & 0x030000FFu;
+  v = (v | (v << 8)) & 0x0300F00Fu;
+  v = (v | (v << 4)) & 0x030C30C3u;
+  v = (v | (v << 2)) & 0x09249249u;
+  return v;
+}
+
+__host__ __device__ inline bool is_finite(float x) {
+  return fabsf(x) <= 3.402823466e38f;
+}
+
+__host__ __device__ inline int brick_coord(float v, int G) {
+  return (int)fminf(fmaxf(floorf(v * 0.03125f), 0.0f), (float)(G - 1));
+}
+
+__host__ __device__ inline int32_t ray_key(float ox, float oy, float oz,
+                                           float dx, float dy, float dz,
+                                           bool alive, int G) {
+  if (!(alive && is_finite(ox) && is_finite(oy) && is_finite(oz) &&
+        is_finite(dx) && is_finite(dy) && is_finite(dz))) {
+    return KEY_DEAD;
+  }
+  const uint32_t oct = (dx >= 0.0f ? 4u : 0u) | (dy >= 0.0f ? 2u : 0u) |
+                       (dz >= 0.0f ? 1u : 0u);
+  const uint32_t m = (spread3((uint32_t)brick_coord(ox, G)) << 2) |
+                     (spread3((uint32_t)brick_coord(oy, G)) << 1) |
+                     spread3((uint32_t)brick_coord(oz, G));
+  return (int32_t)((oct << 24) | m);
+}
+
+// ---- the persistent schedule (wavefront.cu; emulated by the CPU build)
+// A warp takes ray ids from a global counter CHUNK at a time and keeps
+// them in a WarpQueue; at a crossing boundary, once REFILL of its lanes
+// are idle (or all are), each idle lane takes the next id of the queue.
+#ifndef K1_REFILL
+#define K1_REFILL 1
+#endif
+#ifndef K1_CHUNK
+#define K1_CHUNK 32
+#endif
+constexpr int CHUNK = K1_CHUNK;
+constexpr int REFILL = K1_REFILL;
+
+struct WarpQueue {
+  int next, end;  // ids [next, end) of the chunk last taken, end <= n
+  bool more;      // the counter may still hold ids
+};
+
+__host__ __device__ inline bool queue_left(const WarpQueue& q) {
+  return q.more || q.next < q.end;
+}
+
+// Whether a warp with `need` idle lanes takes a new chunk first.
+__host__ __device__ inline bool queue_short(const WarpQueue& q, int need) {
+  return q.more && q.end - q.next < need;
+}
+
+// The id for the idle lane of rank `rank`, or -1: the queue's ids first,
+// then those of the chunk starting at `fresh` (-1 if none was taken).
+__host__ __device__ inline int queue_id(const WarpQueue& q, int rank,
+                                        int fresh, int n) {
+  const int avail = q.end - q.next;
+  if (rank < avail) return q.next + rank;
+  if (fresh < 0) return -1;
+  const int k = fresh + (rank - avail);
+  return k < n ? k : -1;
+}
+
+// The queue after `need` idle lanes took their ids.
+__host__ __device__ inline void queue_take(WarpQueue& q, int need, int fresh,
+                                           int n) {
+  const int avail = q.end - q.next;
+  if (fresh < 0) {
+    q.next += need < avail ? need : avail;
+    return;
+  }
+  q.end = fresh + CHUNK < n ? fresh + CHUNK : n;
+  q.next = fresh + (need - avail) < q.end ? fresh + (need - avail) : q.end;
+  q.more = fresh + CHUNK < n;
 }
 
 // Camera mode: a primary ray is derived from its id and the 16 camera
@@ -580,13 +739,12 @@ __host__ __device__ inline void camera_ray(const Camera& cam, int rid,
   }
 }
 
-// trace_ray of camera-mode primary `rid`; every primary is traced.
-__host__ __device__ inline RayOut trace_camera_ray(const Tables& T,
-                                                   const Camera& cam,
-                                                   int rid) {
+// The state of camera-mode primary `rid`; every primary is traced.
+__host__ __device__ inline RayState start_camera_ray(const Camera& cam,
+                                                     int rid) {
   float o[3], d[3];
   camera_ray(cam, rid, o, d);
-  return trace_ray(T, o[0], o[1], o[2], d[0], d[1], d[2], true);
+  return start_ray(o[0], o[1], o[2], d[0], d[1], d[2]);
 }
 
 }  // namespace wf

@@ -1,4 +1,5 @@
-"""Kernels K1 (explicit and camera mode), KE, K2 and K3 on a CUDA GPU
+"""Kernels K1 (explicit and camera mode, its ray keys and its persistent
+schedule), KE, K2 and K3 on a CUDA GPU
 against their plain PyTorch versions.  Needs a card and nvcc; skipped elsewhere.  The file imports no
 jax, so on a GPU host without JAX it runs from the repository root with
 ``python -m pytest --noconftest tests/test_torch_cuda.py``."""
@@ -34,10 +35,11 @@ def test_kernel_equals_plain_on_gpu(size):
     ws = wavefront.prepare(bigworld.heightmap_brick_scene(hm, mm, size),
                            "cuda")
     o, d, alive = wavefront._rays(ws, *_rays(8192, seed=size))
-    before = wavefront.K1.launches
+    before = wavefront.K1.launches, wavefront.K1_KEYS.launches
     got = wavefront.trace(ws, o, d, alive)
     torch.cuda.synchronize()
-    assert wavefront.K1.launches == before + 1
+    assert (wavefront.K1.launches, wavefront.K1_KEYS.launches) == (
+        before[0] + 1, before[1] + 1)
     want = wavefront.trace_plain(ws, o, d, alive)
     # built with -fmad=false: the same float32 operations in the same order
     for field, a, b in zip(("status", "t", "cell", "widx", "iters"), want,
@@ -196,3 +198,102 @@ def test_brick_round_kernel_equals_plain_on_gpu(name):
         want = brick_pallas.trace_plain(scene, ov, d, alive, rounds)
         assert _equal_fields(want, got) == [], rounds
         assert want["hit"].any() and not want["hit"].all()
+
+
+def _terrain_world():
+    from svo_raytracer_torch.core import build_np
+    from svo_raytracer_torch.ops import brick_scene
+    tree = build_np.build_octree_np(chip_smoke.terrain_voxels(64, 7))
+    return wavefront.prepare(brick_scene.brickify(tree), "cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["B=0", "B=1", "B=37", "B=1000",
+                                  "all-dead", "one-live", "dead-interleaved"])
+def test_kernel_schedule_edges_on_gpu(case):
+    """K1's persistent schedule against trace_plain, in key order and in
+    frame order: batches that are no multiple of 32 or of the block size,
+    no rays, no live ray, one live ray, and a permutation with dead rays
+    between live ones.  Every slot is written (none keeps the sentinel)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    ws = _terrain_world()
+    o, d = _rays(1000, seed=9)
+    o, d, alive = wavefront._rays(ws, o, d)
+    B = {"B=0": 0, "B=1": 1, "B=37": 37}.get(case, 1000)
+    o, d, alive = o[:B].contiguous(), d[:B].contiguous(), alive[:B].clone()
+    if case == "all-dead":
+        alive[:] = False
+    elif case == "one-live":
+        live = int(torch.nonzero(wavefront.trace_plain(ws, o, d, alive)[0]
+                                 == wavefront.MIXED)[0])
+        alive[:] = False
+        alive[live] = True
+    order = wavefront.ray_order(ws, o, d, alive)
+    if case == "dead-interleaved":
+        order = torch.from_numpy(np.random.default_rng(4).permutation(B)
+                                 ).cuda()
+    want = wavefront.trace_plain(ws, o, d, alive)
+    for perm in (order, None):
+        got = wavefront.trace_kernel(ws, o, d, alive, perm)
+        torch.cuda.synchronize()
+        for field, a, b in zip(("status", "t", "cell", "widx", "iters"),
+                               want, got):
+            assert torch.equal(a, b), (field, perm is None)
+
+
+@pytest.mark.gpu
+def test_kernel_g64_shared_staging_on_gpu():
+    """The G = 64 world stages its L0 rows in more than 48 KB of shared
+    memory per block (an opt-in launch attribute); K1 still equals its
+    plain version in explicit and camera mode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from svo_raytracer_torch.ops import render_wave
+    from svo_raytracer_torch.utils.camera import Camera
+    scene = chip_smoke.g64_scene()
+    ws = wavefront.prepare(scene, "cuda")
+    info = wavefront.launch_info(ws)
+    assert info["smem_bytes"] > 48 * 1024 and info["blocks_per_sm"] >= 1
+    o, d = chip_smoke.aimed_rays(scene, 8192, seed=2)
+    o, d, alive = wavefront._rays(ws, torch.from_numpy(o).cuda(),
+                                  torch.from_numpy(d).cuda())
+    got = wavefront.trace(ws, o, d, alive)
+    want = wavefront.trace_plain(ws, o, d, alive)
+    for field, a, b in zip(("status", "t", "cell", "widx", "iters"), want,
+                           got):
+        assert torch.equal(a, b), field
+    cam = Camera(pos=np.array([1.5, 1.9, 1.5]))
+    cam.rotate(-1.2, 0.3)
+    cam16 = wavefront.cam16(torch.tensor(cam.uniform(), dtype=torch.float32,
+                                         device="cuda"))
+    n = render_wave._frame_B(128, 96)
+    got = wavefront.trace_camera(ws, cam16, n, 128, 96, 4)
+    want = wavefront.trace_camera_plain(ws, cam16, n, 128, 96, 4)
+    for field, a, b in zip(("status", "t", "cell", "widx", "iters"), want,
+                           got):
+        assert torch.equal(a, b), field
+
+
+@pytest.mark.gpu
+def test_launch_counters_once_per_segment():
+    """A gi-2 frame: one K1 launch per segment (the primary one in camera
+    mode) and one key launch per explicit segment."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from svo_raytracer_torch.ops import render_wave
+    from svo_raytracer_torch.utils.camera import Camera
+    hm, mm = bigworld.fractal_heightmap(256, seed=3, lo=0.3, hi=0.9)
+    ws = wavefront.prepare(bigworld.heightmap_brick_scene(hm, mm, 256),
+                           "cuda")
+    cam = Camera(pos=np.array([1.3, 1.8, 1.3]))
+    cam.rotate(-0.5, 0.6)
+    cam5 = torch.tensor(cam.uniform(), dtype=torch.float32, device="cuda")
+    k = (wavefront.K1, wavefront.K1_CAMERA, wavefront.K1_KEYS)
+    before = [x.launches for x in k]
+    stats = []
+    render_wave.render_frame_wavefront(ws, cam5, 64, 48, render_mode=0,
+                                       gi_bounces=2, stats=stats)
+    torch.cuda.synchronize()
+    assert [x.launches - b for x, b in zip(k, before)] == [3, 1, 2]
+    assert [s["launches"] for s in stats] == [1, 1, 1]

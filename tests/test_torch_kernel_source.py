@@ -1,5 +1,8 @@
 """The kernels' own sources on the CPU: the per-ray bodies that the GPU
 kernels run (csrc/wf_ray.cuh for K1 with its camera-mode ray derivation,
+its sort keys and its persistent schedule, emulated by a host loop of
+32-lane warps that take rays from a counter, refill finished lanes and
+write through the sort permutation,
 csrc/esvo_ray.cuh for KE, csrc/brick_dda.cuh for K2,
 csrc/brick_round.cuh for K3) compiled with g++, their CUDA qualifiers
 defined away, into ctypes libraries, against their plain PyTorch versions
@@ -42,14 +45,19 @@ def host_trace():
     fn.argtypes = wavefront.K1.argtypes[:-1]     # no stream argument
     fn.restype = ctypes.c_int
 
-    def run(ws, o, d, alive):
+    def run(ws, o, d, alive, order=None):
+        """K1's records over the rays taken in ``order`` (None: frame
+        order); every slot starts as a sentinel that no record holds."""
         B = o.shape[0]
-        out = [torch.empty(B, dtype=dt) for dt in
+        out = [torch.full((B,), -7, dtype=dt) for dt in
                (torch.int32, torch.float32, torch.int32, torch.int32,
                 torch.int32)]
         al = alive.to(torch.uint8)
+        counter = torch.zeros(1, dtype=torch.int32)
         assert fn(*wavefront._table_args(ws), o.data_ptr(), d.data_ptr(),
-                  al.data_ptr(), B, *[x.data_ptr() for x in out]) == 0
+                  al.data_ptr(), None if order is None else order.data_ptr(),
+                  B, counter.data_ptr(), *[x.data_ptr() for x in out]) == 0
+        assert int(counter) >= B            # every id was handed out
         return out
 
     return run
@@ -89,6 +97,89 @@ def test_cuda_source_body_equals_plain(host_trace, name):
         assert torch.equal(a, b), field
     assert (want[0] == wavefront.MIXED).any()
     assert (want[0] == wavefront.UNIFORM).any() or name == "sphere-64"
+
+
+def _scene_rays(name, n=2048):
+    """A world of the K1 cases and its voxel-unit rays, non-finite and
+    inactive ones among them."""
+    scene = (brick_scene.brickify(_esvo_tree(name)) if name == "terrain-64"
+             else _scene(name))
+    ws = wavefront.prepare(scene, "cpu")
+    o, d = random_rays(n, seed=23)
+    if name in ("g64", "paged-4096"):
+        ao, ad = chip_smoke.aimed_rays(scene, n, seed=6)
+        o, d = np.concatenate([o, ao]), np.concatenate([d, ad])
+    o[::97] = np.nan
+    d[5::89] = np.inf
+    act = torch.ones(o.shape[0], dtype=torch.bool)
+    act[7::41] = False
+    return (ws, *wavefront._rays(ws, torch.from_numpy(o), torch.from_numpy(d),
+                                 act))
+
+
+@pytest.mark.parametrize("name", ["sphere-64", "terrain-64", "g64",
+                                  "paged-4096"])
+def test_cuda_source_key_order_equals_plain(host_trace, name):
+    """The persistent schedule over the rays in key order (ray_order on
+    the CPU): each record lands at its ray's own slot, equal in every
+    field to trace_plain in frame order."""
+    ws, o, d, alive = _scene_rays(name)
+    order = wavefront.ray_order(ws, o, d, alive)
+    assert not torch.equal(order, torch.arange(o.shape[0]))
+    want = wavefront.trace_plain(ws, o, d, alive)
+    got = host_trace(ws, o, d, alive, order)
+    for field, a, b in zip(("status", "t", "cell", "widx", "iters"), want,
+                           got):
+        assert torch.equal(a, b), field
+    assert (want[0] == wavefront.MIXED).any()
+
+
+@pytest.mark.parametrize("case", ["B=0", "B=1", "B=37", "all-dead",
+                                  "one-live", "dead-interleaved"])
+def test_cuda_source_schedule_edges(host_trace, case):
+    """Batch sizes that are not a multiple of 32, no rays, no live ray,
+    one live ray, and a permutation with dead rays between live ones:
+    every slot is written (none keeps the sentinel) and equals
+    trace_plain."""
+    ws, o, d, alive = _scene_rays("terrain-64", n=300)
+    B = {"B=0": 0, "B=1": 1, "B=37": 37}.get(case, o.shape[0])
+    o, d, alive = o[:B].contiguous(), d[:B].contiguous(), alive[:B].clone()
+    if case == "all-dead":
+        alive[:] = False
+    elif case == "one-live":           # a ray that hits, alone
+        live = int(torch.nonzero(wavefront.trace_plain(ws, o, d, alive)[0]
+                                 == wavefront.MIXED)[0])
+        alive[:] = False
+        alive[live] = True
+    order = wavefront.ray_order(ws, o, d, alive)
+    if case == "dead-interleaved":
+        order = torch.from_numpy(np.random.default_rng(4).permutation(B))
+        assert (~alive[order[:B // 2]]).any()
+    want = wavefront.trace_plain(ws, o, d, alive)
+    got = host_trace(ws, o, d, alive, order)
+    for field, a, b in zip(("status", "t", "cell", "widx", "iters"), want,
+                           got):
+        assert torch.equal(a, b), field
+    assert not (got[0] == -7).any()
+    if case == "one-live":
+        assert int(got[0].ne(wavefront.MISS).sum()) == 1
+
+
+@pytest.mark.parametrize("name", ["sphere-64", "terrain-64", "g64",
+                                  "paged-4096"])
+def test_ray_key_source_equals_plain(name):
+    """K1's key kernel body (csrc/wf_ray.cuh::ray_key) against
+    ray_keys_plain, with dead, non-finite and out-of-grid rays."""
+    fn = _host_fn("wf_ray_host", "wf_ray_host.cpp", "wf_ray_keys_host",
+                  wavefront.K1_KEYS.argtypes)
+    ws, o, d, alive = _scene_rays(name)
+    o[3::53] *= 40.0                       # far outside the grid: clamped
+    want = wavefront.ray_keys_plain(ws, o, d, alive)
+    got = torch.empty_like(want)
+    assert fn(o.data_ptr(), d.data_ptr(), alive.to(torch.uint8).data_ptr(),
+              o.shape[0], ws.grid_size, got.data_ptr()) == 0
+    assert torch.equal(want, got)
+    assert (want == wavefront.KEY_DEAD).any()
 
 
 def _host_fn(name, source, symbol, argtypes):
@@ -237,8 +328,10 @@ def test_camera_source_body_equals_plain(name, W, H):
     nbx = W // 32 if render_wave._use_block(W) else 0
     want = wavefront.trace_camera_plain(ws, cam16, n, W, H, nbx)
     got = [torch.empty(n, dtype=a.dtype) for a in want]
+    counter = torch.zeros(1, dtype=torch.int32)
     assert fn(*wavefront._table_args(ws), cam16.data_ptr(), W, H, nbx,
-              ws.world_size, n, *[x.data_ptr() for x in got]) == 0
+              ws.world_size, n, counter.data_ptr(),
+              *[x.data_ptr() for x in got]) == 0
     for field, a, b in zip(("status", "t", "cell", "widx", "iters"), want,
                            got):
         assert torch.equal(a, b), field
