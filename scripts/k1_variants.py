@@ -47,6 +47,14 @@ KNOBS = ("K1_THREADS", "K1_MIN_BLOCKS", "K1_STAGE_MIXED_MAX_G", "K1_REFILL",
 WORLDS = {1024: (2000, 6000), 2048: (8000, 30000), 4096: (30000, 120000)}
 
 
+def knobs(v):
+    """-D defines of a variant: "K=V,K=V" (K1_ prefixed) or values in
+    KNOBS order."""
+    if "=" in v:
+        return {f"K1_{k}": x for k, x in (kv.split("=") for kv in v.split(","))}
+    return dict(zip(KNOBS, v.split(",")))
+
+
 def say(*a):
     print(*a, flush=True)
 
@@ -174,7 +182,8 @@ def main():
     ap.add_argument("--sizes", type=int, nargs="+", default=[1024, 2048])
     ap.add_argument("--variants", nargs="+", default=["128,8,64,1"],
                     help="THREADS,MIN_BLOCKS,STAGE_MIXED_MAX_G,REFILL"
-                    "[,PERSISTENT,STAGE_L0,INNER,CHUNK,LDG]")
+                    "[,PERSISTENT,STAGE_L0,INNER,CHUNK,LDG], or NAME=VALUE,"
+                    "... of any K1_NAME define (LANES, STAGE_MAX_G)")
     ap.add_argument("--parent", help="csrc/ of the K1 to compare against")
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args()
@@ -185,9 +194,8 @@ def main():
                          text=True, check=True).stdout.strip()
     say(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
     from svo_raytracer_torch.ops import kernel_build
-    jobs = {f"v{i}_{v.replace(',', '_')}":
-            (kernel_build.CSRC, dict(zip(KNOBS, v.split(","))))
-            for i, v in enumerate(args.variants)}
+    jobs = {f"v{i}_{v.replace(',', '_').replace('=', '')}":
+            (kernel_build.CSRC, knobs(v)) for i, v in enumerate(args.variants)}
     if args.parent:
         jobs["parent"] = (Path(args.parent).resolve(), {})
     with cf.ThreadPoolExecutor(len(jobs)) as ex:

@@ -60,11 +60,17 @@
 #ifndef K1_STAGE_L0
 #define K1_STAGE_L0 1
 #endif
+#ifndef K1_STAGE_MAX_G
+#define K1_STAGE_MAX_G 32
+#endif
 #ifndef K1_PERSISTENT
 #define K1_PERSISTENT 1
 #endif
 #ifndef K1_INNER
 #define K1_INNER 0
+#endif
+#ifndef K1_LANES
+#define K1_LANES 1
 #endif
 
 namespace {
@@ -105,6 +111,10 @@ __host__ __device__ inline Stage stage_words(const wf::Tables& T) {
     w.occ = 128;  // the page-occupancy row
     w.sc = 0;
     w.mixed = 0;
+    return w;
+  }
+  if (T.G > K1_STAGE_MAX_G) {
+    w.occ = w.sc = w.mixed = 0;
     return w;
   }
   const int hh = T.G / 2 > 1 ? T.G / 2 : 1;
@@ -202,6 +212,46 @@ wf_persistent(wf::Tables T, Rays R, int n, int* __restrict__ counter,
   }
 }
 
+// Lane fetch: a warp takes CHUNK ids with one atomicAdd on the global
+// counter; each lane takes the chunk's next id from the warp's cursor in
+// shared memory (a shared atomicAdd) whenever its ray ends, and walks the
+// ray's crossings on its own; the warp takes a new chunk once the cursor
+// has passed the chunk's end and all its lanes are idle.
+template <bool CAMERA, bool PAGED>
+__global__ void __launch_bounds__(K1_THREADS, K1_MIN_BLOCKS)
+wf_lanes(wf::Tables T, Rays R, int n, int* __restrict__ counter,
+         Records out) {
+  extern __shared__ int32_t smem[];
+  __shared__ int cursor[THREADS / 32];
+  const wf::Tables S = stage(T, smem);
+  const int lane = threadIdx.x & 31;
+  int* const mine = cursor + threadIdx.x / 32;
+  for (int round = 0;; ++round) {
+    int base = 0;
+    if (lane == 0) {
+      base = K1_PERSISTENT ? atomicAdd(counter, wf::CHUNK)
+             : round ? n
+                     : (blockIdx.x * (THREADS / 32) + threadIdx.x / 32) *
+                           wf::CHUNK;
+      *mine = 0;
+    }
+    base = __shfl_sync(FULL, base, 0);
+    __syncwarp();
+    if (base >= n) break;
+    const int count = n - base < wf::CHUNK ? n - base : wf::CHUNK;
+    for (int i = atomicAdd(mine, 1); i < count; i = atomicAdd(mine, 1)) {
+      wf::RayState s;
+      const int slot = begin<CAMERA>(R, base + i, &s, out);
+      if (slot < 0) continue;
+      wf::RayOut r;
+      while (!wf::cross<PAGED>(S, s, &r)) {
+      }
+      wf::store(r, slot, out.status, out.t, out.cell, out.widx, out.iters);
+    }
+    __syncwarp();
+  }
+}
+
 __global__ void __launch_bounds__(256)
 ray_key_kernel(const float* __restrict__ origins,
                const float* __restrict__ dirs,
@@ -218,6 +268,9 @@ using KernelFn = void (*)(wf::Tables, Rays, int, int*, Records);
 
 template <bool CAMERA>
 KernelFn pick(const wf::Tables& T) {
+  if (K1_LANES) {
+    return T.pages > 0 ? wf_lanes<CAMERA, true> : wf_lanes<CAMERA, false>;
+  }
   return T.pages > 0 ? wf_persistent<CAMERA, true>
                      : wf_persistent<CAMERA, false>;
 }

@@ -650,7 +650,7 @@ __host__ __device__ inline int32_t ray_key(float ox, float oy, float oz,
 #define K1_REFILL 1
 #endif
 #ifndef K1_CHUNK
-#define K1_CHUNK 32
+#define K1_CHUNK 64
 #endif
 constexpr int CHUNK = K1_CHUNK;
 constexpr int REFILL = K1_REFILL;
