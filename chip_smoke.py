@@ -1243,7 +1243,7 @@ def profile_frames(ws, cam5, configs, frames):
         f"{ws.world_size} {label}",
         lambda i, kw=kw: render_wave.render_frame_wavefront(
             ws, cam5, W, H, frame_number=i + 2, **kw),
-        {"K1": "wf_persistent", "K1 keys": "ray_key", "sort": "RadixSort"},
+        {"K1": "wf_trace_kernel", "K1 keys": "ray_key", "sort": "RadixSort"},
         frames[label]["ms"])
         for label, (kw, _, _) in configs.items()}
 

@@ -2,13 +2,16 @@
 """Kernel K1's schedule choices, timed on one GPU on the segments of real
 frames.
 
-Builds csrc/wavefront.cu once per variant (nvcc -D flags: block size
-K1_THREADS, __launch_bounds__ blocks K1_MIN_BLOCKS, the largest G whose
-L0 mixed bits are staged in shared memory K1_STAGE_MIXED_MAX_G, the idle
-lanes that make a warp refill K1_REFILL, and optionally K1_PERSISTENT 0
-for one warp per 32 ids and K1_STAGE_L0 0 for no shared memory), and, with --parent, the K1 of
-another checkout's csrc/ (one thread per ray, frame order; its older C
-entry points).  On each world (chip_smoke.py's seeded heightmaps, its
+Builds csrc/wavefront.cu once per variant, each a list of NAME=VALUE
+build knobs (nvcc -DK1_NAME=VALUE): THREADS (block size), MIN_BLOCKS
+(__launch_bounds__ blocks per SM, which caps the registers), CHUNK (ids a
+warp takes at a time; above 32 its lanes refill as their rays end),
+PERSISTENT (0: one chunk per warp, a grid that fills the ids) and
+STAGE_MAX_G (flat worlds up to this G stage their L0 rows in shared
+memory, and any positive value stages a paged world's page row; 0 stages
+nothing); and, with --parent, the K1
+of another checkout's csrc/ (one thread per ray, frame order; its older
+C entry points).  On each world (chip_smoke.py's seeded heightmaps, its
 camera rule) it records the segments of one gi-3 frame at 1920x1080 —
 the camera-mode primaries and the three explicit bounce segments — and
 times every variant on them by CUDA events (mean of --reps launches after
@@ -19,7 +22,13 @@ ptxas's registers, shared memory and spills per variant, the persistent
 grid, and a JSON line of all times.
 
     python3 scripts/k1_variants.py --sizes 1024 2048 \\
-        --variants 128,8,64,1 256,5,64,1 --parent _parent/svo_raytracer_torch/csrc
+        --variants CHUNK=32 CHUNK=64,STAGE_MAX_G=32 \\
+        --parent _scratch/parent/svo_raytracer_torch/csrc
+
+(The variants of PR 5's first runs — a refill at every crossing
+boundary, an inner crossing loop, plain loads for __ldg, STAGE_L0 — were
+knobs of this script and of csrc/ at that PR's commits 345b352 and
+c15b74c.)
 """
 
 from __future__ import annotations
@@ -42,17 +51,12 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 
 FIELDS = ("status", "t", "cell", "widx", "iters")
-KNOBS = ("K1_THREADS", "K1_MIN_BLOCKS", "K1_STAGE_MIXED_MAX_G", "K1_REFILL",
-         "K1_PERSISTENT", "K1_STAGE_L0", "K1_INNER", "K1_CHUNK", "K1_LDG")
 WORLDS = {1024: (2000, 6000), 2048: (8000, 30000), 4096: (30000, 120000)}
 
 
 def knobs(v):
-    """-D defines of a variant: "K=V,K=V" (K1_ prefixed) or values in
-    KNOBS order."""
-    if "=" in v:
-        return {f"K1_{k}": x for k, x in (kv.split("=") for kv in v.split(","))}
-    return dict(zip(KNOBS, v.split(",")))
+    """-D defines of a variant "NAME=VALUE,...": {K1_NAME: VALUE}."""
+    return {f"K1_{k}": x for k, x in (kv.split("=") for kv in v.split(","))}
 
 
 def say(*a):
@@ -180,10 +184,8 @@ def main():
     import torch
     ap = argparse.ArgumentParser()
     ap.add_argument("--sizes", type=int, nargs="+", default=[1024, 2048])
-    ap.add_argument("--variants", nargs="+", default=["128,8,64,1"],
-                    help="THREADS,MIN_BLOCKS,STAGE_MIXED_MAX_G,REFILL"
-                    "[,PERSISTENT,STAGE_L0,INNER,CHUNK,LDG], or NAME=VALUE,"
-                    "... of any K1_NAME define (LANES, STAGE_MAX_G)")
+    ap.add_argument("--variants", nargs="+", default=["CHUNK=32"],
+                    help="NAME=VALUE,... of K1_NAME build knobs")
     ap.add_argument("--parent", help="csrc/ of the K1 to compare against")
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args()

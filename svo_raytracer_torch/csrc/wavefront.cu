@@ -13,35 +13,49 @@
 //
 // What bounds it on Hopper: each DDA step is a dependent load of a table
 // word, so a lane waits on memory latency every step, and the rays of a
-// warp take different numbers of steps and crossings.  The tables of a
-// 1024^3 world (~20 MB) fit the 50 MB L2; a 4096^3 heightmap world's
-// brick words (~330 MB) do not, so there a step into a new brick can wait
-// on DRAM.  The design answers each in turn:
+// warp take different numbers of steps and crossings, so lanes that
+// finish wait for the warp's longest ray.  The tables of a 1024^3 world
+// (~20 MB) fit the 50 MB L2; a 4096^3 heightmap world's brick words
+// (~330 MB) do not, so there a step into a new brick can wait on DRAM.
+// What the design does, and what measurement kept (PERF.md, by
+// scripts/k1_variants.py):
 //   * order — the wrapper sorts explicit rays by direction octant and the
 //     Morton code of their origin's brick (ray_key, then torch.sort), and
 //     lane k traces ray order[k], writing its record to slot order[k]:
-//     the rays of a warp start in one brick heading one way, and dead
-//     rays sort to the tail.  Camera-mode primaries keep their
-//     block-major ids (a warp is one row of a 32x32 pixel block);
+//     the 32 rays of a warp start in one brick heading one way and end
+//     at about the same step, and dead rays sort to the tail.  This is
+//     the gain: bounce segments run 1.4-2x faster than in frame order.
+//     Camera-mode primaries keep their block-major ids (a warp is one row
+//     of a 32x32 pixel block);
 //   * persistent warps (Aila & Laine, HPG 2009) — as many blocks as stay
-//     resident; a warp takes ids CHUNK at a time from a global counter
-//     with one atomicAdd, and a lane whose ray ended takes the next id at
-//     a crossing boundary (wf_ray.cuh WarpQueue), so finished lanes do
-//     not wait for the warp's longest ray;
-//   * shared memory — each block copies the flat L0 rows that phase 2
-//     reads on every step (byte and coarse words, supercell nibbles and,
-//     up to G = STAGE_MIXED_MAX_G, the mixed bits) into shared memory
-//     once; a paged world stages its page-occupancy row only (a page's
-//     137 rows stay in device memory).  Brick words and brick_slot are
-//     read through the read-only path (__ldg).
+//     resident; a warp takes CHUNK ids at a time from a global counter
+//     with one atomicAdd, and each lane takes the chunk's next id from
+//     the warp's cursor in shared memory whenever its ray ends.  With
+//     CHUNK = 32 each lane takes one ray per chunk: larger chunks, whose
+//     lanes refill as they finish, measured slower on every world and in
+//     both modes (a refilled ray runs on alone, out of step with the
+//     warp's coherent rays), as did a refill at every crossing boundary;
+//   * registers — __launch_bounds__(128, 7): ptxas fits the body in
+//     66-72 registers without spills (at 64 it spilled up to 32 bytes),
+//     28 resident warps per SM; fewer registers and more warps spilled
+//     more and ran slower;
+//   * shared memory — a build with K1_STAGE_MAX_G = G copies the flat L0
+//     rows that phase 2 reads on every step (byte and coarse words,
+//     supercell nibbles, mixed bits: 9 KB at G = 32, 68 KB at G = 64) and
+//     a paged world's page row into shared memory once per block.  It
+//     measured no faster at G = 32, 1.7x slower at G = 64 (3 blocks per
+//     SM) and 4% slower on paged primaries, so the default build reads
+//     the L0 from device memory, through L1.  Brick words and brick_slot
+//     are read through the read-only path (__ldg).
 // What is left is the latency of the brick words and, at 4096^3, of the
-// page rows in DRAM; PERF.md has the measured rates.
+// page rows in DRAM.
 //
 // Built by ops/kernel_build.py with nvcc -gencode arch=compute_90a,
 // code=sm_90a -O3 -fmad=false into a shared library with a plain C entry
 // point; ops/wavefront.py binds it with ctypes and launches it on
-// PyTorch's current stream.  The step counter is scratch that the wrapper
-// allocates; the entry points zero it on the same stream.
+// PyTorch's current stream.  The id counter is scratch that the wrapper
+// allocates; the entry points zero it on the same stream.  The K1_* macros
+// select build variants for scripts/k1_variants.py.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -52,31 +66,18 @@
 #define K1_THREADS 128
 #endif
 #ifndef K1_MIN_BLOCKS
-#define K1_MIN_BLOCKS 8
-#endif
-#ifndef K1_STAGE_MIXED_MAX_G
-#define K1_STAGE_MIXED_MAX_G 64
-#endif
-#ifndef K1_STAGE_L0
-#define K1_STAGE_L0 1
+#define K1_MIN_BLOCKS 7
 #endif
 #ifndef K1_STAGE_MAX_G
-#define K1_STAGE_MAX_G 32
+#define K1_STAGE_MAX_G 0
 #endif
 #ifndef K1_PERSISTENT
 #define K1_PERSISTENT 1
-#endif
-#ifndef K1_INNER
-#define K1_INNER 0
-#endif
-#ifndef K1_LANES
-#define K1_LANES 1
 #endif
 
 namespace {
 
 constexpr int THREADS = K1_THREADS;
-constexpr int STAGE_MIXED_MAX_G = K1_STAGE_MIXED_MAX_G;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 
 struct Rays {
@@ -102,29 +103,21 @@ struct Stage {
 };
 
 __host__ __device__ inline Stage stage_words(const wf::Tables& T) {
-  Stage w;
-  if (!K1_STAGE_L0) {
-    w.occ = w.sc = w.mixed = 0;
-    return w;
-  }
+  Stage w = {0, 0, 0};
+  if (K1_STAGE_MAX_G <= 0) return w;
   if (T.pages > 0) {
     w.occ = 128;  // the page-occupancy row
-    w.sc = 0;
-    w.mixed = 0;
-    return w;
+  } else if (T.G <= K1_STAGE_MAX_G) {
+    const int hh = T.G / 2 > 1 ? T.G / 2 : 1;
+    w.occ = T.l0_coarse_base + (hh * hh * hh + 31) / 32;
+    w.sc = 128;
+    w.mixed = T.G * T.G * T.zw;
   }
-  if (T.G > K1_STAGE_MAX_G) {
-    w.occ = w.sc = w.mixed = 0;
-    return w;
-  }
-  const int hh = T.G / 2 > 1 ? T.G / 2 : 1;
-  w.occ = T.l0_coarse_base + (hh * hh * hh + 31) / 32;
-  w.sc = 128;
-  w.mixed = T.G <= STAGE_MIXED_MAX_G ? T.G * T.G * T.zw : 0;
   return w;
 }
 
-// The block's copy of the L0 rows; returns the tables that read it.
+// The block's copy of the L0 rows (none in the default build); returns
+// the tables that read it.
 __device__ wf::Tables stage(const wf::Tables& T, int32_t* smem) {
   const Stage w = stage_words(T);
   for (int i = threadIdx.x; i < w.occ; i += blockDim.x) {
@@ -144,8 +137,8 @@ __device__ wf::Tables stage(const wf::Tables& T, int32_t* smem) {
   return S;
 }
 
-// Starts the lane on id k: returns the record slot of its ray, or -1 if
-// the ray is dead (its miss record is written at once).
+// Starts a lane on id k: returns the record slot of its ray, or -1 if the
+// ray is dead (its miss record is written at once).
 template <bool CAMERA>
 __device__ inline int begin(const Rays& R, int k, wf::RayState* s,
                             const Records& out) {
@@ -165,62 +158,15 @@ __device__ inline int begin(const Rays& R, int k, wf::RayState* s,
   return r;
 }
 
+// A warp takes CHUNK ids with one atomicAdd on the global counter (or,
+// not persistent, the chunk of its own index); each lane takes the
+// chunk's next id from the warp's cursor in shared memory whenever its
+// ray ends and walks that ray's crossings on its own; the warp takes a
+// new chunk once the chunk is spent and all its lanes are idle.
 template <bool CAMERA, bool PAGED>
 __global__ void __launch_bounds__(K1_THREADS, K1_MIN_BLOCKS)
-wf_persistent(wf::Tables T, Rays R, int n, int* __restrict__ counter,
-              Records out) {
-  extern __shared__ int32_t smem[];
-  const wf::Tables S = stage(T, smem);
-  const int lane = threadIdx.x & 31;
-  const unsigned below = (1u << lane) - 1u;
-  wf::WarpQueue q = {0, 0, n > 0};
-  if (!K1_PERSISTENT) {
-    const int w0 = (blockIdx.x * (THREADS / 32) + threadIdx.x / 32) *
-                   wf::CHUNK;
-    q = {w0 < n ? w0 : n, w0 + wf::CHUNK < n ? w0 + wf::CHUNK : n, false};
-  }
-  wf::RayState s;
-  int slot = -1;  // record slot of the lane's ray, -1 while idle
-  for (;;) {
-    const unsigned idle = __ballot_sync(FULL, slot < 0);
-    const int need = __popc(idle);
-    if ((need >= wf::REFILL || idle == FULL) && wf::queue_left(q)) {
-      int fresh = -1;
-      if (wf::queue_short(q, need)) {
-        if (lane == 0) fresh = atomicAdd(counter, wf::CHUNK);
-        fresh = __shfl_sync(FULL, fresh, 0);
-      }
-      if (slot < 0) {
-        const int k = wf::queue_id(q, __popc(idle & below), fresh, n);
-        if (k >= 0) slot = begin<CAMERA>(R, k, &s, out);
-      }
-      wf::queue_take(q, need, fresh, n);
-    }
-    if (__ballot_sync(FULL, slot >= 0) == 0) {
-      if (!wf::queue_left(q)) break;
-      continue;
-    }
-    if (slot >= 0) {
-      wf::RayOut r;
-      bool done = wf::cross<PAGED>(S, s, &r);
-      while (K1_INNER && !done) done = wf::cross<PAGED>(S, s, &r);
-      if (done) {
-        wf::store(r, slot, out.status, out.t, out.cell, out.widx, out.iters);
-        slot = -1;
-      }
-    }
-  }
-}
-
-// Lane fetch: a warp takes CHUNK ids with one atomicAdd on the global
-// counter; each lane takes the chunk's next id from the warp's cursor in
-// shared memory (a shared atomicAdd) whenever its ray ends, and walks the
-// ray's crossings on its own; the warp takes a new chunk once the cursor
-// has passed the chunk's end and all its lanes are idle.
-template <bool CAMERA, bool PAGED>
-__global__ void __launch_bounds__(K1_THREADS, K1_MIN_BLOCKS)
-wf_lanes(wf::Tables T, Rays R, int n, int* __restrict__ counter,
-         Records out) {
+wf_trace_kernel(wf::Tables T, Rays R, int n, int* __restrict__ counter,
+                Records out) {
   extern __shared__ int32_t smem[];
   __shared__ int cursor[THREADS / 32];
   const wf::Tables S = stage(T, smem);
@@ -268,15 +214,12 @@ using KernelFn = void (*)(wf::Tables, Rays, int, int*, Records);
 
 template <bool CAMERA>
 KernelFn pick(const wf::Tables& T) {
-  if (K1_LANES) {
-    return T.pages > 0 ? wf_lanes<CAMERA, true> : wf_lanes<CAMERA, false>;
-  }
-  return T.pages > 0 ? wf_persistent<CAMERA, true>
-                     : wf_persistent<CAMERA, false>;
+  return T.pages > 0 ? wf_trace_kernel<CAMERA, true>
+                     : wf_trace_kernel<CAMERA, false>;
 }
 
-// Resident blocks of `kern` per SM at `smem` bytes of shared memory, and
-// the SM count; the last answer is kept per kernel.
+// Resident blocks of `kern` per SM at `smem` bytes of dynamic shared
+// memory, and the SM count; the last answer is kept per kernel.
 cudaError_t resident(KernelFn kern, int smem, int* per_sm, int* sms) {
   struct Entry {
     KernelFn kern;
@@ -312,8 +255,9 @@ cudaError_t resident(KernelFn kern, int smem, int* per_sm, int* sms) {
   return cudaSuccess;
 }
 
-// Launches the persistent grid over n ids: min(resident blocks, blocks
-// that n ids fill), after zeroing the id counter on the same stream.
+// Launches the grid over n ids: the resident blocks, or fewer when n ids
+// fill fewer (one chunk per warp, as the grid of a kernel that is not
+// persistent), after zeroing the id counter on the same stream.
 int launch(KernelFn kern, const wf::Tables& T, const Rays& R, int n,
            int* counter, const Records& out, cudaStream_t stream) {
   if (n <= 0) return 0;
@@ -324,7 +268,7 @@ int launch(KernelFn kern, const wf::Tables& T, const Rays& R, int n,
   const int per_block = THREADS / 32 * wf::CHUNK;
   const int fill = (n + per_block - 1) / per_block;
   const int blocks =
-      per_sm * sms < fill && K1_PERSISTENT ? per_sm * sms : fill;
+      K1_PERSISTENT && per_sm * sms < fill ? per_sm * sms : fill;
   e = cudaMemsetAsync(counter, 0, sizeof(int), stream);
   if (e != cudaSuccess) return (int)e;
   kern<<<blocks, THREADS, smem, stream>>>(T, R, n, counter, out);

@@ -48,9 +48,10 @@ constexpr int PAGE_ROWS = 137;       // 128-word rows of one page's tables
 
 enum : int32_t { MISS = 0, MIXED = 1, UNIFORM = 2, CAPPED = 3 };
 
-// In the kernel the L0 rows (l0_occ, l0_sc and, up to a G that
-// wavefront.cu sets, l0_mixed) point to the block's copy in shared memory,
-// and are read with plain loads; the rest is read through ldg().
+// In the kernel the L0 rows (l0_occ, l0_sc, l0_mixed) of flat worlds up
+// to a G that wavefront.cu sets, and a paged world's page row, point to
+// the block's copy in shared memory and are read with plain loads; the
+// rest is read through ldg().
 struct Tables {
   const int32_t* l0_occ;      // L0 byte-cell words, then coarse-bit words;
                               // paged: page-occupancy bits
@@ -124,11 +125,8 @@ __host__ __device__ inline float clamp_dir(float d) {
 // A read-only table word in device memory: through the non-coherent
 // read-only path (__ldg) on the card, a plain load in the CPU build.
 // Words staged in shared memory are read with plain loads.
-#ifndef K1_LDG
-#define K1_LDG 1
-#endif
 __host__ __device__ inline int32_t ldg(const int32_t* p) {
-#if defined(__CUDA_ARCH__) && K1_LDG
+#ifdef __CUDA_ARCH__
   return __ldg(p);
 #else
   return *p;
@@ -642,56 +640,12 @@ __host__ __device__ inline int32_t ray_key(float ox, float oy, float oz,
   return (int32_t)((oct << 24) | m);
 }
 
-// ---- the persistent schedule (wavefront.cu; emulated by the CPU build)
-// A warp takes ray ids from a global counter CHUNK at a time and keeps
-// them in a WarpQueue; at a crossing boundary, once REFILL of its lanes
-// are idle (or all are), each idle lane takes the next id of the queue.
-#ifndef K1_REFILL
-#define K1_REFILL 1
-#endif
+// Ray ids a warp of K1 takes from the global counter at a time
+// (wavefront.cu; the CPU build emulates the same schedule).
 #ifndef K1_CHUNK
-#define K1_CHUNK 64
+#define K1_CHUNK 32
 #endif
 constexpr int CHUNK = K1_CHUNK;
-constexpr int REFILL = K1_REFILL;
-
-struct WarpQueue {
-  int next, end;  // ids [next, end) of the chunk last taken, end <= n
-  bool more;      // the counter may still hold ids
-};
-
-__host__ __device__ inline bool queue_left(const WarpQueue& q) {
-  return q.more || q.next < q.end;
-}
-
-// Whether a warp with `need` idle lanes takes a new chunk first.
-__host__ __device__ inline bool queue_short(const WarpQueue& q, int need) {
-  return q.more && q.end - q.next < need;
-}
-
-// The id for the idle lane of rank `rank`, or -1: the queue's ids first,
-// then those of the chunk starting at `fresh` (-1 if none was taken).
-__host__ __device__ inline int queue_id(const WarpQueue& q, int rank,
-                                        int fresh, int n) {
-  const int avail = q.end - q.next;
-  if (rank < avail) return q.next + rank;
-  if (fresh < 0) return -1;
-  const int k = fresh + (rank - avail);
-  return k < n ? k : -1;
-}
-
-// The queue after `need` idle lanes took their ids.
-__host__ __device__ inline void queue_take(WarpQueue& q, int need, int fresh,
-                                           int n) {
-  const int avail = q.end - q.next;
-  if (fresh < 0) {
-    q.next += need < avail ? need : avail;
-    return;
-  }
-  q.end = fresh + CHUNK < n ? fresh + CHUNK : n;
-  q.next = fresh + (need - avail) < q.end ? fresh + (need - avail) : q.end;
-  q.more = fresh + CHUNK < n;
-}
 
 // Camera mode: a primary ray is derived from its id and the 16 camera
 // scalars (pos, l1, l2, r1, r2, one pad; Camera.uniform order), so the

@@ -6,13 +6,14 @@
 // is compiled into wavefront.cu.
 //
 // The host loop emulates wavefront.cu's warps: WARPS warps of 32 lanes
-// take turns, each turn one pass of the kernel's loop — idle lanes take
-// ids from the warp's queue and a shared counter (wf_ray.cuh WarpQueue),
-// then every busy lane runs one crossing and writes its record, through
-// the permutation, when its ray ends.
+// take turns.  A warp whose lanes are all idle and whose chunk is spent
+// takes the next CHUNK ids of a shared counter; otherwise each idle lane
+// takes the chunk's next id, and every busy lane runs one crossing and
+// writes its record, through the permutation, when its ray ends.
 
 #include <stdint.h>
 
+#include <algorithm>
 #include <vector>
 
 #include "wf_ray.cuh"
@@ -28,7 +29,7 @@ struct Lane {
 
 struct Warp {
   Lane lane[32];
-  wf::WarpQueue q;
+  int base, count, cursor;  // the chunk's ids [base, base + count)
   bool done;
 };
 
@@ -52,38 +53,29 @@ void run_warps(const wf::Tables& T, int n, int* counter, const Records& out,
   std::vector<Warp> warps(WARPS);
   for (Warp& w : warps) {
     for (Lane& l : w.lane) l.slot = -1;
-    w.q = {0, 0, n > 0};
+    w.base = w.count = w.cursor = 0;
     w.done = false;
   }
   for (bool busy = true; busy;) {
     busy = false;
     for (Warp& w : warps) {
       if (w.done) continue;
-      int need = 0;
-      for (const Lane& l : w.lane) need += l.slot < 0;
-      if ((need >= wf::REFILL || need == 32) && wf::queue_left(w.q)) {
-        int fresh = -1;
-        if (wf::queue_short(w.q, need)) {
-          fresh = *counter;
-          *counter += wf::CHUNK;
-        }
-        int rank = 0;
-        for (Lane& l : w.lane) {
-          if (l.slot >= 0) continue;
-          const int k = wf::queue_id(w.q, rank++, fresh, n);
-          if (k >= 0) l.slot = begin(k, &l.s);
-        }
-        wf::queue_take(w.q, need, fresh, n);
-      }
-      bool any = false;
-      for (const Lane& l : w.lane) any |= l.slot >= 0;
-      if (!any) {
-        w.done = !wf::queue_left(w.q);
+      bool idle = true;
+      for (const Lane& l : w.lane) idle &= l.slot < 0;
+      if (idle && w.cursor >= w.count) {       // the warp's next chunk
+        w.base = *counter;
+        *counter += wf::CHUNK;
+        w.count = w.base < n ? std::min(wf::CHUNK, n - w.base) : 0;
+        w.cursor = 0;
+        w.done = w.base >= n;
         busy |= !w.done;
         continue;
       }
       busy = true;
       for (Lane& l : w.lane) {
+        while (l.slot < 0 && w.cursor < w.count) {
+          l.slot = begin(w.base + w.cursor++, &l.s);
+        }
         wf::RayOut r;
         if (l.slot >= 0 && wf::cross_any(T, l.s, &r)) {
           out.put(r, l.slot);

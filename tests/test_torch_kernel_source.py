@@ -1,8 +1,9 @@
 """The kernels' own sources on the CPU: the per-ray bodies that the GPU
 kernels run (csrc/wf_ray.cuh for K1 with its camera-mode ray derivation,
 its sort keys and its persistent schedule, emulated by a host loop of
-32-lane warps that take rays from a counter, refill finished lanes and
-write through the sort permutation,
+32-lane warps that take chunks of ray ids from a counter, hand a lane
+whose ray ended (or was dead) the chunk's next id, and write through the
+sort permutation,
 csrc/esvo_ray.cuh for KE, csrc/brick_dda.cuh for K2,
 csrc/brick_round.cuh for K3) compiled with g++, their CUDA qualifiers
 defined away, into ctypes libraries, against their plain PyTorch versions
@@ -39,15 +40,17 @@ GXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off",
 def host_trace():
     if shutil.which("g++") is None:
         pytest.skip("g++ not available")
-    lib = kernel_build.load("wf_ray_host", ["wf_ray_host.cpp"], "g++",
-                            GXX_FLAGS)
-    fn = lib.wf_trace_host
-    fn.argtypes = wavefront.K1.argtypes[:-1]     # no stream argument
-    fn.restype = ctypes.c_int
 
-    def run(ws, o, d, alive, order=None):
+    def run(ws, o, d, alive, order=None, chunk=None):
         """K1's records over the rays taken in ``order`` (None: frame
-        order); every slot starts as a sentinel that no record holds."""
+        order) by warps that take ``chunk`` ids at a time (None: the
+        kernel's CHUNK); every slot starts as a sentinel that no record
+        holds."""
+        flags = GXX_FLAGS + ((f"-DK1_CHUNK={chunk}",) if chunk else ())
+        fn = kernel_build.load("wf_ray_host", ["wf_ray_host.cpp"], "g++",
+                               flags).wf_trace_host
+        fn.argtypes = wavefront.K1.argtypes[:-1]     # no stream argument
+        fn.restype = ctypes.c_int
         B = o.shape[0]
         out = [torch.full((B,), -7, dtype=dt) for dt in
                (torch.int32, torch.float32, torch.int32, torch.int32,
@@ -117,17 +120,20 @@ def _scene_rays(name, n=2048):
                                  act))
 
 
+@pytest.mark.parametrize("chunk", [None, 96])
 @pytest.mark.parametrize("name", ["sphere-64", "terrain-64", "g64",
                                   "paged-4096"])
-def test_cuda_source_key_order_equals_plain(host_trace, name):
+def test_cuda_source_key_order_equals_plain(host_trace, name, chunk):
     """The persistent schedule over the rays in key order (ray_order on
     the CPU): each record lands at its ray's own slot, equal in every
-    field to trace_plain in frame order."""
+    field to trace_plain in frame order.  With 96-id chunks a lane whose
+    ray ended takes the next ray of its warp's chunk (the refill that
+    measured slower on the card, PERF.md)."""
     ws, o, d, alive = _scene_rays(name)
     order = wavefront.ray_order(ws, o, d, alive)
     assert not torch.equal(order, torch.arange(o.shape[0]))
     want = wavefront.trace_plain(ws, o, d, alive)
-    got = host_trace(ws, o, d, alive, order)
+    got = host_trace(ws, o, d, alive, order, chunk)
     for field, a, b in zip(("status", "t", "cell", "widx", "iters"), want,
                            got):
         assert torch.equal(a, b), field
