@@ -1314,10 +1314,23 @@ def build_kernels():
     say(f"[build] all four in {time.time() - t0:.1f} s")
 
 
+def print_ranking(kernels, order_ms):
+    """Each kernels line's launches x (ms - bound_ms), and K1's total with
+    its ray ordering: its traversal lines plus ``order_ms``, the main
+    path's explicit segments times their keys + sort ms (timed together,
+    so the key kernel's own line is not added again)."""
+    rank = {k["name"]: k["launches"] * (k["ms"] - k["bound_ms"])
+            for k in kernels}
+    k1 = sum(v for n, v in rank.items() if n.startswith("K1 wavefront"))
+    say(f"[ranking] launches x (ms - bound_ms): {json.dumps(rank)}")
+    say(f"[ranking] K1 {k1:.1f} ms; ordering (keys + torch.sort on every "
+        f"explicit segment) {order_ms:.1f} ms; K1 with its ordering "
+        f"{k1 + order_ms:.1f} ms")
+
+
 def print_grids(ws):
     """K1's persistent launch (resident blocks per SM, SMs, threads,
-    shared-memory bytes per block, grid) for the world's layout, explicit
-    and camera mode."""
+    grid) for the world's layout, explicit and camera mode."""
     from svo_raytracer_torch.ops import wavefront as wf
     out = {m: wf.launch_info(ws, camera=m == "camera")
            for m in ("explicit", "camera")}
@@ -1370,6 +1383,7 @@ def main():
     summary, kernels = {}, []
     key_launches, key_timed, key_all = 0, [], [c.keys
                                                 for c in checks.values()]
+    order_ms = 0.0
     for (size, n_range, bounces, n_timed, profiled, part, line,
          small_names, first) in WORLDS:
         scene, ws = build_world(dev, size, n_range)
@@ -1402,6 +1416,8 @@ def main():
             launches=launches, max_memory_allocated=peak,
             camera_vs_explicit=contract)
         key_launches += launches["K1_keys"]
+        order_ms += launches["K1_keys"] * float(
+            np.mean([a.key_sort_ms for a in seg[1:]]))
         key_timed += [a.keys for a in seg[1:]]
         key_all += [a.keys for a in seg + [sampled]]
         if profiled:
@@ -1436,6 +1452,7 @@ def main():
         "svo_raytracer_tpu/ops/wavefront.py:1920", key_launches, key_timed,
         key_all), tpu_kernel="none: _sort_stage's brick key (XLA glue), "
                              "with OCT_SORT's octant (wavefront.py:1032)"))
+    print_ranking(kernels, order_ms)
     say(f"[summary] {json.dumps(summary)}")
     say(f"[run] {time.time() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))

@@ -17,36 +17,33 @@
 // finish wait for the warp's longest ray.  The tables of a 1024^3 world
 // (~20 MB) fit the 50 MB L2; a 4096^3 heightmap world's brick words
 // (~330 MB) do not, so there a step into a new brick can wait on DRAM.
-// What the design does, and what measurement kept (PERF.md, by
-// scripts/k1_variants.py):
+// What the design does, and what measurement kept (PERF.md §6):
 //   * order — the wrapper sorts explicit rays by direction octant and the
 //     Morton code of their origin's brick (ray_key, then torch.sort), and
 //     lane k traces ray order[k], writing its record to slot order[k]:
 //     the 32 rays of a warp start in one brick heading one way and end
 //     at about the same step, and dead rays sort to the tail.  This is
-//     the gain: bounce segments run 1.4-2x faster than in frame order.
+//     the gain: K1 alone runs bounce segments 1.4-2x faster than in frame
+//     order, 1.2-1.25x on bounce 1 once the keys and the sort are counted.
 //     Camera-mode primaries keep their block-major ids (a warp is one row
 //     of a 32x32 pixel block);
 //   * persistent warps (Aila & Laine, HPG 2009) — as many blocks as stay
-//     resident; a warp takes CHUNK ids at a time from a global counter
-//     with one atomicAdd, and each lane takes the chunk's next id from
-//     the warp's cursor in shared memory whenever its ray ends.  With
-//     CHUNK = 32 each lane takes one ray per chunk: larger chunks, whose
-//     lanes refill as they finish, measured slower on every world and in
-//     both modes (a refilled ray runs on alone, out of step with the
-//     warp's coherent rays), as did a refill at every crossing boundary;
+//     resident; a warp takes 32 ids, one per lane, with one atomicAdd on
+//     a global counter and takes the next 32 once all its lanes are done.
+//     Refilling a finished lane with a further ray (from larger chunks,
+//     or at a crossing boundary) measured slower on every world and in
+//     both modes: a refilled ray runs on alone, out of step with the
+//     warp's coherent rays;
 //   * registers — __launch_bounds__(128, 7): ptxas fits the body in
 //     66-72 registers without spills (at 64 it spilled up to 32 bytes),
 //     28 resident warps per SM; fewer registers and more warps spilled
 //     more and ran slower;
-//   * shared memory — a build with K1_STAGE_MAX_G = G copies the flat L0
-//     rows that phase 2 reads on every step (byte and coarse words,
-//     supercell nibbles, mixed bits: 9 KB at G = 32, 68 KB at G = 64) and
-//     a paged world's page row into shared memory once per block.  It
-//     measured no faster at G = 32, 1.7x slower at G = 64 (3 blocks per
-//     SM) and 4% slower on paged primaries, so the default build reads
-//     the L0 from device memory, through L1.  Brick words and brick_slot
-//     are read through the read-only path (__ldg).
+//   * no shared memory — copying the flat L0 rows that phase 2 reads on
+//     every step into shared memory once per block (9 KB at G = 32, 68 KB
+//     at G = 64), or a paged world's page row, measured no faster at
+//     G = 32, 1.7x slower at G = 64 (3 blocks per SM) and 4% slower on
+//     paged primaries: the rows are L1 hits already.  Every table word is
+//     read through the read-only path (__ldg).
 // What is left is the latency of the brick words and, at 4096^3, of the
 // page rows in DRAM.
 //
@@ -54,31 +51,19 @@
 // code=sm_90a -O3 -fmad=false into a shared library with a plain C entry
 // point; ops/wavefront.py binds it with ctypes and launches it on
 // PyTorch's current stream.  The id counter is scratch that the wrapper
-// allocates; the entry points zero it on the same stream.  The K1_* macros
-// select build variants for scripts/k1_variants.py.
+// allocates; the entry points zero it on the same stream.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "wf_ray.cuh"
 
-#ifndef K1_THREADS
-#define K1_THREADS 128
-#endif
-#ifndef K1_MIN_BLOCKS
-#define K1_MIN_BLOCKS 7
-#endif
-#ifndef K1_STAGE_MAX_G
-#define K1_STAGE_MAX_G 0
-#endif
-#ifndef K1_PERSISTENT
-#define K1_PERSISTENT 1
-#endif
-
 namespace {
 
-constexpr int THREADS = K1_THREADS;
+constexpr int THREADS = 128;
+constexpr int MIN_BLOCKS = 7;  // resident blocks per SM ptxas is held to
 constexpr unsigned FULL = 0xFFFFFFFFu;
+static_assert(wf::CHUNK == 32, "a warp takes one id per lane");
 
 struct Rays {
   const float* __restrict__ origins;  // (n, 3) voxel units
@@ -95,47 +80,6 @@ struct Records {
   int32_t* widx;
   int32_t* iters;
 };
-
-// Words of the L0 rows a block stages: [l0_occ | l0_sc | l0_mixed].
-struct Stage {
-  int occ, sc, mixed;
-  int bytes() const { return 4 * (occ + sc + mixed); }
-};
-
-__host__ __device__ inline Stage stage_words(const wf::Tables& T) {
-  Stage w = {0, 0, 0};
-  if (K1_STAGE_MAX_G <= 0) return w;
-  if (T.pages > 0) {
-    w.occ = 128;  // the page-occupancy row
-  } else if (T.G <= K1_STAGE_MAX_G) {
-    const int hh = T.G / 2 > 1 ? T.G / 2 : 1;
-    w.occ = T.l0_coarse_base + (hh * hh * hh + 31) / 32;
-    w.sc = 128;
-    w.mixed = T.G * T.G * T.zw;
-  }
-  return w;
-}
-
-// The block's copy of the L0 rows (none in the default build); returns
-// the tables that read it.
-__device__ wf::Tables stage(const wf::Tables& T, int32_t* smem) {
-  const Stage w = stage_words(T);
-  for (int i = threadIdx.x; i < w.occ; i += blockDim.x) {
-    smem[i] = __ldg(T.l0_occ + i);
-  }
-  for (int i = threadIdx.x; i < w.sc; i += blockDim.x) {
-    smem[w.occ + i] = __ldg(T.l0_sc + i);
-  }
-  for (int i = threadIdx.x; i < w.mixed; i += blockDim.x) {
-    smem[w.occ + w.sc + i] = __ldg(T.l0_mixed + i);
-  }
-  __syncthreads();
-  wf::Tables S = T;
-  if (w.occ) S.l0_occ = smem;
-  if (w.sc) S.l0_sc = smem + w.occ;
-  if (w.mixed) S.l0_mixed = smem + w.occ + w.sc;
-  return S;
-}
 
 // Starts a lane on id k: returns the record slot of its ray, or -1 if the
 // ray is dead (its miss record is written at once).
@@ -158,43 +102,28 @@ __device__ inline int begin(const Rays& R, int k, wf::RayState* s,
   return r;
 }
 
-// A warp takes CHUNK ids with one atomicAdd on the global counter (or,
-// not persistent, the chunk of its own index); each lane takes the
-// chunk's next id from the warp's cursor in shared memory whenever its
-// ray ends and walks that ray's crossings on its own; the warp takes a
-// new chunk once the chunk is spent and all its lanes are idle.
+// A warp takes 32 ids with one atomicAdd on the global counter; lane i
+// walks the crossings of id base + i's ray and writes its record, and the
+// warp takes the next 32 ids once every lane is done.
 template <bool CAMERA, bool PAGED>
-__global__ void __launch_bounds__(K1_THREADS, K1_MIN_BLOCKS)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 wf_trace_kernel(wf::Tables T, Rays R, int n, int* __restrict__ counter,
                 Records out) {
-  extern __shared__ int32_t smem[];
-  __shared__ int cursor[THREADS / 32];
-  const wf::Tables S = stage(T, smem);
   const int lane = threadIdx.x & 31;
-  int* const mine = cursor + threadIdx.x / 32;
-  for (int round = 0;; ++round) {
+  for (;;) {
     int base = 0;
-    if (lane == 0) {
-      base = K1_PERSISTENT ? atomicAdd(counter, wf::CHUNK)
-             : round ? n
-                     : (blockIdx.x * (THREADS / 32) + threadIdx.x / 32) *
-                           wf::CHUNK;
-      *mine = 0;
-    }
+    if (lane == 0) base = atomicAdd(counter, wf::CHUNK);
     base = __shfl_sync(FULL, base, 0);
-    __syncwarp();
     if (base >= n) break;
-    const int count = n - base < wf::CHUNK ? n - base : wf::CHUNK;
-    for (int i = atomicAdd(mine, 1); i < count; i = atomicAdd(mine, 1)) {
-      wf::RayState s;
-      const int slot = begin<CAMERA>(R, base + i, &s, out);
-      if (slot < 0) continue;
+    wf::RayState s;
+    const int slot = base + lane < n ? begin<CAMERA>(R, base + lane, &s, out)
+                                     : -1;
+    if (slot >= 0) {
       wf::RayOut r;
-      while (!wf::cross<PAGED>(S, s, &r)) {
+      while (!wf::cross<PAGED>(T, s, &r)) {
       }
       wf::store(r, slot, out.status, out.t, out.cell, out.widx, out.iters);
     }
-    __syncwarp();
   }
 }
 
@@ -218,12 +147,12 @@ KernelFn pick(const wf::Tables& T) {
                      : wf_trace_kernel<CAMERA, false>;
 }
 
-// Resident blocks of `kern` per SM at `smem` bytes of dynamic shared
-// memory, and the SM count; the last answer is kept per kernel.
-cudaError_t resident(KernelFn kern, int smem, int* per_sm, int* sms) {
+// Resident blocks of `kern` per SM and the SM count; the last answer is
+// kept per kernel.
+cudaError_t resident(KernelFn kern, int* per_sm, int* sms) {
   struct Entry {
     KernelFn kern;
-    int dev, smem, per_sm, sms;
+    int dev, per_sm, sms;
   };
   static Entry cache[4] = {};
   int dev = 0;
@@ -236,42 +165,35 @@ cudaError_t resident(KernelFn kern, int smem, int* per_sm, int* sms) {
       break;
     }
   }
-  if (slot && slot->kern == kern && slot->dev == dev && slot->smem == smem) {
+  if (slot && slot->kern == kern && slot->dev == dev) {
     *per_sm = slot->per_sm;
     *sms = slot->sms;
     return cudaSuccess;
   }
   e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute((const void*)kern,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem);
-  if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern, THREADS,
-                                                    smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern, THREADS, 0);
   if (e != cudaSuccess) return e;
   if (*per_sm < 1) return cudaErrorInvalidConfiguration;
-  if (slot) *slot = {kern, dev, smem, *per_sm, *sms};
+  if (slot) *slot = {kern, dev, *per_sm, *sms};
   return cudaSuccess;
 }
 
 // Launches the grid over n ids: the resident blocks, or fewer when n ids
-// fill fewer (one chunk per warp, as the grid of a kernel that is not
-// persistent), after zeroing the id counter on the same stream.
+// fill fewer (32 ids per warp), after zeroing the id counter on the same
+// stream.
 int launch(KernelFn kern, const wf::Tables& T, const Rays& R, int n,
            int* counter, const Records& out, cudaStream_t stream) {
   if (n <= 0) return 0;
-  const int smem = stage_words(T).bytes();
   int per_sm = 0, sms = 0;
-  cudaError_t e = resident(kern, smem, &per_sm, &sms);
+  cudaError_t e = resident(kern, &per_sm, &sms);
   if (e != cudaSuccess) return (int)e;
   const int per_block = THREADS / 32 * wf::CHUNK;
   const int fill = (n + per_block - 1) / per_block;
-  const int blocks =
-      K1_PERSISTENT && per_sm * sms < fill ? per_sm * sms : fill;
+  const int blocks = per_sm * sms < fill ? per_sm * sms : fill;
   e = cudaMemsetAsync(counter, 0, sizeof(int), stream);
   if (e != cudaSuccess) return (int)e;
-  kern<<<blocks, THREADS, smem, stream>>>(T, R, n, counter, out);
+  kern<<<blocks, THREADS, 0, stream>>>(T, R, n, counter, out);
   return (int)cudaGetLastError();
 }
 
@@ -334,18 +256,15 @@ extern "C" int wf_ray_keys(const float* origins, const float* dirs,
 }
 
 // The persistent launch of a world's layout: info[0] resident blocks per
-// SM, info[1] SMs, info[2] threads per block, info[3] shared-memory bytes
-// per block (camera selects the camera-mode kernel).  Returns the
-// cudaError_t of the occupancy query.
+// SM, info[1] SMs, info[2] threads per block (camera selects the
+// camera-mode kernel).  Returns the cudaError_t of the occupancy query.
 extern "C" int wf_launch_info(int G, int l0_coarse_base, int zw, int pages,
                               int camera, int* info) {
   const wf::Tables T = wf::make_tables(nullptr, nullptr, nullptr, nullptr,
                                        nullptr, nullptr, G, l0_coarse_base,
                                        zw, pages);
-  const int smem = stage_words(T).bytes();
   const cudaError_t e = resident(camera ? pick<true>(T) : pick<false>(T),
-                                 smem, &info[0], &info[1]);
+                                 &info[0], &info[1]);
   info[2] = THREADS;
-  info[3] = smem;
   return (int)e;
 }

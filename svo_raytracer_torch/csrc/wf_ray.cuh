@@ -48,10 +48,7 @@ constexpr int PAGE_ROWS = 137;       // 128-word rows of one page's tables
 
 enum : int32_t { MISS = 0, MIXED = 1, UNIFORM = 2, CAPPED = 3 };
 
-// In the kernel the L0 rows (l0_occ, l0_sc, l0_mixed) of flat worlds up
-// to a G that wavefront.cu sets, and a paged world's page row, point to
-// the block's copy in shared memory and are read with plain loads; the
-// rest is read through ldg().
+// Every table word is read through ldg().
 struct Tables {
   const int32_t* l0_occ;      // L0 byte-cell words, then coarse-bit words;
                               // paged: page-occupancy bits
@@ -122,21 +119,14 @@ __host__ __device__ inline float clamp_dir(float d) {
   return fabsf(d) < DIR_EPS ? (d >= 0.0f ? DIR_EPS : -DIR_EPS) : d;
 }
 
-// A read-only table word in device memory: through the non-coherent
-// read-only path (__ldg) on the card, a plain load in the CPU build.
-// Words staged in shared memory are read with plain loads.
-__host__ __device__ inline int32_t ldg(const int32_t* p) {
+// A read-only table word: through the non-coherent read-only path
+// (__ldg) on the card, a plain load in the CPU build.
+__host__ __device__ inline uint32_t ldg(const int32_t* p) {
 #ifdef __CUDA_ARCH__
-  return __ldg(p);
+  return (uint32_t)__ldg(p);
 #else
-  return *p;
+  return (uint32_t)*p;
 #endif
-}
-
-// A table word: read-only device memory (RO) or shared memory.
-template <bool RO>
-__host__ __device__ inline uint32_t word(const int32_t* p) {
-  return (uint32_t)(RO ? ldg(p) : *p);
 }
 
 // 32^3 mixed brick: 16^3 coarse any-bits (128 words) and byte-cell words
@@ -146,20 +136,18 @@ struct BrickProbe {
   const int32_t* sc;
   __host__ __device__ bool coarse(int cx, int cy, int cz) const {
     int c = (cx * 16 + cy) * 16 + cz;
-    return ((word<true>(sc + (c >> 5)) >> (c & 31)) & 1u) != 0;
+    return ((ldg(sc + (c >> 5)) >> (c & 31)) & 1u) != 0;
   }
   __host__ __device__ uint32_t fine_byte(int cx, int cy, int cz) const {
     int c = (cx * 16 + cy) * 16 + cz;
-    return (word<true>(occ + (c >> 2)) >> ((c & 3) * 8)) & 0xFFu;
+    return (ldg(occ + (c >> 2)) >> ((c & 3) * 8)) & 0xFFu;
   }
   __host__ __device__ int sc_dist(int, int, int) const { return 0; }
 };
 
 // A brick grid in the same coarse-refine layout over occupied bricks,
-// plus the supercell (8^3-brick) distance nibbles: the flat L0 (staged in
-// shared memory by the kernel, RO false), or one 64^3-brick page of a
-// paged world (RO true).
-template <bool RO>
+// plus the supercell (8^3-brick) distance nibbles: the flat L0, or one
+// 64^3-brick page of a paged world.
 struct GridProbe {
   const int32_t* byte_words;    // byte c&3 of word c>>2: coarse cell c
   const int32_t* coarse_words;  // bit c&31 of word c>>5: coarse cell c
@@ -168,15 +156,15 @@ struct GridProbe {
   int nsc;  // supercells per edge (G/8)
   __host__ __device__ bool coarse(int cx, int cy, int cz) const {
     int c = (cx * hh + cy) * hh + cz;
-    return ((word<RO>(coarse_words + (c >> 5)) >> (c & 31)) & 1u) != 0;
+    return ((ldg(coarse_words + (c >> 5)) >> (c & 31)) & 1u) != 0;
   }
   __host__ __device__ uint32_t fine_byte(int cx, int cy, int cz) const {
     int c = (cx * hh + cy) * hh + cz;
-    return (word<RO>(byte_words + (c >> 2)) >> ((c & 3) * 8)) & 0xFFu;
+    return (ldg(byte_words + (c >> 2)) >> ((c & 3) * 8)) & 0xFFu;
   }
   __host__ __device__ int sc_dist(int sx, int sy, int sz) const {
     int b = (sx * nsc + sy) * nsc + sz;
-    return (int)((word<RO>(sc_words + (b >> 3)) >> ((b & 7) * 4)) & 0xFu);
+    return (int)((ldg(sc_words + (b >> 3)) >> ((b & 7) * 4)) & 0xFu);
   }
 };
 
@@ -394,7 +382,7 @@ __host__ __device__ inline DdaOut paged_march(
       break;
     }
     const int pg = (pgx * P + pgy) * P + pgz;
-    if ((((uint32_t)T.l0_occ[pg >> 5] >> (pg & 31)) & 1u) == 0) {
+    if (((ldg(T.l0_occ + (pg >> 5)) >> (pg & 31)) & 1u) == 0) {
       // empty page: jump to its exit
       const float ex = ((float)pgx * pgv + (dxc > 0.0f ? pgv : 0.0f) - p2x)
                        * inv_x;
@@ -407,7 +395,7 @@ __host__ __device__ inline DdaOut paged_march(
       continue;
     }
     const int32_t* tab = T.l0_mixed + (size_t)pg * PAGE_ROWS * 128;
-    GridProbe<true> pp;
+    GridProbe pp;
     pp.byte_words = tab;
     pp.coarse_words = tab + 64 * 128;
     pp.sc_words = tab + 136 * 128;
@@ -424,7 +412,7 @@ __host__ __device__ inline DdaOut paged_march(
       const int ciz = clampi(d.iz, 0, PAGE - 1);
       const int cc = ((cix >> 1) * 32 + (ciy >> 1)) * 32 + (ciz >> 1);
       const uint32_t byte =
-          (word<true>(tab + 72 * 128 + (cc >> 2)) >> ((cc & 3) * 8)) & 0xFFu;
+          (ldg(tab + 72 * 128 + (cc >> 2)) >> ((cc & 3) * 8)) & 0xFFu;
       *mixed = ((byte >> (((cix & 1) << 2) | ((ciy & 1) << 1) | (ciz & 1)))
                 & 1u) != 0;
       r.hit = true;
@@ -526,7 +514,7 @@ __host__ __device__ inline bool cross(const Tables& T, RayState& s,
     const float px = s.ox + s.tw * dxc;
     const float py = s.oy + s.tw * dyc;
     const float pz = s.oz + s.tw * dzc;
-    const int sl = ldg(T.brick_slot + kc);
+    const int sl = (int)ldg(T.brick_slot + kc);
     const int slot = sl > 0 ? sl : 0;
     BrickProbe bp;
     bp.occ = T.occ_words + (size_t)slot * 1024;
@@ -552,7 +540,7 @@ __host__ __device__ inline bool cross(const Tables& T, RayState& s,
     r2 = paged_march(T, p2x, p2y, p2z, dxc, dyc, dzc, inv_x, inv_y, inv_z,
                      &is_mixed);
   } else {
-    GridProbe<false> l0;
+    GridProbe l0;
     l0.byte_words = T.l0_occ;
     l0.coarse_words = T.l0_occ + T.l0_coarse_base;
     l0.sc_words = T.l0_sc;
@@ -564,7 +552,7 @@ __host__ __device__ inline bool cross(const Tables& T, RayState& s,
       const int c2x = clampi(r2.ix, 0, G - 1);
       const int c2y = clampi(r2.iy, 0, G - 1);
       const int c2z = clampi(r2.iz, 0, G - 1);
-      is_mixed = (((uint32_t)T.l0_mixed[(c2x * G + c2y) * T.zw + (c2z >> 5)]
+      is_mixed = ((ldg(T.l0_mixed + (c2x * G + c2y) * T.zw + (c2z >> 5))
                    >> (c2z & 31)) & 1u) != 0;
     }
   }
@@ -640,12 +628,9 @@ __host__ __device__ inline int32_t ray_key(float ox, float oy, float oz,
   return (int32_t)((oct << 24) | m);
 }
 
-// Ray ids a warp of K1 takes from the global counter at a time
-// (wavefront.cu; the CPU build emulates the same schedule).
-#ifndef K1_CHUNK
-#define K1_CHUNK 32
-#endif
-constexpr int CHUNK = K1_CHUNK;
+// Ray ids a warp of K1 takes from the global counter at a time, one per
+// lane (wavefront.cu; the CPU build emulates the same schedule).
+constexpr int CHUNK = 32;
 
 // Camera mode: a primary ray is derived from its id and the 16 camera
 // scalars (pos, l1, l2, r1, r2, one pad; Camera.uniform order), so the

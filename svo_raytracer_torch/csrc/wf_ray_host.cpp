@@ -6,14 +6,13 @@
 // is compiled into wavefront.cu.
 //
 // The host loop emulates wavefront.cu's warps: WARPS warps of 32 lanes
-// take turns.  A warp whose lanes are all idle and whose chunk is spent
-// takes the next CHUNK ids of a shared counter; otherwise each idle lane
-// takes the chunk's next id, and every busy lane runs one crossing and
-// writes its record, through the permutation, when its ray ends.
+// take turns.  A warp whose lanes are all done takes the next 32 ids of a
+// shared counter, one per lane; otherwise each busy lane runs one
+// crossing and writes its record, through the permutation, when its ray
+// ends.
 
 #include <stdint.h>
 
-#include <algorithm>
 #include <vector>
 
 #include "wf_ray.cuh"
@@ -21,16 +20,16 @@
 namespace {
 
 constexpr int WARPS = 3;
+static_assert(wf::CHUNK == 32, "a warp takes one id per lane");
 
 struct Lane {
   wf::RayState s;
-  int slot;  // record slot of the lane's ray, -1 while idle
+  int slot;  // record slot of the lane's ray, -1 when done
 };
 
 struct Warp {
   Lane lane[32];
-  int base, count, cursor;  // the chunk's ids [base, base + count)
-  bool done;
+  bool done;  // the counter has passed n
 };
 
 struct Records {
@@ -53,29 +52,26 @@ void run_warps(const wf::Tables& T, int n, int* counter, const Records& out,
   std::vector<Warp> warps(WARPS);
   for (Warp& w : warps) {
     for (Lane& l : w.lane) l.slot = -1;
-    w.base = w.count = w.cursor = 0;
     w.done = false;
   }
   for (bool busy = true; busy;) {
     busy = false;
     for (Warp& w : warps) {
       if (w.done) continue;
+      busy = true;
       bool idle = true;
       for (const Lane& l : w.lane) idle &= l.slot < 0;
-      if (idle && w.cursor >= w.count) {       // the warp's next chunk
-        w.base = *counter;
+      if (idle) {  // the warp's next 32 ids
+        const int base = *counter;
         *counter += wf::CHUNK;
-        w.count = w.base < n ? std::min(wf::CHUNK, n - w.base) : 0;
-        w.cursor = 0;
-        w.done = w.base >= n;
-        busy |= !w.done;
+        w.done = base >= n;
+        for (int i = 0; i < 32; ++i) {
+          Lane& l = w.lane[i];
+          l.slot = !w.done && base + i < n ? begin(base + i, &l.s) : -1;
+        }
         continue;
       }
-      busy = true;
       for (Lane& l : w.lane) {
-        while (l.slot < 0 && w.cursor < w.count) {
-          l.slot = begin(w.base + w.cursor++, &l.s);
-        }
         wf::RayOut r;
         if (l.slot >= 0 && wf::cross_any(T, l.s, &r)) {
           out.put(r, l.slot);

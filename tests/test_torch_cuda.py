@@ -243,27 +243,20 @@ def test_kernel_schedule_edges_on_gpu(case):
 
 
 @pytest.mark.gpu
-def test_kernel_g64_shared_staging_on_gpu():
-    """The G = 64 world's L0 rows in shared memory: 68 KB per block, past
-    the 48 KB that needs the opt-in launch attribute.  The default build
-    keeps them in device memory at G = 64 (the staging measured slower,
-    PERF.md), so a build with K1_STAGE_MAX_G=64 stages them; both equal
-    the plain version in explicit and camera mode."""
+def test_kernel_g64_camera_and_grid_on_gpu():
+    """The G = 64 world in camera mode and in key order against the plain
+    versions, and K1's persistent grid: the 7 resident blocks per SM that
+    its __launch_bounds__ asks for, in both modes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
-    import ctypes
-    from svo_raytracer_torch.ops import kernel_build, render_wave
+    from svo_raytracer_torch.ops import render_wave
     from svo_raytracer_torch.utils.camera import Camera
     scene = chip_smoke.g64_scene()
     ws = wavefront.prepare(scene, "cuda")
-    assert wavefront.launch_info(ws)["smem_bytes"] == 0
-    lib = ctypes.CDLL(str(kernel_build.library(
-        "wavefront_stage64", ["wavefront.cu"], kernel_build.nvcc_path(),
-        kernel_build.NVCC_FLAGS + ("-DK1_STAGE_MAX_G=64",))))
-    info = (ctypes.c_int * 4)()
-    lib.wf_launch_info.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    assert lib.wf_launch_info(*wavefront._layout_args(ws), 0, info) == 0
-    assert info[3] > 48 * 1024 and info[0] >= 1
+    for camera in (False, True):
+        info = wavefront.launch_info(ws, camera=camera)
+        assert info["blocks_per_sm"] >= 7 and info["threads"] == 128
+        assert info["grid"] == info["blocks_per_sm"] * info["sms"]
     o, d = chip_smoke.aimed_rays(scene, 8192, seed=2)
     o, d, alive = wavefront._rays(ws, torch.from_numpy(o).cuda(),
                                   torch.from_numpy(d).cuda())
@@ -274,25 +267,13 @@ def test_kernel_g64_shared_staging_on_gpu():
     n = render_wave._frame_B(128, 96)
     want = (wavefront.trace_plain(ws, o, d, alive),
             wavefront.trace_camera_plain(ws, cam16, n, 128, 96, 4))
-    for entry, argtypes in ((lib.wf_trace, wavefront.K1.argtypes),
-                            (lib.wf_trace_camera,
-                             wavefront.K1_CAMERA.argtypes)):
-        entry.argtypes, entry.restype = argtypes, ctypes.c_int
-    for staged in (False, True):
-        k1, k1_camera = wavefront.K1.fn, wavefront.K1_CAMERA.fn
-        if staged:       # the staging build behind the same wrappers
-            wavefront.K1.fn, wavefront.K1_CAMERA.fn = (lib.wf_trace,
-                                                       lib.wf_trace_camera)
-        try:
-            got = (wavefront.trace(ws, o, d, alive),
-                   wavefront.trace_camera(ws, cam16, n, 128, 96, 4))
-            torch.cuda.synchronize()
-        finally:
-            wavefront.K1.fn, wavefront.K1_CAMERA.fn = k1, k1_camera
-        for w, g in zip(want, got):
-            for field, a, b in zip(("status", "t", "cell", "widx", "iters"),
-                                   w, g):
-                assert torch.equal(a, b), (field, staged)
+    got = (wavefront.trace(ws, o, d, alive),
+           wavefront.trace_camera(ws, cam16, n, 128, 96, 4))
+    torch.cuda.synchronize()
+    for mode, w, g in zip(("explicit", "camera"), want, got):
+        for field, a, b in zip(("status", "t", "cell", "widx", "iters"),
+                               w, g):
+            assert torch.equal(a, b), (field, mode)
 
 
 @pytest.mark.gpu

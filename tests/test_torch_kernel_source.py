@@ -1,9 +1,8 @@
 """The kernels' own sources on the CPU: the per-ray bodies that the GPU
 kernels run (csrc/wf_ray.cuh for K1 with its camera-mode ray derivation,
 its sort keys and its persistent schedule, emulated by a host loop of
-32-lane warps that take chunks of ray ids from a counter, hand a lane
-whose ray ended (or was dead) the chunk's next id, and write through the
-sort permutation,
+32-lane warps that take 32 ray ids at a time from a counter and write
+through the sort permutation,
 csrc/esvo_ray.cuh for KE, csrc/brick_dda.cuh for K2,
 csrc/brick_round.cuh for K3) compiled with g++, their CUDA qualifiers
 defined away, into ctypes libraries, against their plain PyTorch versions
@@ -41,14 +40,12 @@ def host_trace():
     if shutil.which("g++") is None:
         pytest.skip("g++ not available")
 
-    def run(ws, o, d, alive, order=None, chunk=None):
+    def run(ws, o, d, alive, order=None):
         """K1's records over the rays taken in ``order`` (None: frame
-        order) by warps that take ``chunk`` ids at a time (None: the
-        kernel's CHUNK); every slot starts as a sentinel that no record
-        holds."""
-        flags = GXX_FLAGS + ((f"-DK1_CHUNK={chunk}",) if chunk else ())
+        order) by the emulated warps; every slot starts as a sentinel that
+        no record holds."""
         fn = kernel_build.load("wf_ray_host", ["wf_ray_host.cpp"], "g++",
-                               flags).wf_trace_host
+                               GXX_FLAGS).wf_trace_host
         fn.argtypes = wavefront.K1.argtypes[:-1]     # no stream argument
         fn.restype = ctypes.c_int
         B = o.shape[0]
@@ -120,20 +117,17 @@ def _scene_rays(name, n=2048):
                                  act))
 
 
-@pytest.mark.parametrize("chunk", [None, 96])
 @pytest.mark.parametrize("name", ["sphere-64", "terrain-64", "g64",
                                   "paged-4096"])
-def test_cuda_source_key_order_equals_plain(host_trace, name, chunk):
+def test_cuda_source_key_order_equals_plain(host_trace, name):
     """The persistent schedule over the rays in key order (ray_order on
     the CPU): each record lands at its ray's own slot, equal in every
-    field to trace_plain in frame order.  With 96-id chunks a lane whose
-    ray ended takes the next ray of its warp's chunk (the refill that
-    measured slower on the card, PERF.md)."""
+    field to trace_plain in frame order."""
     ws, o, d, alive = _scene_rays(name)
     order = wavefront.ray_order(ws, o, d, alive)
     assert not torch.equal(order, torch.arange(o.shape[0]))
     want = wavefront.trace_plain(ws, o, d, alive)
-    got = host_trace(ws, o, d, alive, order, chunk)
+    got = host_trace(ws, o, d, alive, order)
     for field, a, b in zip(("status", "t", "cell", "widx", "iters"), want,
                            got):
         assert torch.equal(a, b), field

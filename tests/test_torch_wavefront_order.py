@@ -5,15 +5,13 @@ tail, and that the order changes no record.
 K1 traces lane k's ray order[k] and writes its record to slot order[k];
 here trace_plain run over the rays in key order and written back through
 the permutation must equal trace_plain in frame order in every field
-(tolerance: equality, NaN equal to NaN), and intersect_wavefront on the
-CPU must still meet the JAX package's intersect_wavefront (interpret
-mode) at tests/test_wavefront.py::_compare's floors, as
-tests/test_torch_wavefront.py holds it: hit agreement >= 0.995, strict
-fields (value, depth, t within 2e-4, normal within 1e-5) >= 0.98.  The
-scenes: sphere-64, terrain-64 (G = 2), the G = 64 scene and the sparse
-paged 4096^3 scene of chip_smoke.py."""
+(tolerance: equality, NaN equal to NaN).  The CPU path traces in frame
+order, so its parity with the JAX package's intersect_wavefront on these
+scenes is tests/test_torch_wavefront.py's and
+tests/test_torch_bigworld_trace.py's.  The scenes: sphere-64, terrain-64
+(G = 2), the G = 64 scene and the sparse paged 4096^3 scene of
+chip_smoke.py."""
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -21,26 +19,22 @@ import torch
 import chip_smoke
 from conftest import make_sphere_voxels, make_terrain_voxels
 from svo_raytracer_tpu.core import build_np
-from svo_raytracer_tpu.ops import brick_scene as jbrick_scene
-from svo_raytracer_tpu.ops import wavefront as jwavefront
 from svo_raytracer_torch.ops import brick_scene, wavefront
-from test_torch_bigworld import _jax_scene
 from test_traverse_batch import random_rays
 
 SCENES = ("sphere-64", "terrain-64", "g64", "paged-4096")
 FIELDS = ("status", "t", "cell", "widx", "iters")
 
 
-def _scenes(name):
-    """(port BrickScene, JAX BrickScene) of a test scene."""
-    if name in ("g64", "paged-4096"):
-        scene = (chip_smoke.g64_scene() if name == "g64"
-                 else chip_smoke.sparse_paged_scene())
-        return scene, _jax_scene(scene)
+def _scene(name):
+    """The port's BrickScene of a test scene."""
+    if name == "g64":
+        return chip_smoke.g64_scene()
+    if name == "paged-4096":
+        return chip_smoke.sparse_paged_scene()
     vox = (make_sphere_voxels(64, radius=24) if name == "sphere-64"
            else make_terrain_voxels(64, seed=7))
-    tree = build_np.build_octree_np(vox)
-    return brick_scene.brickify(tree), jbrick_scene.brickify(tree)
+    return brick_scene.brickify(build_np.build_octree_np(vox))
 
 
 def _world_rays(scene, n, seed):
@@ -55,7 +49,7 @@ def _world_rays(scene, n, seed):
 
 def _voxel_rays(name, n=1024, seed=31):
     """(WaveScene, voxel-unit rays) with non-finite and inactive rays."""
-    scene, _ = _scenes(name)
+    scene = _scene(name)
     ws = wavefront.prepare(scene, "cpu")
     o, d = _world_rays(scene, n, seed)
     o[::97] = np.nan
@@ -80,7 +74,7 @@ def _morton(x, y, z):
 def test_key_layout(name):
     """Octant (x, y, z set where d >= 0) in bits 24-26 above the Morton
     code of the origin's brick cell, clamped into the grid."""
-    scene, _ = _scenes(name)
+    scene = _scene(name)
     ws = wavefront.prepare(scene, "cpu")
     G = ws.grid_size
     rng = np.random.default_rng(len(name))
@@ -135,33 +129,3 @@ def test_key_order_trace_equals_frame_order(name):
         assert bool(same.all()), field
     hit = (want[0] == wavefront.MIXED) | (want[0] == wavefront.UNIFORM)
     assert hit.any() and not hit.all()
-
-
-@pytest.mark.parametrize("name", SCENES)
-def test_intersect_matches_jax(name):
-    """intersect_wavefront on the CPU against the JAX package's, at
-    _compare's floors; node and iters equal on the flat worlds, where no
-    JAX ray punts off a page."""
-    scene, jscene = _scenes(name)
-    o, d = _world_rays(scene, 128, seed=41)
-    got = wavefront.intersect_wavefront(wavefront.prepare(scene, "cpu"),
-                                        torch.from_numpy(o),
-                                        torch.from_numpy(d))
-    ref = jwavefront.intersect_wavefront(jwavefront.prepare(jscene),
-                                         jnp.asarray(o), jnp.asarray(d),
-                                         interpret=True)
-    got = {k: v.numpy() for k, v in got._asdict().items()}
-    ref = {k: np.asarray(v) for k, v in ref._asdict().items()}
-    both = ref["hit"] & got["hit"]
-    strict = np.ones(both.shape, bool)
-    strict &= ~both | (ref["value"] == got["value"])
-    strict &= ~both | (ref["depth"] == got["depth"])
-    strict &= ~both | (np.abs(ref["t"] - got["t"]) <= 2e-4)
-    diff = np.abs(ref["normal"] - got["normal"]).max(-1)
-    strict &= ~both | (diff <= 1e-5) | np.isnan(diff)   # raw 555: NaN both
-    assert both.any()
-    assert (ref["hit"] == got["hit"]).mean() >= 0.995
-    assert strict[both].mean() >= 0.98
-    if name != "paged-4096":
-        assert np.array_equal(ref["iters"], got["iters"])
-        assert np.array_equal(ref["node"], got["node"])
