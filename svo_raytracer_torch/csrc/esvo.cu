@@ -1,18 +1,12 @@
-// Kernel KE: the ESVO octree traversal, one thread per ray.
+// Kernel KE: the ESVO octree traversal, one ray per lane.
 //
 // Replaces the XLA while_loop of svo_raytracer_tpu/ops/traverse.py::
 // intersect_octree (:415-423 over _make_step, :182-322); the JAX package
 // has no Pallas kernel for it.  The per-ray body is esvo_ray.cuh.
 //
-// What bounds it on Hopper: every step is one dependent load of a packed
-// node word (4 B) at a data-dependent address, so a thread waits on
-// memory latency each step.  A 1024^3 heightmap octree's table (tens of
-// millions of words) does not fit the 50 MB L2, but the upper levels that
-// every ray walks through do.  Rays of one warp take different numbers
-// of steps, so warps diverge and idle lanes wait for the longest ray;
-// the 2 x 23-entry stack lives in local memory.  This version does
-// nothing about either: no ray sorting, no persistent threads, no stack
-// in shared memory.
+// Variant build: the schedule (plain grid or persistent warps), the
+// stack's place and the launch bounds are template parameters, picked by
+// the entry point's `variant` argument and timed by scripts/ke_variants.py.
 //
 // Built by ops/kernel_build.py with nvcc -gencode arch=compute_90a,
 // code=sm_90a -O3 -fmad=false into a shared library with a plain C entry
@@ -26,49 +20,163 @@
 
 namespace {
 
-__global__ void __launch_bounds__(128)
-esvo_trace_kernel(const int32_t* __restrict__ packed,
-                  const float* __restrict__ origins,
-                  const float* __restrict__ dirs,
-                  const uint8_t* __restrict__ active, int n, int max_depth,
-                  int cone, int max_it, int stack_depth,
-                  float* __restrict__ f_out, int32_t* __restrict__ i_out) {
+constexpr int THREADS = 128;
+constexpr int CHUNK = 32;
+constexpr unsigned FULL = 0xFFFFFFFFu;
+
+struct Args {
+  const int32_t* __restrict__ packed;
+  const float* __restrict__ origins;
+  const float* __restrict__ dirs;
+  const uint8_t* __restrict__ active;
+  const int64_t* __restrict__ order;  // lane k traces order[k]; or null
+  int n, max_depth, cone, max_it, stack_depth;
+  int* counter;
+  float* __restrict__ f_out;
+  int32_t* __restrict__ i_out;
+};
+
+template <int STACK>
+__device__ inline void trace_one(const Args& a, int k, int32_t* col) {
+  const int i = a.order ? (int)a.order[k] : k;
+  const esvo::State s = esvo::trace_ray<STACK>(
+      a.packed, a.origins[3 * i], a.origins[3 * i + 1], a.origins[3 * i + 2],
+      a.dirs[3 * i], a.dirs[3 * i + 1], a.dirs[3 * i + 2], a.active[i] != 0,
+      a.max_depth, a.cone != 0, a.max_it, a.stack_depth, col, THREADS);
+  const int n = a.n;
+  // float fields: t_min, t_max, px, py, pz, scale_exp2 (planes of n)
+  a.f_out[i] = s.t_min;
+  a.f_out[n + i] = s.t_max;
+  a.f_out[2 * n + i] = s.px;
+  a.f_out[3 * n + i] = s.py;
+  a.f_out[4 * n + i] = s.pz;
+  a.f_out[5 * n + i] = s.scale_exp2;
+  // int fields: idx, parent, scale, iters, done
+  a.i_out[i] = s.idx;
+  a.i_out[n + i] = s.parent;
+  a.i_out[2 * n + i] = s.scale;
+  a.i_out[3 * n + i] = s.iters;
+  a.i_out[4 * n + i] = s.done;
+}
+
+template <int STACK, bool PERSIST, int MINB>
+__global__ void __launch_bounds__(THREADS, MINB) esvo_trace_kernel(Args a) {
+  extern __shared__ int32_t stack[];
+  int32_t* col = stack + threadIdx.x;
+  if (!PERSIST) {
+    const int k = blockIdx.x * blockDim.x + threadIdx.x;
+    if (k < a.n) trace_one<STACK>(a, k, col);
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  for (;;) {
+    int base = 0;
+    if (lane == 0) base = atomicAdd(a.counter, CHUNK);
+    base = __shfl_sync(FULL, base, 0);
+    if (base >= a.n) break;
+    if (base + lane < a.n) trace_one<STACK>(a, base + lane, col);
+  }
+}
+
+__global__ void __launch_bounds__(256)
+esvo_ray_key_kernel(const float* __restrict__ origins,
+                    const float* __restrict__ dirs,
+                    const uint8_t* __restrict__ active, int n, int level,
+                    int32_t* __restrict__ keys) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const esvo::State s = esvo::trace_ray(
-      packed, origins[3 * i], origins[3 * i + 1], origins[3 * i + 2],
-      dirs[3 * i], dirs[3 * i + 1], dirs[3 * i + 2], active[i] != 0,
-      max_depth, cone != 0, max_it, stack_depth);
-  // float fields: t_min, t_max, px, py, pz, scale_exp2 (planes of n)
-  f_out[i] = s.t_min;
-  f_out[n + i] = s.t_max;
-  f_out[2 * n + i] = s.px;
-  f_out[3 * n + i] = s.py;
-  f_out[4 * n + i] = s.pz;
-  f_out[5 * n + i] = s.scale_exp2;
-  // int fields: idx, parent, scale, iters, done
-  i_out[i] = s.idx;
-  i_out[n + i] = s.parent;
-  i_out[2 * n + i] = s.scale;
-  i_out[3 * n + i] = s.iters;
-  i_out[4 * n + i] = s.done;
+  keys[i] = esvo::ray_key(origins[3 * i], origins[3 * i + 1],
+                          origins[3 * i + 2], dirs[3 * i], dirs[3 * i + 1],
+                          dirs[3 * i + 2], active[i] != 0, level);
+}
+
+using KernelFn = void (*)(Args);
+
+struct Variant {
+  KernelFn kern;
+  int stack;
+  bool persist;
+};
+
+#define V(S, P, M) {esvo_trace_kernel<S, P, M>, S, P}
+const Variant VARIANTS[] = {
+    V(esvo::LOCAL, false, 1),   // 0: PR 3's stack, plain grid
+    V(esvo::PAIR, false, 12),   // 1
+    V(esvo::NODE, false, 12),   // 2
+    V(esvo::LPAIR, false, 1),   // 3
+    V(esvo::LNODE, false, 1),   // 4
+    V(esvo::LPAIR, false, 12),  // 5
+    V(esvo::LNODE, false, 12),  // 6
+    V(esvo::LOCAL, false, 12),  // 7
+    V(esvo::NODE, false, 1),    // 8
+    V(esvo::NODE, true, 12),    // 9
+};
+#undef V
+constexpr int N_VARIANTS = sizeof(VARIANTS) / sizeof(VARIANTS[0]);
+
+int stack_bytes(int stack, int stack_depth) {
+  if (esvo::in_local(stack)) return 0;
+  return stack_depth * THREADS * (esvo::node_only(stack) ? 4 : 8);
 }
 
 }  // namespace
 
+extern "C" int esvo_n_variants() { return N_VARIANTS; }
+
+// Resident blocks per SM of a variant at a stack depth, and the SM count.
+extern "C" int esvo_resident(int variant, int stack_depth, int* per_sm,
+                             int* sms) {
+  if (variant < 0 || variant >= N_VARIANTS) return 1;
+  const Variant& v = VARIANTS[variant];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, v.kern, THREADS, stack_bytes(v.stack, stack_depth));
+  return (int)e;
+}
+
 // packed: (n_nodes,) i32 words; origins, dirs: (n, 3) f32 world units;
-// active: (n,) u8.  f_out: (6, n) f32, i_out: (5, n) i32 (field order in
-// esvo_trace_kernel).  Returns the cudaError_t of the launch (0 on success).
+// active: (n,) u8; order: (n,) i64 permutation or null; counter: one i32
+// of scratch.  f_out: (6, n) f32, i_out: (5, n) i32 (field order in
+// trace_one).  Returns the cudaError_t of the launch (0 on success).
 extern "C" int esvo_trace(const int32_t* packed, const float* origins,
-                          const float* dirs, const uint8_t* active, int n,
-                          int max_depth, int cone, int max_it,
-                          int stack_depth, float* f_out, int32_t* i_out,
+                          const float* dirs, const uint8_t* active,
+                          const int64_t* order, int n, int max_depth,
+                          int cone, int max_it, int stack_depth, int* counter,
+                          float* f_out, int32_t* i_out, int variant,
                           void* stream) {
   if (n <= 0) return 0;
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
-  esvo_trace_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      packed, origins, dirs, active, n, max_depth, cone, max_it,
-      stack_depth, f_out, i_out);
+  if (variant < 0 || variant >= N_VARIANTS) return 1;
+  const Variant& v = VARIANTS[variant];
+  const cudaStream_t st = (cudaStream_t)stream;
+  const Args a = {packed, origins, dirs, active, order, n, max_depth, cone,
+                  max_it, stack_depth, counter, f_out, i_out};
+  const int smem = stack_bytes(v.stack, stack_depth);
+  int blocks = (n + THREADS - 1) / THREADS;
+  if (v.persist) {
+    int per_sm = 0, sms = 0;
+    int rc = esvo_resident(variant, stack_depth, &per_sm, &sms);
+    if (rc != 0) return rc;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    if (per_sm * sms < blocks) blocks = per_sm * sms;
+    cudaError_t e = cudaMemsetAsync(counter, 0, sizeof(int), st);
+    if (e != cudaSuccess) return (int)e;
+  }
+  v.kern<<<blocks, THREADS, smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The sort keys of n rays (esvo_ray.cuh::ray_key).
+extern "C" int esvo_ray_keys(const float* origins, const float* dirs,
+                             const uint8_t* active, int n, int level,
+                             int32_t* keys, void* stream) {
+  if (n <= 0) return 0;
+  const int threads = 256;
+  esvo_ray_key_kernel<<<(n + threads - 1) / threads, threads, 0,
+                        (cudaStream_t)stream>>>(origins, dirs, active, n,
+                                                level, keys);
   return (int)cudaGetLastError();
 }

@@ -30,6 +30,7 @@ import torch
 from ..utils import constants as C
 from . import kernel_build
 from .hit import HitResult
+from .wavefront import spread3
 
 MAX_SCALE = C.MAX_SCALE
 EPS = float(np.float32(C.EPSILON))
@@ -41,7 +42,14 @@ I_FIELDS = ("idx", "parent", "scale", "iters", "done")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KE = kernel_build.Kernel("esvo", ["esvo.cu"], "esvo_trace",
-                         [_P] * 4 + [_I] * 5 + [_P] * 3)
+                         [_P] * 5 + [_I] * 5 + [_P] * 3 + [_I, _P])
+KE_KEYS = kernel_build.Kernel("esvo", ["esvo.cu"], "esvo_ray_keys",
+                              [_P] * 3 + [_I] * 2 + [_P] * 2)
+
+KEY_DEAD = 0x7FFFFFFF   # sort key of a dead ray (csrc/esvo_ray.cuh)
+OCT_SHIFT = 24          # the octant's bits sit above a 24-bit Morton code
+KEY_LEVEL = 5           # the key's origin cells: 2^5 per edge of the cube
+VARIANT = 1             # the kernel's schedule and stack (variant build)
 
 
 def make_packed_table(tree) -> torch.Tensor:
@@ -267,13 +275,73 @@ def intersect_plain(packed, o, d, alive, max_depth=C.MAX_DEPTH,
     return state
 
 
+def ray_keys_plain(o, d, alive, level=KEY_LEVEL):
+    """Plain PyTorch version of KE's key kernel: the int32 sort key of each
+    world-space ray (csrc/esvo_ray.cuh::ray_key).  Bits 24-26 hold the
+    direction octant as _setup computes it (bit 0 x, 1 y, 2 z; set where
+    the clamped component is > 0), bits 0-23 the Morton code of the octree
+    cell of side 2^-level holding the origin, floor((o - 1) * 2^level)
+    clamped into the cube (bits 3i+2, 3i+1, 3i are bit i of x, y, z).
+    Rays not active or not finite take KEY_DEAD and sort to the tail."""
+    k = _ray_consts(o, d, alive)
+    live = ~k["dead0"]
+    ov = torch.where(live[:, None], o, torch.ones_like(o))
+    cells = 1 << level
+    c = torch.floor((ov - 1.0) * float(cells)).clamp(0, cells - 1).to(
+        torch.int32)
+    code = ((spread3(c[:, 0]) << 2) | (spread3(c[:, 1]) << 1)
+            | spread3(c[:, 2]))
+    key = (k["octant"] << OCT_SHIFT) | code
+    return torch.where(live, key, torch.full_like(key, KEY_DEAD))
+
+
+def ray_keys_kernel(o, d, alive, level=KEY_LEVEL):
+    """KE's key kernel on the card: same contract as
+    :func:`ray_keys_plain`."""
+    _check_rays(o, d, alive, "cuda")
+    B = o.shape[0]
+    keys = torch.empty(B, dtype=torch.int32, device=o.device)
+    if B == 0:
+        return keys
+    fn = KE_KEYS.load()
+    act = alive.to(torch.uint8)
+    with torch.cuda.device(o.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(o.data_ptr(), d.data_ptr(), act.data_ptr(), B, int(level),
+                keys.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"KE key launch failed with cudaError {rc}")
+    KE_KEYS.launches += 1
+    return keys
+
+
+def ray_keys(o, d, alive, level=KEY_LEVEL):
+    """The rays' sort keys: the key kernel for CUDA tensors, its plain
+    version for CPU tensors."""
+    if o.device.type == "cpu":
+        _check_rays(o, d, alive, "cpu")
+        return ray_keys_plain(o, d, alive, level)
+    return ray_keys_kernel(o, d, alive, level)
+
+
+def ray_order(o, d, alive, level=KEY_LEVEL):
+    """The (B,) int64 permutation that KE traces rays in: by
+    :func:`ray_keys` (octant, then origin cell), dead rays last; the sort
+    is torch.sort."""
+    return torch.sort(ray_keys(o, d, alive, level)).indices
+
+
 def intersect_kernel(packed, o, d, alive, max_depth=C.MAX_DEPTH,
                      cone_trace=False,
                      max_iterations=C.MAX_RAYCAST_ITERATIONS,
-                     stack_depth=C.MAX_DEPTH):
-    """Kernel KE on the card: same contract as :func:`intersect_plain`."""
+                     stack_depth=C.MAX_DEPTH, order=None, variant=None):
+    """Kernel KE on the card: same contract as :func:`intersect_plain`.
+    Lane k traces ray ``order[k]`` (a (B,) int64 permutation on the rays'
+    device, e.g. :func:`ray_order`), or ray k when ``order`` is None; the
+    records land at the rays' own slots either way."""
     _check(packed, o, d, alive, "cuda")
     B = o.shape[0]
+    _check_order(order, B, o.device)
     f_out = torch.empty((len(F_FIELDS), B), dtype=torch.float32,
                         device=o.device)
     i_out = torch.empty((len(I_FIELDS), B), dtype=torch.int32,
@@ -281,12 +349,16 @@ def intersect_kernel(packed, o, d, alive, max_depth=C.MAX_DEPTH,
     if B:
         fn = KE.load()
         act = alive.to(torch.uint8)
+        counter = torch.empty(1, dtype=torch.int32, device=o.device)
         with torch.cuda.device(o.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc = fn(packed.data_ptr(), o.data_ptr(), d.data_ptr(),
-                    act.data_ptr(), B, int(max_depth), int(bool(cone_trace)),
-                    int(max_iterations), int(stack_depth), f_out.data_ptr(),
-                    i_out.data_ptr(), stream)
+                    act.data_ptr(),
+                    None if order is None else order.data_ptr(), B,
+                    int(max_depth), int(bool(cone_trace)),
+                    int(max_iterations), int(stack_depth),
+                    counter.data_ptr(), f_out.data_ptr(), i_out.data_ptr(),
+                    VARIANT if variant is None else int(variant), stream)
         if rc != 0:
             raise RuntimeError(f"KE launch failed with cudaError {rc}")
         KE.launches += 1
@@ -295,32 +367,60 @@ def intersect_kernel(packed, o, d, alive, max_depth=C.MAX_DEPTH,
     return rec
 
 
-def _check(packed, o, d, alive, device_type):
+def _check_order(order, B, device):
+    if order is not None and (order.shape != (B,)
+                              or order.dtype != torch.int64
+                              or order.device != device
+                              or not order.is_contiguous()):
+        raise ValueError("order must be a contiguous (B,) int64 tensor on "
+                         "the rays' device")
+
+
+def _check_rays(o, d, alive, device_type):
     B = o.shape[0]
     if o.shape != (B, 3) or d.shape != (B, 3) or alive.shape != (B,):
         raise ValueError(f"ray shapes {tuple(o.shape)} {tuple(d.shape)} "
                          f"{tuple(alive.shape)}")
     if o.dtype != torch.float32 or d.dtype != torch.float32:
         raise ValueError("origins and directions must be float32")
-    if alive.dtype != torch.bool or packed.dtype != torch.int32:
-        raise ValueError("alive must be bool and packed int32")
+    if alive.dtype != torch.bool:
+        raise ValueError("alive must be bool")
     if o.device.type != device_type:
         raise ValueError(f"rays on {o.device}, expected {device_type}")
-    for a in (d, alive, packed):
+    for a in (d, alive):
         if a.device != o.device:
             raise ValueError(f"tensor on {a.device}, rays on {o.device}")
-    if not all(a.is_contiguous() for a in (packed, o, d, alive)):
-        raise ValueError("ray tensors and the packed table must be "
-                         "contiguous")
+    if not all(a.is_contiguous() for a in (o, d, alive)):
+        raise ValueError("ray tensors must be contiguous")
 
 
-def trace(packed, o, d, alive, **kw):
-    """The decode state of each ray: kernel KE for CUDA tensors, its plain
-    version for CPU tensors."""
-    if o.device.type == "cpu":
-        _check(packed, o, d, alive, "cpu")
+def _check(packed, o, d, alive, device_type):
+    _check_rays(o, d, alive, device_type)
+    if packed.dtype != torch.int32:
+        raise ValueError("packed must be int32")
+    if packed.device != o.device:
+        raise ValueError(f"tensor on {packed.device}, rays on {o.device}")
+    if not packed.is_contiguous():
+        raise ValueError("the packed table must be contiguous")
+
+
+def trace(packed, o, d, alive, order=None, **kw):
+    """The decode state of each ray: kernel KE over the rays in ``order``
+    (None: frame order) for CUDA tensors; for CPU tensors its plain
+    version over the rays in the same order, written back to the rays'
+    own slots."""
+    if o.device.type != "cpu":
+        return intersect_kernel(packed, o, d, alive, order=order, **kw)
+    _check(packed, o, d, alive, "cpu")
+    _check_order(order, o.shape[0], o.device)
+    if order is None:
         return intersect_plain(packed, o, d, alive, **kw)
-    return intersect_kernel(packed, o, d, alive, **kw)
+    rec = intersect_plain(packed, o[order], d[order], alive[order], **kw)
+    out = {}
+    for f, v in rec.items():
+        out[f] = torch.empty_like(v)
+        out[f][order] = v
+    return out
 
 
 def _decode(tree, rec, o, d, alive) -> HitResult:
@@ -381,12 +481,14 @@ def intersect_octree(tree, origin, direction, max_depth=C.MAX_DEPTH,
                      cone_trace=False,
                      max_iterations=C.MAX_RAYCAST_ITERATIONS, active=None,
                      stack_depth=C.MAX_DEPTH, packed=None,
-                     profile=None) -> HitResult:
+                     profile=None, order=None) -> HitResult:
     """Trace (B,3) world-space rays through a DeviceOctree.
 
     Inputs lie on the tree's device.  ``active`` (B,) masks rays out
     (they return as misses, as do non-finite rays); ``packed`` is the
-    cached :func:`make_packed_table`.  ``profile`` (a dict) receives the
+    cached :func:`make_packed_table`; ``order`` the (B,) int64
+    permutation the rays are traced in (:func:`ray_order`; None: frame
+    order), which changes no result.  ``profile`` (a dict) receives the
     counts of traced rays, hits, rays still active at the iteration cap
     and KE launches (reading them synchronizes).  Returns a HitResult
     whose ``node`` is the SoA index of the hit node."""
@@ -400,7 +502,7 @@ def intersect_octree(tree, origin, direction, max_depth=C.MAX_DEPTH,
         packed = make_packed_table(tree)
     o, d, alive = _rays(tree, origin, direction, active)
     launches = KE.launches
-    rec = trace(packed, o, d, alive, max_depth=max_depth,
+    rec = trace(packed, o, d, alive, order=order, max_depth=max_depth,
                 cone_trace=cone_trace, max_iterations=max_iterations,
                 stack_depth=stack_depth)
     res = _decode(tree, rec, o, d, alive)
