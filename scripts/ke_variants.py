@@ -130,10 +130,10 @@ def candidate_orders(o, d, alive, live, dev):
     from svo_raytracer_torch.ops import traverse
     out = {"frame": (None, 0.0)}
     tiles = {f"tile {tw}x{th}": tile_order(cs.W, cs.H, dev, tw, th)
-             for tw, th in ((8, 4), (4, 8), (16, 2))}
+             for tw, th in ((8, 4), (16, 2))}
     for name, t in tiles.items():
         out[name] = (t, 0.0)
-    for L in (5, 8):
+    for L in (8,):
         perm, ms = cs.timed(lambda L=L: traverse.ray_order(o, d, alive, L),
                             REPS)
         kk = traverse.ray_keys_kernel(o, d, alive, L)
@@ -158,9 +158,7 @@ def candidate_orders(o, d, alive, live, dev):
         return fn
 
     t84 = tiles["tile 8x4"]
-    for name, base, what in (("live first", None, "dead"),
-                             ("tile+live", t84, "dead"),
-                             ("octant", None, "oct"),
+    for name, base, what in (("octant", None, "oct"),
                              ("tile+octant", t84, "oct")):
         perm, ms = cs.timed(small(base, what), REPS)
         out[name] = (perm.contiguous(), ms)

@@ -20,7 +20,6 @@
 
 namespace {
 
-constexpr int THREADS = 128;
 constexpr int CHUNK = 32;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 
@@ -37,12 +36,12 @@ struct Args {
 };
 
 template <int STACK>
-__device__ inline void trace_one(const Args& a, int k, int32_t* col) {
-  const int i = a.order ? (int)a.order[k] : k;
+__device__ inline void trace_one(const Args& a, int i, int32_t* col,
+                                 int stride) {
   const esvo::State s = esvo::trace_ray<STACK>(
       a.packed, a.origins[3 * i], a.origins[3 * i + 1], a.origins[3 * i + 2],
       a.dirs[3 * i], a.dirs[3 * i + 1], a.dirs[3 * i + 2], a.active[i] != 0,
-      a.max_depth, a.cone != 0, a.max_it, a.stack_depth, col, THREADS);
+      a.max_depth, a.cone != 0, a.max_it, a.stack_depth, col, stride);
   const int n = a.n;
   // float fields: t_min, t_max, px, py, pz, scale_exp2 (planes of n)
   a.f_out[i] = s.t_min;
@@ -59,13 +58,53 @@ __device__ inline void trace_one(const Args& a, int k, int32_t* col) {
   a.i_out[4 * n + i] = s.done;
 }
 
-template <int STACK, bool PERSIST, int MINB>
-__global__ void __launch_bounds__(THREADS, MINB) esvo_trace_kernel(Args a) {
+__device__ inline int ray_of(const Args& a, int k) {
+  return a.order ? (int)a.order[k] : k;
+}
+
+// Bin of a ray for the block's reorder: its octant, 8 when dead.
+__device__ inline int bin_of(const Args& a, int i) {
+  return esvo::ray_bin(a.origins[3 * i], a.origins[3 * i + 1],
+                       a.origins[3 * i + 2], a.dirs[3 * i],
+                       a.dirs[3 * i + 1], a.dirs[3 * i + 2],
+                       a.active[i] != 0);
+}
+
+template <int STACK, bool PERSIST, int MINB, int T, bool BIN>
+__global__ void __launch_bounds__(T, MINB) esvo_trace_kernel(Args a) {
   extern __shared__ int32_t stack[];
   int32_t* col = stack + threadIdx.x;
+  if (BIN) {
+    // the block's T ids, regrouped by bin (octant, dead last) through a
+    // counting sort in shared memory, then one ray per thread
+    __shared__ int ids[T];
+    __shared__ int cnt[9], start[9];
+    const int k = blockIdx.x * T + threadIdx.x;
+    if (threadIdx.x < 9) cnt[threadIdx.x] = 0;
+    __syncthreads();
+    int i = 0, b = 0, pos = 0;
+    if (k < a.n) {
+      i = ray_of(a, k);
+      b = bin_of(a, i);
+      pos = atomicAdd(&cnt[b], 1);
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int sum = 0;
+      for (int j = 0; j < 9; ++j) {
+        start[j] = sum;
+        sum += cnt[j];
+      }
+    }
+    __syncthreads();
+    if (k < a.n) ids[start[b] + pos] = i;
+    __syncthreads();
+    if (k < a.n) trace_one<STACK>(a, ids[threadIdx.x], col, T);
+    return;
+  }
   if (!PERSIST) {
-    const int k = blockIdx.x * blockDim.x + threadIdx.x;
-    if (k < a.n) trace_one<STACK>(a, k, col);
+    const int k = blockIdx.x * T + threadIdx.x;
+    if (k < a.n) trace_one<STACK>(a, ray_of(a, k), col, T);
     return;
   }
   const int lane = threadIdx.x & 31;
@@ -74,7 +113,7 @@ __global__ void __launch_bounds__(THREADS, MINB) esvo_trace_kernel(Args a) {
     if (lane == 0) base = atomicAdd(a.counter, CHUNK);
     base = __shfl_sync(FULL, base, 0);
     if (base >= a.n) break;
-    if (base + lane < a.n) trace_one<STACK>(a, base + lane, col);
+    if (base + lane < a.n) trace_one<STACK>(a, ray_of(a, base + lane), col, T);
   }
 }
 
@@ -96,27 +135,27 @@ struct Variant {
   KernelFn kern;
   int stack;
   bool persist;
+  int threads;
 };
 
-#define V(S, P, M) {esvo_trace_kernel<S, P, M>, S, P}
+#define V(S, P, M) {esvo_trace_kernel<S, P, M, 128, false>, S, P, 128}
+#define B(S, M, T) {esvo_trace_kernel<S, false, M, T, true>, S, false, T}
 const Variant VARIANTS[] = {
-    V(esvo::LOCAL, false, 1),   // 0: PR 3's stack, plain grid
-    V(esvo::PAIR, false, 12),   // 1
-    V(esvo::NODE, false, 12),   // 2
-    V(esvo::LPAIR, false, 1),   // 3
-    V(esvo::LNODE, false, 1),   // 4
-    V(esvo::LPAIR, false, 12),  // 5
-    V(esvo::LNODE, false, 12),  // 6
-    V(esvo::LOCAL, false, 12),  // 7
-    V(esvo::NODE, false, 1),    // 8
-    V(esvo::NODE, true, 12),    // 9
+    V(esvo::LNODE, false, 12),  // 0: round 2's best
+    B(esvo::LNODE, 12, 128),    // 1: + the block's rays binned by octant
+    B(esvo::LNODE, 6, 256),     // 2
+    B(esvo::LNODE, 3, 512),     // 3
+    V(esvo::LPAIR, false, 12),  // 4
+    V(esvo::LOCAL, false, 1),   // 5: PR 3's stack
+    V(esvo::NODE, false, 12),   // 6
 };
 #undef V
+#undef B
 constexpr int N_VARIANTS = sizeof(VARIANTS) / sizeof(VARIANTS[0]);
 
-int stack_bytes(int stack, int stack_depth) {
-  if (esvo::in_local(stack)) return 0;
-  return stack_depth * THREADS * (esvo::node_only(stack) ? 4 : 8);
+int stack_bytes(const Variant& v, int stack_depth) {
+  if (esvo::in_local(v.stack)) return 0;
+  return stack_depth * v.threads * (esvo::node_only(v.stack) ? 4 : 8);
 }
 
 }  // namespace
@@ -134,7 +173,7 @@ extern "C" int esvo_resident(int variant, int stack_depth, int* per_sm,
   e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, v.kern, THREADS, stack_bytes(v.stack, stack_depth));
+      per_sm, v.kern, v.threads, stack_bytes(v, stack_depth));
   return (int)e;
 }
 
@@ -154,8 +193,8 @@ extern "C" int esvo_trace(const int32_t* packed, const float* origins,
   const cudaStream_t st = (cudaStream_t)stream;
   const Args a = {packed, origins, dirs, active, order, n, max_depth, cone,
                   max_it, stack_depth, counter, f_out, i_out};
-  const int smem = stack_bytes(v.stack, stack_depth);
-  int blocks = (n + THREADS - 1) / THREADS;
+  const int smem = stack_bytes(v, stack_depth);
+  int blocks = (n + v.threads - 1) / v.threads;
   if (v.persist) {
     int per_sm = 0, sms = 0;
     int rc = esvo_resident(variant, stack_depth, &per_sm, &sms);
@@ -165,7 +204,7 @@ extern "C" int esvo_trace(const int32_t* packed, const float* origins,
     cudaError_t e = cudaMemsetAsync(counter, 0, sizeof(int), st);
     if (e != cudaSuccess) return (int)e;
   }
-  v.kern<<<blocks, THREADS, smem, st>>>(a);
+  v.kern<<<blocks, v.threads, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 

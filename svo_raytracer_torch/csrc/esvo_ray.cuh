@@ -82,6 +82,19 @@ __host__ __device__ inline float clamp_dir(float v) {
 // that are not active or not finite take KEY_DEAD and sort to the tail.
 constexpr int32_t KEY_DEAD = 0x7FFFFFFF;
 
+// Octant of a live ray as trace_ray's setup computes it, 8 for a dead one
+// (not active or not finite).
+__host__ __device__ inline int ray_bin(float ox, float oy, float oz,
+                                       float dx, float dy, float dz,
+                                       bool active) {
+  if (!(active && isfinite(ox) && isfinite(oy) && isfinite(oz) &&
+        isfinite(dx) && isfinite(dy) && isfinite(dz))) {
+    return 8;
+  }
+  return (clamp_dir(dx) > 0.0f ? 1 : 0) | (clamp_dir(dy) > 0.0f ? 2 : 0) |
+         (clamp_dir(dz) > 0.0f ? 4 : 0);
+}
+
 __host__ __device__ inline uint32_t spread3(uint32_t v) {
   v = (v | (v << 16)) & 0x030000FFu;
   v = (v | (v << 8)) & 0x0300F00Fu;
