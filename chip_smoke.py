@@ -41,7 +41,10 @@ kernels KE (the per-ray ESVO traversal) and K2 (the skip grid's coarse
 DDA).  Both are held equal to their plain versions
 (traverse.intersect_plain, brick_dda.coarse_dda_plain) on small scenes (KE
 also cut at a depth below the trees' and cone-traced), on sampled rays of
-the world and on every segment of each skip-grid frame.
+the world and on every segment of each skip-grid frame, KE in the order
+the render traces it (the image's 8x4 pixel tiles; the mode-0 bounce in
+the binned schedule, and again in ray order).  KE's two kernels-line
+entries split its launches: mode-2 segments, and cone-traced bounces.
 
 Each check's bound counts the ray inputs and records once, the distinct
 table words its plain version gathers, and its steps' operations.
@@ -425,16 +428,27 @@ class Agreement(Held):
                                      f"trace_plain on {diff}")
 
 
-def hold_ke(name, packed, o, d, alive, **kw):
-    """KE vs traverse.intersect_plain; steps are the ESVO iterations."""
+def hold_ke(name, packed, o, d, alive, order=None, **kw):
+    """KE vs traverse.intersect_plain, the kernel over the rays in
+    ``order`` (a render's tile order, or None: ray order; cone-traced sets
+    take the binned schedule); steps are the ESVO iterations.  Prints the
+    step rate."""
     from svo_raytracer_torch.ops import traverse as tr
     o, d, alive = o.contiguous(), d.contiguous(), alive.contiguous()
-    return Held("KE", name,
-                lambda: tr.intersect_kernel(packed, o, d, alive, **kw),
+    held = Held("KE", name,
+                lambda: tr.intersect_kernel(packed, o, d, alive, order=order,
+                                            **kw),
                 lambda: tr.intersect_plain(packed, o, d, alive, **kw),
                 o.shape[0] * (12 + 12 + 1 + 4 * (len(tr.F_FIELDS)
                                                  + len(tr.I_FIELDS))),
                 [packed], lambda r: int(r["iters"].sum()))
+    held.steps = int(held.rec["iters"].sum())
+    held.rate = held.steps / held.ms / 1e6       # G steps per s
+    live = int((held.rec["iters"] > 0).sum())
+    say(f"    {'tile' if order is not None else 'ray'} order"
+        f"{', binned' if kw.get('cone_trace') else ''}: steps per traced "
+        f"ray {held.steps / max(live, 1):.1f}, {held.rate:.1f} G steps/s")
+    return held
 
 
 def hold_k2(name, tab, G, o, d, alive):
@@ -715,11 +729,14 @@ def esvo_frames(tree, packed, tabs, cam5):
 def esvo_segment_checks(tree, packed, tabs, cam5):
     """KE and K2 against their plain versions on every segment of one frame
     of each skip-grid configuration (their inputs recorded as
-    render_image makes them).  Returns {label: (KE checks, K2 checks)}.
-    Gates that K2 marches (takes steps) on the G = 64 frame."""
+    render_image makes them; KE in the render's tile order, the bounce in
+    the binned schedule).  The mode-0 bounce segment is also traced in
+    ray order and held to the same records.  Returns ({label: (KE checks,
+    K2 checks)}, the bounce's ray-order check).  Gates that K2 marches
+    (takes steps) on the G = 64 frame."""
     import torch
     from svo_raytracer_torch.ops import brick_dda, shade, traverse
-    out = {}
+    out, bounce_ray_order = {}, None
     for label, kw in esvo_configs(tabs).items():
         if "skip_tab" not in kw:
             continue
@@ -729,6 +746,13 @@ def esvo_segment_checks(tree, packed, tabs, cam5):
         segs = ("primary", "shadow" if kw["render_mode"] == 2 else "bounce")
         ke = [hold_ke(f"{label} {n} segment", *a, **k)
               for n, (a, k) in zip(segs, ke_calls)]
+        if kw["render_mode"] == 0:
+            a, k = ke_calls[1]
+            bounce_ray_order = hold_ke(f"{label} bounce segment in ray order",
+                                       *a, **dict(k, order=None))
+            say(f"    bounce: tile order {ke[1].ms:.4f} ms, ray order "
+                f"{bounce_ray_order.ms:.4f} ms "
+                f"({bounce_ray_order.ms / ke[1].ms:.3f}x)")
         k2 = []
         for n, ((occ, o, d), k) in zip(segs, k2_calls):
             alive = k["active"]
@@ -741,7 +765,7 @@ def esvo_segment_checks(tree, packed, tabs, cam5):
     marched = int(out[f"mode-2 skip G={2 * SKIP_G}"][1][0].rec["steps"].sum())
     if marched == 0:
         raise AssertionError("K2 took no step on the G=64 primary segment")
-    return out
+    return out, bounce_ray_order
 
 
 def esvo_sampled_rays(tree, packed, cam5):
@@ -822,14 +846,21 @@ def esvo_phase(dev, size, cam5, ws):
     say("[esvo compare] KE and K2 vs their plain versions on the card")
     ke_small, k2_small = esvo_small_checks(dev)
     # ---- the main path, with the launch counts set to 0 just before
-    traverse.KE.launches = brick_dda.K2.launches = 0
+    traverse.KE.launches = traverse.KE_BINNED.launches = 0
+    brick_dda.K2.launches = 0
+    t_tiles = time.perf_counter()
+    traverse.tile_order(W, H, dev)
+    tile_ms = (time.perf_counter() - t_tiles) * 1e3
     frames = esvo_frames(tree, packed, tabs, cam5)
-    launches = dict(KE=traverse.KE.launches, K2=brick_dda.K2.launches)
-    say(f"[esvo main path {size}] launches {launches}")
+    launches = dict(KE=traverse.KE.launches,
+                    KE_binned=traverse.KE_BINNED.launches,
+                    K2=brick_dda.K2.launches)
+    say(f"[esvo main path {size}] launches {launches}; the tile order of "
+        f"{W}x{H} built once in {tile_ms:.1f} ms (host clock)")
     if min(launches.values()) < 1:
         raise AssertionError(f"the ESVO main path missed a kernel: "
                              f"{launches}")
-    seg = esvo_segment_checks(tree, packed, tabs, cam5)
+    seg, bounce_ray_order = esvo_segment_checks(tree, packed, tabs, cam5)
     sampled = hold_ke("world-16384", packed,
                       *esvo_sampled_rays(tree, packed, cam5))
     # a reading, not a gate: ESVO's primary hits vs the wavefront frame's
@@ -859,26 +890,48 @@ def esvo_phase(dev, size, cam5, ws):
         skip_reading=skip_reading,
         segment_ms={label: dict(KE=[c.ms for c in ke], K2=[c.ms for c in k2])
                     for label, (ke, k2) in seg.items()},
+        segment_ke_g_steps_per_s={label: [c.rate for c in ke]
+                                  for label, (ke, _) in seg.items()},
+        bounce_ray_order_ms=bounce_ray_order.ms, tile_order_build_ms=tile_ms,
         segment_plain_ms={label: dict(KE=[c.plain_ms for c in ke],
                                       K2=[c.plain_ms for c in k2])
                           for label, (ke, k2) in seg.items()})
     ke_seg = [c for ke, _ in seg.values() for c in ke]
     k2_seg = [c for _, k2 in seg.values() for c in k2]
+    bounce = seg[f"mode-0 gi-1 skip G={SKIP_G}"][0][1]
+    cone_small = ke_small[2::3]          # the cone-traced small sets
+    plain_checks = ([c for c in ke_small if c not in cone_small]
+                    + [c for c in ke_seg if c is not bounce] + [sampled])
     G2 = 2 * SKIP_G
+    mode2 = dict(kernel_entry(
+        f"KE per-ray ESVO traversal, {size}^3 octree, mode-2 segments",
+        "svo_raytracer_torch/csrc/esvo.cu",
+        "svo_raytracer_tpu/ops/traverse.py:382",
+        launches["KE"] - launches["KE_binned"],
+        seg[f"mode-2 skip G={SKIP_G}"][0], plain_checks),
+        tpu_kernel="none: an XLA while_loop (traverse.py:415-423), no "
+                   "Pallas counterpart")
+    binned = dict(kernel_entry(
+        f"KE per-ray ESVO traversal, {size}^3 octree, cone-traced bounce "
+        f"segments (binned schedule)", "svo_raytracer_torch/csrc/esvo.cu",
+        "svo_raytracer_tpu/ops/traverse.py:382", launches["KE_binned"],
+        [bounce], cone_small + [bounce, bounce_ray_order]),
+        tpu_kernel=mode2["tpu_kernel"])
     kernels = [
         kernel_entry(f"K2 skip-grid coarse DDA, G={G2} mode-2 segments",
                      "svo_raytracer_torch/csrc/brick_dda.cu",
                      "svo_raytracer_tpu/ops/brick_dda.py:85",
                      launches["K2"], seg[f"mode-2 skip G={G2}"][1],
                      k2_small + k2_seg),
-        dict(kernel_entry(f"KE per-ray ESVO traversal, {size}^3 octree, "
-                          f"mode-2 segments",
-                          "svo_raytracer_torch/csrc/esvo.cu",
-                          "svo_raytracer_tpu/ops/traverse.py:382",
-                          launches["KE"], seg[f"mode-2 skip G={SKIP_G}"][0],
-                          ke_small + ke_seg + [sampled]),
-             tpu_kernel="none: an XLA while_loop (traverse.py:415-423), "
-                        "no Pallas counterpart")]
+        mode2, binned]
+    say(f"[esvo {size}] KE's excess as PR 5 counted it (all {launches['KE']} "
+        f"launches x (mode-2 line ms - its bound)): "
+        f"{launches['KE'] * (mode2['ms'] - mode2['bound_ms']):.1f} ms; by "
+        f"line: mode-2 "
+        f"{mode2['launches'] * (mode2['ms'] - mode2['bound_ms']):.1f}, "
+        f"bounce {binned['launches'] * (binned['ms'] - binned['bound_ms']):.1f}"
+        f" ms; ordering: the cached tile permutation, no keys or sort per "
+        f"segment")
     del tree, packed, tabs
     torch.cuda.empty_cache()
     say(f"[esvo {size}] phase took {time.time() - t0:.1f} s")
@@ -1322,10 +1375,14 @@ def print_ranking(kernels, order_ms):
     rank = {k["name"]: k["launches"] * (k["ms"] - k["bound_ms"])
             for k in kernels}
     k1 = sum(v for n, v in rank.items() if n.startswith("K1 wavefront"))
+    ke = sum(v for n, v in rank.items() if n.startswith("KE per-ray"))
     say(f"[ranking] launches x (ms - bound_ms): {json.dumps(rank)}")
     say(f"[ranking] K1 {k1:.1f} ms; ordering (keys + torch.sort on every "
         f"explicit segment) {order_ms:.1f} ms; K1 with its ordering "
         f"{k1 + order_ms:.1f} ms")
+    say(f"[ranking] KE {ke:.1f} ms; ordering (keys + sort per segment) 0.0 "
+        f"ms: every segment takes the cached tile permutation; KE with its "
+        f"ordering {ke:.1f} ms")
 
 
 def print_grids(ws):

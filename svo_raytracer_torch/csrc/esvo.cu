@@ -1,12 +1,37 @@
-// Kernel KE: the ESVO octree traversal, one ray per lane.
+// Kernel KE: the ESVO octree traversal, one ray per thread.
 //
 // Replaces the XLA while_loop of svo_raytracer_tpu/ops/traverse.py::
 // intersect_octree (:415-423 over _make_step, :182-322); the JAX package
 // has no Pallas kernel for it.  The per-ray body is esvo_ray.cuh.
 //
-// Variant build: the schedule (plain grid or persistent warps), the
-// stack's place and the launch bounds are template parameters, picked by
-// the entry point's `variant` argument and timed by scripts/ke_variants.py.
+// What bounds it on Hopper: every step is one dependent load of a packed
+// node word (4 B) at a data-dependent address, so a thread waits on
+// memory latency each step.  A 1024^3 heightmap octree's table (64 MB)
+// does not fit the 50 MB L2, but the upper levels that every ray walks
+// through do.  Rays of one warp take different numbers of steps and
+// different paths, so warps diverge and idle lanes wait for the longest
+// ray.  What the design does, and what measurement kept (PERF.md §6):
+//   * order — the caller passes the permutation the rays are traced in:
+//     thread k traces ray order[k] and writes its record to that ray's
+//     slot.  A render traces every segment in 8x4 pixel tiles
+//     (traverse.tile_order, one cached permutation per image size), so a
+//     warp's rays start from one compact patch of the image: primaries
+//     and mode-2 shadow rays ran ~15% faster than in row order.  Sorting
+//     the rays by a key (direction octant over the Morton code of the
+//     origin's octree cell, K1's scheme) made the kernel alone up to 10%
+//     faster on bounce segments, but its key kernel and torch.sort took
+//     0.17-0.22 ms a segment, more than they saved on every segment;
+//   * bins — on a cone-traced (GI bounce) segment a block regroups its
+//     128 rays by octant, rays that retire at once last, with a counting
+//     sort in shared memory before tracing, so a warp's rays head one way
+//     (4% faster on the bounce segment; 4% slower on primaries and shadow
+//     rays, which already share a direction, so only there);
+//   * the stack — the node-only, never-cleared stack of esvo_ray.cuh in
+//     local memory (96 B of stack frame, against PR 3's 184 B cleared
+//     per ray); stacks in shared memory measured slower;
+//   * registers — __launch_bounds__(128, 12): 12 resident blocks (48
+//     warps) per SM; persistent warps that take 32 ids per atomicAdd
+//     (K1's scheme) measured 2-7% slower.
 //
 // Built by ops/kernel_build.py with nvcc -gencode arch=compute_90a,
 // code=sm_90a -O3 -fmad=false into a shared library with a plain C entry
@@ -20,28 +45,31 @@
 
 namespace {
 
-constexpr int CHUNK = 32;
-constexpr unsigned FULL = 0xFFFFFFFFu;
+constexpr int THREADS = 128;
+constexpr int MIN_BLOCKS = 12;  // resident blocks per SM ptxas is held to
+constexpr int BINS = esvo::DEAD_BIN + 1;
 
 struct Args {
   const int32_t* __restrict__ packed;
   const float* __restrict__ origins;
   const float* __restrict__ dirs;
   const uint8_t* __restrict__ active;
-  const int64_t* __restrict__ order;  // lane k traces order[k]; or null
+  const int64_t* __restrict__ order;  // thread k traces order[k]; or null
   int n, max_depth, cone, max_it, stack_depth;
-  int* counter;
   float* __restrict__ f_out;
   int32_t* __restrict__ i_out;
 };
 
-template <int STACK>
-__device__ inline void trace_one(const Args& a, int i, int32_t* col,
-                                 int stride) {
-  const esvo::State s = esvo::trace_ray<STACK>(
-      a.packed, a.origins[3 * i], a.origins[3 * i + 1], a.origins[3 * i + 2],
-      a.dirs[3 * i], a.dirs[3 * i + 1], a.dirs[3 * i + 2], a.active[i] != 0,
-      a.max_depth, a.cone != 0, a.max_it, a.stack_depth, col, stride);
+__device__ inline int ray_of(const Args& a, int k) {
+  return a.order ? (int)a.order[k] : k;
+}
+
+__device__ inline void trace_one(const Args& a, int i) {
+  const float* o = a.origins + 3 * (size_t)i;
+  const float* d = a.dirs + 3 * (size_t)i;
+  const esvo::State s = esvo::trace_ray(
+      a.packed, o[0], o[1], o[2], d[0], d[1], d[2], a.active[i] != 0,
+      a.max_depth, a.cone != 0, a.max_it, a.stack_depth);
   const int n = a.n;
   // float fields: t_min, t_max, px, py, pz, scale_exp2 (planes of n)
   a.f_out[i] = s.t_min;
@@ -58,164 +86,79 @@ __device__ inline void trace_one(const Args& a, int i, int32_t* col,
   a.i_out[4 * n + i] = s.done;
 }
 
-__device__ inline int ray_of(const Args& a, int k) {
-  return a.order ? (int)a.order[k] : k;
-}
-
-// Bin of a ray for the block's reorder: its octant, 8 when dead.
-__device__ inline int bin_of(const Args& a, int i) {
-  return esvo::ray_bin(a.origins[3 * i], a.origins[3 * i + 1],
-                       a.origins[3 * i + 2], a.dirs[3 * i],
-                       a.dirs[3 * i + 1], a.dirs[3 * i + 2],
-                       a.active[i] != 0);
-}
-
-template <int STACK, bool PERSIST, int MINB, int T, bool BIN>
-__global__ void __launch_bounds__(T, MINB) esvo_trace_kernel(Args a) {
-  extern __shared__ int32_t stack[];
-  int32_t* col = stack + threadIdx.x;
-  if (BIN) {
-    // the block's T ids, regrouped by bin (octant, dead last) through a
-    // counting sort in shared memory, then one ray per thread
-    __shared__ int ids[T];
-    __shared__ int cnt[9], start[9];
-    const int k = blockIdx.x * T + threadIdx.x;
-    if (threadIdx.x < 9) cnt[threadIdx.x] = 0;
-    __syncthreads();
-    int i = 0, b = 0, pos = 0;
-    if (k < a.n) {
-      i = ray_of(a, k);
-      b = bin_of(a, i);
-      pos = atomicAdd(&cnt[b], 1);
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      int sum = 0;
-      for (int j = 0; j < 9; ++j) {
-        start[j] = sum;
-        sum += cnt[j];
-      }
-    }
-    __syncthreads();
-    if (k < a.n) ids[start[b] + pos] = i;
-    __syncthreads();
-    if (k < a.n) trace_one<STACK>(a, ids[threadIdx.x], col, T);
+// Block b takes ids [128 b, 128 b + 128).  BIN: the block's rays are
+// regrouped by esvo::ray_bin (a counting sort in shared memory; within a
+// bin the order is that of the atomics), then thread t traces the t-th.
+template <bool BIN>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+esvo_trace_kernel(Args a) {
+  const int k = blockIdx.x * THREADS + threadIdx.x;
+  if (!BIN) {
+    if (k < a.n) trace_one(a, ray_of(a, k));
     return;
   }
-  if (!PERSIST) {
-    const int k = blockIdx.x * T + threadIdx.x;
-    if (k < a.n) trace_one<STACK>(a, ray_of(a, k), col, T);
-    return;
+  __shared__ int ids[THREADS];
+  __shared__ int count[BINS], start[BINS];
+  if (threadIdx.x < BINS) count[threadIdx.x] = 0;
+  __syncthreads();
+  int i = 0, bin = 0, pos = 0;
+  if (k < a.n) {
+    i = ray_of(a, k);
+    const float* o = a.origins + 3 * (size_t)i;
+    const float* d = a.dirs + 3 * (size_t)i;
+    bin = esvo::ray_bin(o[0], o[1], o[2], d[0], d[1], d[2],
+                        a.active[i] != 0);
+    pos = atomicAdd(&count[bin], 1);
   }
-  const int lane = threadIdx.x & 31;
-  for (;;) {
-    int base = 0;
-    if (lane == 0) base = atomicAdd(a.counter, CHUNK);
-    base = __shfl_sync(FULL, base, 0);
-    if (base >= a.n) break;
-    if (base + lane < a.n) trace_one<STACK>(a, ray_of(a, base + lane), col, T);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int sum = 0;
+    for (int b = 0; b < BINS; ++b) {
+      start[b] = sum;
+      sum += count[b];
+    }
   }
+  __syncthreads();
+  if (k < a.n) ids[start[bin] + pos] = i;
+  __syncthreads();
+  if (k < a.n) trace_one(a, ids[threadIdx.x]);
 }
 
-__global__ void __launch_bounds__(256)
-esvo_ray_key_kernel(const float* __restrict__ origins,
-                    const float* __restrict__ dirs,
-                    const uint8_t* __restrict__ active, int n, int level,
-                    int32_t* __restrict__ keys) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  keys[i] = esvo::ray_key(origins[3 * i], origins[3 * i + 1],
-                          origins[3 * i + 2], dirs[3 * i], dirs[3 * i + 1],
-                          dirs[3 * i + 2], active[i] != 0, level);
-}
-
-using KernelFn = void (*)(Args);
-
-struct Variant {
-  KernelFn kern;
-  int stack;
-  bool persist;
-  int threads;
-};
-
-#define V(S, P, M) {esvo_trace_kernel<S, P, M, 128, false>, S, P, 128}
-#define B(S, M, T) {esvo_trace_kernel<S, false, M, T, true>, S, false, T}
-const Variant VARIANTS[] = {
-    V(esvo::LNODE, false, 12),  // 0: round 2's best
-    B(esvo::LNODE, 12, 128),    // 1: + the block's rays binned by octant
-    B(esvo::LNODE, 6, 256),     // 2
-    B(esvo::LNODE, 3, 512),     // 3
-    V(esvo::LPAIR, false, 12),  // 4
-    V(esvo::LOCAL, false, 1),   // 5: PR 3's stack
-    V(esvo::NODE, false, 12),   // 6
-};
-#undef V
-#undef B
-constexpr int N_VARIANTS = sizeof(VARIANTS) / sizeof(VARIANTS[0]);
-
-int stack_bytes(const Variant& v, int stack_depth) {
-  if (esvo::in_local(v.stack)) return 0;
-  return stack_depth * v.threads * (esvo::node_only(v.stack) ? 4 : 8);
+template <bool BIN>
+int launch(const int32_t* packed, const float* origins, const float* dirs,
+           const uint8_t* active, const int64_t* order, int n,
+           int max_depth, int cone, int max_it, int stack_depth,
+           float* f_out, int32_t* i_out, void* stream) {
+  if (n <= 0) return 0;
+  const Args a = {packed, origins, dirs,   active,      order, n,
+                  max_depth, cone, max_it, stack_depth, f_out, i_out};
+  esvo_trace_kernel<BIN><<<(n + THREADS - 1) / THREADS, THREADS, 0,
+                           (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int esvo_n_variants() { return N_VARIANTS; }
-
-// Resident blocks per SM of a variant at a stack depth, and the SM count.
-extern "C" int esvo_resident(int variant, int stack_depth, int* per_sm,
-                             int* sms) {
-  if (variant < 0 || variant >= N_VARIANTS) return 1;
-  const Variant& v = VARIANTS[variant];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, v.kern, v.threads, stack_bytes(v, stack_depth));
-  return (int)e;
-}
-
 // packed: (n_nodes,) i32 words; origins, dirs: (n, 3) f32 world units;
-// active: (n,) u8; order: (n,) i64 permutation or null; counter: one i32
-// of scratch.  f_out: (6, n) f32, i_out: (5, n) i32 (field order in
-// trace_one).  Returns the cudaError_t of the launch (0 on success).
+// active: (n,) u8; order: (n,) i64 permutation, or null for ray order.
+// f_out: (6, n) f32, i_out: (5, n) i32 (field order in trace_one).
+// Returns the cudaError_t of the launch (0 on success).  esvo_trace runs
+// the plain schedule, esvo_trace_binned the binned one (the wrapper's
+// choice for cone-traced segments).
 extern "C" int esvo_trace(const int32_t* packed, const float* origins,
                           const float* dirs, const uint8_t* active,
                           const int64_t* order, int n, int max_depth,
-                          int cone, int max_it, int stack_depth, int* counter,
-                          float* f_out, int32_t* i_out, int variant,
-                          void* stream) {
-  if (n <= 0) return 0;
-  if (variant < 0 || variant >= N_VARIANTS) return 1;
-  const Variant& v = VARIANTS[variant];
-  const cudaStream_t st = (cudaStream_t)stream;
-  const Args a = {packed, origins, dirs, active, order, n, max_depth, cone,
-                  max_it, stack_depth, counter, f_out, i_out};
-  const int smem = stack_bytes(v, stack_depth);
-  int blocks = (n + v.threads - 1) / v.threads;
-  if (v.persist) {
-    int per_sm = 0, sms = 0;
-    int rc = esvo_resident(variant, stack_depth, &per_sm, &sms);
-    if (rc != 0) return rc;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    if (per_sm * sms < blocks) blocks = per_sm * sms;
-    cudaError_t e = cudaMemsetAsync(counter, 0, sizeof(int), st);
-    if (e != cudaSuccess) return (int)e;
-  }
-  v.kern<<<blocks, v.threads, smem, st>>>(a);
-  return (int)cudaGetLastError();
+                          int cone, int max_it, int stack_depth,
+                          float* f_out, int32_t* i_out, void* stream) {
+  return launch<false>(packed, origins, dirs, active, order, n, max_depth,
+                       cone, max_it, stack_depth, f_out, i_out, stream);
 }
 
-// The sort keys of n rays (esvo_ray.cuh::ray_key).
-extern "C" int esvo_ray_keys(const float* origins, const float* dirs,
-                             const uint8_t* active, int n, int level,
-                             int32_t* keys, void* stream) {
-  if (n <= 0) return 0;
-  const int threads = 256;
-  esvo_ray_key_kernel<<<(n + threads - 1) / threads, threads, 0,
-                        (cudaStream_t)stream>>>(origins, dirs, active, n,
-                                                level, keys);
-  return (int)cudaGetLastError();
+extern "C" int esvo_trace_binned(const int32_t* packed, const float* origins,
+                                 const float* dirs, const uint8_t* active,
+                                 const int64_t* order, int n, int max_depth,
+                                 int cone, int max_it, int stack_depth,
+                                 float* f_out, int32_t* i_out, void* stream) {
+  return launch<true>(packed, origins, dirs, active, order, n, max_depth,
+                      cone, max_it, stack_depth, f_out, i_out, stream);
 }

@@ -1,67 +1,24 @@
 // CPU build of kernel KE's per-ray body (esvo_ray.cuh) and of its
 // schedule, for the parity test tests/test_torch_kernel_source.py, which
 // compiles this file with g++ -D__host__= -D__device__= -ffp-contract=off
-// and compares it with ops/traverse.py::intersect_plain and
-// ray_keys_plain.  No runtime path uses it: on a GPU the same header is
-// compiled into esvo.cu.
+// and compares it with ops/traverse.py::intersect_plain.  No runtime path
+// uses it: on a GPU the same header is compiled into esvo.cu.
 //
-// The host loop emulates esvo.cu's warps: WARPS warps of 32 lanes take
-// turns taking the next 32 ids of a shared counter, one per lane; lane i
-// traces ray order[id] (or ray id) with its own column of the warp's stack
-// window (slot k at col[k * 32]) and writes the record to that ray's
-// slot.  The columns start filled with garbage and are never cleared, as
-// shared memory on the card: a lane's next ray finds the last one's
-// entries there.
+// The host loop emulates esvo.cu's blocks: block b takes ids
+// [128 b, 128 b + 128) and traces ray order[id] (or ray id), its record
+// written to that ray's slot; on a cone-traced segment the block's rays
+// are first regrouped by esvo::ray_bin (stably here; the card's order
+// within a bin is that of its atomics, which no record depends on).
+// `traced`, if not null, receives the ray traced at each position.
 
 #include <stdint.h>
-
-#include <vector>
 
 #include "esvo_ray.cuh"
 
 namespace {
 
-constexpr int WARPS = 3;
-constexpr int CHUNK = 32;
-
-template <int STACK>
-void run(const int32_t* packed, const float* origins, const float* dirs,
-         const uint8_t* active, const int64_t* order, int n, int max_depth,
-         int cone, int max_it, int stack_depth, int* counter, float* f_out,
-         int32_t* i_out) {
-  *counter = 0;
-  std::vector<std::vector<int32_t>> cols(
-      WARPS, std::vector<int32_t>(2 * stack_depth * 32, 0x5A5A5A5A));
-  for (bool busy = true; busy;) {
-    busy = false;
-    for (int w = 0; w < WARPS; ++w) {
-      const int base = *counter;
-      *counter += CHUNK;
-      if (base >= n) continue;
-      busy = true;
-      for (int lane = 0; lane < 32 && base + lane < n; ++lane) {
-        const int k = base + lane;
-        const int i = order ? (int)order[k] : k;
-        const esvo::State s = esvo::trace_ray<STACK>(
-            packed, origins[3 * i], origins[3 * i + 1], origins[3 * i + 2],
-            dirs[3 * i], dirs[3 * i + 1], dirs[3 * i + 2], active[i] != 0,
-            max_depth, cone != 0, max_it, stack_depth,
-            cols[w].data() + lane, 32);
-        f_out[i] = s.t_min;
-        f_out[n + i] = s.t_max;
-        f_out[2 * n + i] = s.px;
-        f_out[3 * n + i] = s.py;
-        f_out[4 * n + i] = s.pz;
-        f_out[5 * n + i] = s.scale_exp2;
-        i_out[i] = s.idx;
-        i_out[n + i] = s.parent;
-        i_out[2 * n + i] = s.scale;
-        i_out[3 * n + i] = s.iters;
-        i_out[4 * n + i] = s.done;
-      }
-    }
-  }
-}
+constexpr int THREADS = 128;
+constexpr int BINS = esvo::DEAD_BIN + 1;
 
 }  // namespace
 
@@ -69,25 +26,47 @@ extern "C" int esvo_trace_host(const int32_t* packed, const float* origins,
                                const float* dirs, const uint8_t* active,
                                const int64_t* order, int n, int max_depth,
                                int cone, int max_it, int stack_depth,
-                               int* counter, float* f_out, int32_t* i_out,
-                               int stack) {
-  using Run = void (*)(const int32_t*, const float*, const float*,
-                      const uint8_t*, const int64_t*, int, int, int, int, int,
-                      int*, float*, int32_t*);
-  const Run runs[] = {run<esvo::LOCAL>, run<esvo::PAIR>, run<esvo::NODE>,
-                      run<esvo::LPAIR>, run<esvo::LNODE>};
-  runs[stack](packed, origins, dirs, active, order, n, max_depth, cone,
-              max_it, stack_depth, counter, f_out, i_out);
-  return 0;
-}
-
-extern "C" int esvo_ray_keys_host(const float* origins, const float* dirs,
-                                  const uint8_t* active, int n, int level,
-                                  int32_t* keys) {
-  for (int i = 0; i < n; ++i) {
-    keys[i] = esvo::ray_key(origins[3 * i], origins[3 * i + 1],
-                            origins[3 * i + 2], dirs[3 * i], dirs[3 * i + 1],
-                            dirs[3 * i + 2], active[i] != 0, level);
+                               float* f_out, int32_t* i_out,
+                               int64_t* traced) {
+  for (int base = 0; base < n; base += THREADS) {
+    const int m = n - base < THREADS ? n - base : THREADS;
+    int ids[THREADS];
+    for (int t = 0; t < m; ++t) {
+      ids[t] = order ? (int)order[base + t] : base + t;
+    }
+    if (cone) {
+      int bin[THREADS], start[BINS + 1] = {0}, sorted[THREADS];
+      for (int t = 0; t < m; ++t) {
+        const int i = ids[t];
+        bin[t] = esvo::ray_bin(origins[3 * i], origins[3 * i + 1],
+                               origins[3 * i + 2], dirs[3 * i],
+                               dirs[3 * i + 1], dirs[3 * i + 2],
+                               active[i] != 0);
+        ++start[bin[t] + 1];
+      }
+      for (int b = 0; b < BINS; ++b) start[b + 1] += start[b];
+      for (int t = 0; t < m; ++t) sorted[start[bin[t]]++] = ids[t];
+      for (int t = 0; t < m; ++t) ids[t] = sorted[t];
+    }
+    for (int t = 0; t < m; ++t) {
+      const int i = ids[t];
+      if (traced) traced[base + t] = i;
+      const esvo::State s = esvo::trace_ray(
+          packed, origins[3 * i], origins[3 * i + 1], origins[3 * i + 2],
+          dirs[3 * i], dirs[3 * i + 1], dirs[3 * i + 2], active[i] != 0,
+          max_depth, cone != 0, max_it, stack_depth);
+      f_out[i] = s.t_min;
+      f_out[n + i] = s.t_max;
+      f_out[2 * n + i] = s.px;
+      f_out[3 * n + i] = s.py;
+      f_out[4 * n + i] = s.pz;
+      f_out[5 * n + i] = s.scale_exp2;
+      i_out[i] = s.idx;
+      i_out[n + i] = s.parent;
+      i_out[2 * n + i] = s.scale;
+      i_out[3 * n + i] = s.iters;
+      i_out[4 * n + i] = s.done;
+    }
   }
   return 0;
 }

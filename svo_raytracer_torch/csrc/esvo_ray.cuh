@@ -7,15 +7,25 @@
 // and loops `step` until the ray is done or reaches the per-ray cap, the
 // reference's own design (svotrace.comp:211-432, one GL thread per pixel).
 // Per-ray state evolves from that ray's state alone, so the per-thread loop
-// gives the lock-step batch's answer and the same iteration count.
+// gives the lock-step batch's answer and the same iteration count, in
+// whatever order esvo.cu's schedule takes the rays.
 //
 // Ray setup is traverse.py::_setup (:100-179); the step is _make_step's
 // PUSH / ADVANCE / POP, with its float-mantissa POP (31 - clz of the
-// differing position bits) and the parent-word stack: the stack holds
-// (node, packed word) per scale in [MAX_SCALE - stack_depth, MAX_SCALE),
-// unstored slots read as (0, 0), and a pop onto node 0 takes the root's
-// word.  The outputs are the state fields traverse.py::_decode reads
-// (_DECODE_STATE, :435-436); the decode itself stays in PyTorch.
+// differing position bits) and the parent-word stack: the reference
+// stacks (node, packed word) per scale in [MAX_SCALE - stack_depth,
+// MAX_SCALE), unstored slots read as (0, 0), and a pop onto node 0 takes
+// the root's word.  Here the stack keeps the node only: the word of node
+// p is always packed[p] (the root's for p = 0), so a POP reloads it from
+// the table.  A mask of the slots this ray stored stands in for zeroed
+// arrays (an unstored slot pops node 0, so the root's word), so nothing is
+// cleared; a stored slot keeps its entry until it is overwritten, as in
+// the reference.  The array is indexed by scale, 23 x 4 B of local memory
+// of which the stack_depth window is used (PERF.md §6 has the places
+// measured for it: PR 3's cleared node and word arrays, node and word in
+// shared memory, node only in shared memory).  The outputs are the state
+// fields traverse.py::_decode reads (_DECODE_STATE, :435-436); the decode
+// itself stays in PyTorch.
 //
 // Plain C types only, `__host__ __device__` throughout: the CUDA kernel
 // (esvo.cu) and a g++ build for the CPU parity test (esvo_host.cpp)
@@ -73,58 +83,7 @@ __host__ __device__ inline float clamp_dir(float v) {
   return fabsf(v) < EPS ? (v >= 0.0f ? EPS : -EPS) : v;
 }
 
-// Sort key of a ray (ops/traverse.py::ray_keys_plain): the direction
-// octant as the setup of trace_ray computes it (bit 0 x, 1 y, 2 z; set
-// where the clamped component is > 0, i.e. where d >= 0) in bits 24-26,
-// above the Morton code of the octree cell of side 2^-level that holds
-// the origin, floor((o - 1) * 2^level) clamped into [0, 2^level) (bits
-// 3i+2, 3i+1, 3i of the code are bit i of x, y, z; level <= 8).  Rays
-// that are not active or not finite take KEY_DEAD and sort to the tail.
-constexpr int32_t KEY_DEAD = 0x7FFFFFFF;
-
-// Octant of a live ray as trace_ray's setup computes it, 8 for a dead one
-// (not active or not finite).
-__host__ __device__ inline int ray_bin(float ox, float oy, float oz,
-                                       float dx, float dy, float dz,
-                                       bool active) {
-  if (!(active && isfinite(ox) && isfinite(oy) && isfinite(oz) &&
-        isfinite(dx) && isfinite(dy) && isfinite(dz))) {
-    return 8;
-  }
-  return (clamp_dir(dx) > 0.0f ? 1 : 0) | (clamp_dir(dy) > 0.0f ? 2 : 0) |
-         (clamp_dir(dz) > 0.0f ? 4 : 0);
-}
-
-__host__ __device__ inline uint32_t spread3(uint32_t v) {
-  v = (v | (v << 16)) & 0x030000FFu;
-  v = (v | (v << 8)) & 0x0300F00Fu;
-  v = (v | (v << 4)) & 0x030C30C3u;
-  v = (v | (v << 2)) & 0x09249249u;
-  return v;
-}
-
-__host__ __device__ inline uint32_t cell_coord(float v, int level) {
-  const float cells = (float)(1 << level);
-  return (uint32_t)fminf(fmaxf(floorf((v - 1.0f) * cells), 0.0f),
-                         cells - 1.0f);
-}
-
-__host__ __device__ inline int32_t ray_key(float ox, float oy, float oz,
-                                           float dx, float dy, float dz,
-                                           bool active, int level) {
-  if (!(active && isfinite(ox) && isfinite(oy) && isfinite(oz) &&
-        isfinite(dx) && isfinite(dy) && isfinite(dz))) {
-    return KEY_DEAD;
-  }
-  const uint32_t oct = (clamp_dir(dx) > 0.0f ? 1u : 0u) |
-                       (clamp_dir(dy) > 0.0f ? 2u : 0u) |
-                       (clamp_dir(dz) > 0.0f ? 4u : 0u);
-  const uint32_t m = (spread3(cell_coord(ox, level)) << 2) |
-                     (spread3(cell_coord(oy, level)) << 1) |
-                     spread3(cell_coord(oz, level));
-  return (int32_t)((oct << 24) | m);
-}
-
+// A table word, through the read-only data cache on the card.
 __host__ __device__ inline int32_t ldg(const int32_t* p) {
 #ifdef __CUDA_ARCH__
   return __ldg(p);
@@ -133,31 +92,29 @@ __host__ __device__ inline int32_t ldg(const int32_t* p) {
 #endif
 }
 
-// Where the stack lives (variants, timed by scripts/ke_variants.py):
-//   LOCAL  — PR 3's two 23-entry arrays, all cleared before the first step;
-//   PAIR   — node and word per slot of the stack_depth window in `col`
-//            (slot k's node at col[k * stride], its word at
-//            col[(stack_depth + k) * stride]), nothing cleared: a mask of
-//            written slots makes an unwritten slot read (0, 0);
-//   NODE   — the node only, in the same window; a POP reloads the popped
-//            node's word from the table (the word of node p is packed[p]);
-//   LPAIR, LNODE — as PAIR and NODE, in local arrays (not cleared).
-enum StackKind { LOCAL = 0, PAIR = 1, NODE = 2, LPAIR = 3, LNODE = 4 };
+// The bin by which esvo.cu regroups the rays of a cone-traced segment
+// within a block: the octant as trace_ray's setup computes it (bit 0 x,
+// 1 y, 2 z; set where the clamped component is > 0), or DEAD_BIN for a
+// ray that retires at once (not active or not finite).
+constexpr int DEAD_BIN = 8;
 
-__host__ __device__ constexpr bool in_local(int k) {
-  return k == LOCAL || k == LPAIR || k == LNODE;
-}
-__host__ __device__ constexpr bool node_only(int k) {
-  return k == NODE || k == LNODE;
+__host__ __device__ inline int ray_bin(float ox, float oy, float oz,
+                                       float dx, float dy, float dz,
+                                       bool active) {
+  if (!(active && isfinite(ox) && isfinite(oy) && isfinite(oz) &&
+        isfinite(dx) && isfinite(dy) && isfinite(dz))) {
+    return DEAD_BIN;
+  }
+  return (clamp_dir(dx) > 0.0f ? 1 : 0) | (clamp_dir(dy) > 0.0f ? 2 : 0) |
+         (clamp_dir(dz) > 0.0f ? 4 : 0);
 }
 
 // packed: (n,) words (effective child base << 1) | value != 0
 // (traverse.py::make_packed_table).  stack_depth <= MAX_SCALE.
-template <int STACK>
 __host__ __device__ inline State trace_ray(
     const int32_t* packed, float ox, float oy, float oz, float dx0,
     float dy0, float dz0, bool active, int max_depth, bool cone,
-    int max_it, int stack_depth, int32_t* col, int stride) {
+    int max_it, int stack_depth) {
   // ---- _setup (svotrace.comp:226-257)
   const float dx = clamp_dir(dx0), dy = clamp_dir(dy0), dz = clamp_dir(dz0);
   const float cx = 1.0f / -fabsf(dx);
@@ -193,15 +150,8 @@ __host__ __device__ inline State trace_ray(
   const int32_t root_word = ldg(packed);
   int32_t parent_word = root_word;
   const int lo = MAX_SCALE - stack_depth;
-  int32_t stack_node[in_local(STACK) ? MAX_SCALE : 1];
-  int32_t stack_word[in_local(STACK) && !node_only(STACK) ? MAX_SCALE : 1];
-  if constexpr (STACK == LOCAL) {
-    for (int i = 0; i < MAX_SCALE; ++i) {
-      stack_node[i] = 0;
-      stack_word[i] = 0;
-    }
-  }
-  uint32_t written = 0u;  // bit s: this ray stored slot s
+  int32_t stack_node[MAX_SCALE];  // slot s holds a node if bit s is set
+  uint32_t written = 0u;
 
   // ---- _make_step, until done or the per-ray cap (svotrace.comp:262-376)
   while (!s.done && s.iters < max_it) {
@@ -231,21 +181,8 @@ __host__ __device__ inline State trace_ray(
       }
       // ---- PUSH (svotrace.comp:315-334)
       if (tc_max < h && s.scale >= lo) {
-        if constexpr (STACK == LOCAL) {
-          stack_node[s.scale] = s.parent;
-          stack_word[s.scale] = parent_word;
-        } else if constexpr (in_local(STACK)) {
-          stack_node[s.scale] = s.parent;
-          if constexpr (!node_only(STACK)) stack_word[s.scale] = parent_word;
-          written |= 1u << s.scale;
-        } else {
-          const int k = s.scale - lo;
-          col[k * stride] = s.parent;
-          if constexpr (!node_only(STACK)) {
-            col[(stack_depth + k) * stride] = parent_word;
-          }
-          written |= 1u << s.scale;
-        }
+        stack_node[s.scale] = s.parent;
+        written |= 1u << s.scale;
       }
       h = tc_max;
       s.parent = ci;
@@ -291,26 +228,12 @@ __host__ __device__ inline State trace_ray(
     const int32_t new_scale = find_msb(differing);
     const int32_t safe = new_scale < 0 ? 0
                          : (new_scale > MAX_SCALE ? MAX_SCALE : new_scale);
-    int32_t pop_parent = 0, pop_word = 0;
-    if constexpr (STACK == LOCAL) {
-      if (safe >= lo && safe < MAX_SCALE) {
-        pop_parent = stack_node[safe];
-        pop_word = stack_word[safe];
-      }
-    } else if (safe >= lo && safe < MAX_SCALE && ((written >> safe) & 1u)) {
-      if constexpr (in_local(STACK)) {
-        pop_parent = stack_node[safe];
-        if constexpr (!node_only(STACK)) pop_word = stack_word[safe];
-      } else {
-        const int k = safe - lo;
-        pop_parent = col[k * stride];
-        if constexpr (!node_only(STACK)) {
-          pop_word = col[(stack_depth + k) * stride];
-        }
-      }
-      if constexpr (node_only(STACK)) pop_word = ldg(packed + pop_parent);
+    int32_t pop_parent = 0;
+    if (safe >= lo && safe < MAX_SCALE && ((written >> safe) & 1u)) {
+      pop_parent = stack_node[safe];
     }
-    if (pop_parent == 0) pop_word = root_word;
+    const int32_t pop_word =
+        pop_parent == 0 ? root_word : ldg(packed + pop_parent);
     const uint32_t su = (uint32_t)safe;
     const uint32_t shx = bits(apx) >> su;
     const uint32_t shy = bits(apy) >> su;

@@ -329,10 +329,13 @@ def render_image(tree, cam5, width, height, render_mode=2, frame_number=1,
     dirs = _normalize(pixel_dirs_device(cam5, width, height))
     origins = cam5[0].expand_as(dirs)
 
+    # every segment traces the W*H pixel rays in 8x4 pixel tiles
+    tiles = traverse.tile_order(width, height, cam5.device)
+
     def isect(o, d, **kw):
         prof = None if stats is None else {}
         res = traverse.intersect_octree(tree, o, d, packed=packed,
-                                        profile=prof, **kw)
+                                        profile=prof, order=tiles, **kw)
         if stats is not None:
             stats.append(prof)
         return res

@@ -10,7 +10,9 @@ walk as an XLA while_loop over lock-step ray batches.  Here:
     op for op, over the rays still active (each ray's state evolves from
     its own state alone, so dropping finished rays changes no result);
   * kernel KE (``csrc/esvo.cu`` over ``csrc/esvo_ray.cuh``) runs the same
-    walk one thread per ray on the GPU, bit-equal to the plain version;
+    walk one thread per ray on the GPU, bit-equal to the plain version,
+    over the rays in a given order (:func:`tile_order` for a render's
+    segments; cone-traced segments regrouped by octant in each block);
   * :func:`intersect_octree` takes KE for CUDA tensors and the plain
     version for CPU tensors, then decodes the hit in PyTorch.
 
@@ -23,6 +25,7 @@ uint32 shifts; the plain version checks that.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -30,7 +33,6 @@ import torch
 from ..utils import constants as C
 from . import kernel_build
 from .hit import HitResult
-from .wavefront import spread3
 
 MAX_SCALE = C.MAX_SCALE
 EPS = float(np.float32(C.EPSILON))
@@ -41,15 +43,14 @@ F_FIELDS = ("t_min", "t_max", "px", "py", "pz", "scale_exp2")
 I_FIELDS = ("idx", "parent", "scale", "iters", "done")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-KE = kernel_build.Kernel("esvo", ["esvo.cu"], "esvo_trace",
-                         [_P] * 5 + [_I] * 5 + [_P] * 3 + [_I, _P])
-KE_KEYS = kernel_build.Kernel("esvo", ["esvo.cu"], "esvo_ray_keys",
-                              [_P] * 3 + [_I] * 2 + [_P] * 2)
-
-KEY_DEAD = 0x7FFFFFFF   # sort key of a dead ray (csrc/esvo_ray.cuh)
-OCT_SHIFT = 24          # the octant's bits sit above a 24-bit Morton code
-KEY_LEVEL = 5           # the key's origin cells: 2^5 per edge of the cube
-VARIANT = 1             # the kernel's schedule and stack (variant build)
+_KE_ARGS = [_P] * 5 + [_I] * 5 + [_P] * 3
+KE = kernel_build.Kernel("esvo", ["esvo.cu"], "esvo_trace", _KE_ARGS)
+# Cone-traced segments take the binned schedule: the same library's second
+# entry point.  Its launches count in KE.launches, and in
+# KE_BINNED.launches as well.
+KE_BINNED = kernel_build.Kernel("esvo", ["esvo.cu"], "esvo_trace_binned",
+                                _KE_ARGS)
+TILE_W, TILE_H = 8, 4    # the pixel tiles a render's segments are traced in
 
 
 def make_packed_table(tree) -> torch.Tensor:
@@ -275,70 +276,38 @@ def intersect_plain(packed, o, d, alive, max_depth=C.MAX_DEPTH,
     return state
 
 
-def ray_keys_plain(o, d, alive, level=KEY_LEVEL):
-    """Plain PyTorch version of KE's key kernel: the int32 sort key of each
-    world-space ray (csrc/esvo_ray.cuh::ray_key).  Bits 24-26 hold the
-    direction octant as _setup computes it (bit 0 x, 1 y, 2 z; set where
-    the clamped component is > 0), bits 0-23 the Morton code of the octree
-    cell of side 2^-level holding the origin, floor((o - 1) * 2^level)
-    clamped into the cube (bits 3i+2, 3i+1, 3i are bit i of x, y, z).
-    Rays not active or not finite take KEY_DEAD and sort to the tail."""
-    k = _ray_consts(o, d, alive)
-    live = ~k["dead0"]
-    ov = torch.where(live[:, None], o, torch.ones_like(o))
-    cells = 1 << level
-    c = torch.floor((ov - 1.0) * float(cells)).clamp(0, cells - 1).to(
-        torch.int32)
-    code = ((spread3(c[:, 0]) << 2) | (spread3(c[:, 1]) << 1)
-            | spread3(c[:, 2]))
-    key = (k["octant"] << OCT_SHIFT) | code
-    return torch.where(live, key, torch.full_like(key, KEY_DEAD))
+@functools.lru_cache(maxsize=8)
+def _tile_order(width, height, device):
+    tiles_x = -(-width // TILE_W)
+    y, x = np.divmod(np.arange(-(-height // TILE_H) * TILE_H * tiles_x
+                               * TILE_W), tiles_x * TILE_W)
+    key = ((y // TILE_H) * tiles_x + x // TILE_W) * (TILE_W * TILE_H) \
+        + (y % TILE_H) * TILE_W + x % TILE_W
+    keep = (x < width) & (y < height)
+    pix = (y * width + x)[keep][np.argsort(key[keep], kind="stable")]
+    return torch.from_numpy(pix).to(device)
 
 
-def ray_keys_kernel(o, d, alive, level=KEY_LEVEL):
-    """KE's key kernel on the card: same contract as
-    :func:`ray_keys_plain`."""
-    _check_rays(o, d, alive, "cuda")
-    B = o.shape[0]
-    keys = torch.empty(B, dtype=torch.int32, device=o.device)
-    if B == 0:
-        return keys
-    fn = KE_KEYS.load()
-    act = alive.to(torch.uint8)
-    with torch.cuda.device(o.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(o.data_ptr(), d.data_ptr(), act.data_ptr(), B, int(level),
-                keys.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"KE key launch failed with cudaError {rc}")
-    KE_KEYS.launches += 1
-    return keys
-
-
-def ray_keys(o, d, alive, level=KEY_LEVEL):
-    """The rays' sort keys: the key kernel for CUDA tensors, its plain
-    version for CPU tensors."""
-    if o.device.type == "cpu":
-        _check_rays(o, d, alive, "cpu")
-        return ray_keys_plain(o, d, alive, level)
-    return ray_keys_kernel(o, d, alive, level)
-
-
-def ray_order(o, d, alive, level=KEY_LEVEL):
-    """The (B,) int64 permutation that KE traces rays in: by
-    :func:`ray_keys` (octant, then origin cell), dead rays last; the sort
-    is torch.sort."""
-    return torch.sort(ray_keys(o, d, alive, level)).indices
+def tile_order(width, height, device):
+    """The (width * height,) int64 permutation a render traces its
+    segments in: row-major pixel ids (y * width + x) taken in TILE_W x
+    TILE_H tiles, the tiles row-major, pixels row-major within a tile
+    (the last column and row of tiles cut at the image's edge).  Built
+    once per image size and device, then cached: callers must not write
+    to it."""
+    return _tile_order(int(width), int(height), torch.device(device))
 
 
 def intersect_kernel(packed, o, d, alive, max_depth=C.MAX_DEPTH,
                      cone_trace=False,
                      max_iterations=C.MAX_RAYCAST_ITERATIONS,
-                     stack_depth=C.MAX_DEPTH, order=None, variant=None):
+                     stack_depth=C.MAX_DEPTH, order=None):
     """Kernel KE on the card: same contract as :func:`intersect_plain`.
-    Lane k traces ray ``order[k]`` (a (B,) int64 permutation on the rays'
-    device, e.g. :func:`ray_order`), or ray k when ``order`` is None; the
-    records land at the rays' own slots either way."""
+    Thread k traces ray ``order[k]`` (a (B,) int64 permutation on the
+    rays' device, e.g. :func:`tile_order`), or ray k when ``order`` is
+    None; the records land at the rays' own slots either way.  A
+    cone-traced segment takes the binned schedule (KE_BINNED): each block
+    regroups its rays by direction octant before tracing them."""
     _check(packed, o, d, alive, "cuda")
     B = o.shape[0]
     _check_order(order, B, o.device)
@@ -347,21 +316,22 @@ def intersect_kernel(packed, o, d, alive, max_depth=C.MAX_DEPTH,
     i_out = torch.empty((len(I_FIELDS), B), dtype=torch.int32,
                         device=o.device)
     if B:
-        fn = KE.load()
+        kern = KE_BINNED if cone_trace else KE
+        fn = kern.load()
         act = alive.to(torch.uint8)
-        counter = torch.empty(1, dtype=torch.int32, device=o.device)
         with torch.cuda.device(o.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc = fn(packed.data_ptr(), o.data_ptr(), d.data_ptr(),
                     act.data_ptr(),
                     None if order is None else order.data_ptr(), B,
                     int(max_depth), int(bool(cone_trace)),
-                    int(max_iterations), int(stack_depth),
-                    counter.data_ptr(), f_out.data_ptr(), i_out.data_ptr(),
-                    VARIANT if variant is None else int(variant), stream)
+                    int(max_iterations), int(stack_depth), f_out.data_ptr(),
+                    i_out.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"KE launch failed with cudaError {rc}")
         KE.launches += 1
+        if cone_trace:
+            KE_BINNED.launches += 1
     rec = dict(zip(F_FIELDS, f_out.unbind(0)))
     rec.update(zip(I_FIELDS, i_out.unbind(0)))
     return rec
@@ -376,32 +346,23 @@ def _check_order(order, B, device):
                          "the rays' device")
 
 
-def _check_rays(o, d, alive, device_type):
+def _check(packed, o, d, alive, device_type):
     B = o.shape[0]
     if o.shape != (B, 3) or d.shape != (B, 3) or alive.shape != (B,):
         raise ValueError(f"ray shapes {tuple(o.shape)} {tuple(d.shape)} "
                          f"{tuple(alive.shape)}")
     if o.dtype != torch.float32 or d.dtype != torch.float32:
         raise ValueError("origins and directions must be float32")
-    if alive.dtype != torch.bool:
-        raise ValueError("alive must be bool")
+    if alive.dtype != torch.bool or packed.dtype != torch.int32:
+        raise ValueError("alive must be bool and packed int32")
     if o.device.type != device_type:
         raise ValueError(f"rays on {o.device}, expected {device_type}")
-    for a in (d, alive):
+    for a in (d, alive, packed):
         if a.device != o.device:
             raise ValueError(f"tensor on {a.device}, rays on {o.device}")
-    if not all(a.is_contiguous() for a in (o, d, alive)):
-        raise ValueError("ray tensors must be contiguous")
-
-
-def _check(packed, o, d, alive, device_type):
-    _check_rays(o, d, alive, device_type)
-    if packed.dtype != torch.int32:
-        raise ValueError("packed must be int32")
-    if packed.device != o.device:
-        raise ValueError(f"tensor on {packed.device}, rays on {o.device}")
-    if not packed.is_contiguous():
-        raise ValueError("the packed table must be contiguous")
+    if not all(a.is_contiguous() for a in (packed, o, d, alive)):
+        raise ValueError("ray tensors and the packed table must be "
+                         "contiguous")
 
 
 def trace(packed, o, d, alive, order=None, **kw):
@@ -487,10 +448,10 @@ def intersect_octree(tree, origin, direction, max_depth=C.MAX_DEPTH,
     Inputs lie on the tree's device.  ``active`` (B,) masks rays out
     (they return as misses, as do non-finite rays); ``packed`` is the
     cached :func:`make_packed_table`; ``order`` the (B,) int64
-    permutation the rays are traced in (:func:`ray_order`; None: frame
-    order), which changes no result.  ``profile`` (a dict) receives the
-    counts of traced rays, hits, rays still active at the iteration cap
-    and KE launches (reading them synchronizes).  Returns a HitResult
+    permutation the rays are traced in (:func:`tile_order` for a render's
+    pixel rays; None: ray order), which changes no result.  ``profile``
+    (a dict) receives the counts of traced rays, hits, rays still active
+    at the iteration cap and KE launches (reading them synchronizes).  Returns a HitResult
     whose ``node`` is the SoA index of the hit node."""
     if max_depth > stack_depth:
         raise ValueError(f"max_depth={max_depth} exceeds the stack_depth="

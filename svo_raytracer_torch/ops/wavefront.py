@@ -933,7 +933,7 @@ def _check_rays(ws, o, d, alive, device_type):
     return B
 
 
-def spread3(v):
+def _spread3(v):
     """Bits 0-7 of v moved to bits 0, 3, ..., 21 (the Morton spread)."""
     v = (v | (v << 16)) & 0x030000FF
     v = (v | (v << 8)) & 0x0300F00F
@@ -954,8 +954,8 @@ def ray_keys_plain(ws: WaveScene, o, d, alive):
     live = alive & torch.isfinite(o).all(1) & torch.isfinite(d).all(1)
     ov = torch.where(live[:, None], o, torch.zeros_like(o))
     c = torch.floor(ov * 0.03125).clamp(0, G - 1).to(torch.int32)
-    code = ((spread3(c[:, 0]) << 2) | (spread3(c[:, 1]) << 1)
-            | spread3(c[:, 2]))
+    code = ((_spread3(c[:, 0]) << 2) | (_spread3(c[:, 1]) << 1)
+            | _spread3(c[:, 2]))
     ge = (d >= 0).to(torch.int32)
     octant = (ge[:, 0] << 2) | (ge[:, 1] << 1) | ge[:, 2]
     key = (octant << OCT_SHIFT) | code

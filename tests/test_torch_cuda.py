@@ -1,5 +1,6 @@
 """Kernels K1 (explicit and camera mode, its ray keys and its persistent
-schedule), KE, K2 and K3 on a CUDA GPU
+schedule), KE (its plain and binned schedules, through a permutation),
+K2 and K3 on a CUDA GPU
 against their plain PyTorch versions.  Needs a card and nvcc; skipped elsewhere.  The file imports no
 jax, so on a GPU host without JAX it runs from the repository root with
 ``python -m pytest --noconftest tests/test_torch_cuda.py``."""
@@ -113,6 +114,72 @@ def test_esvo_kernel_equals_plain_on_gpu(name):
                   & (traverse.MAX_SCALE - want["scale"] > 3))
         assert bool(deeper.any()) == (kw.get("max_depth", 13) > 3
                                       or kw.get("cone_trace", False)), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["B=0", "B=1", "B=37", "B=1000",
+                                  "all-dead", "stack_depth=23", "tiles"])
+def test_esvo_schedule_edges_on_gpu(case):
+    """KE's schedules against intersect_plain: the plain one and, on
+    cone-traced rays, the binned one (KE_BINNED), each in frame order and
+    through a permutation (a 128x64 image's tile order, or a random one):
+    batches that are no multiple of the block, no rays, no live ray, the
+    full stack window.  Every slot is written (compared field by field)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from svo_raytracer_torch.core import build_np
+    from svo_raytracer_torch.ops import traverse
+    tree = build_np.build_octree_np(chip_smoke.terrain_voxels(64, 7)
+                                    ).to_device("cuda")
+    packed = traverse.make_packed_table(tree)
+    o, d = _rays(8192, seed=8)
+    alive = torch.ones(8192, dtype=torch.bool, device="cuda")
+    alive[5::33] = False
+    B = {"B=0": 0, "B=1": 1, "B=37": 37, "B=1000": 1000}.get(case, 8192)
+    o, d, alive = o[:B].contiguous(), d[:B].contiguous(), alive[:B].clone()
+    if case == "all-dead":
+        alive[:] = False
+    extra = (dict(stack_depth=23, max_depth=23) if case == "stack_depth=23"
+             else {})
+    perm = (traverse.tile_order(128, 64, "cuda") if B == 8192 else
+            torch.from_numpy(np.random.default_rng(4).permutation(B)).cuda())
+    for cone in (False, True):
+        kw = dict(cone_trace=cone, **extra)
+        want = traverse.intersect_plain(packed, o, d, alive, **kw)
+        for order in (perm, None):
+            before = traverse.KE_BINNED.launches
+            got = traverse.intersect_kernel(packed, o, d, alive, order=order,
+                                            **kw)
+            torch.cuda.synchronize()
+            assert traverse.KE_BINNED.launches - before == int(cone and B > 0)
+            assert _equal_fields(want, got) == [], (kw, order is None)
+
+
+@pytest.mark.gpu
+def test_esvo_render_schedule_on_gpu():
+    """A mode-0 gi-1 render: one KE launch per segment, the bounce in the
+    binned schedule; both segments in the image's tile order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from svo_raytracer_torch.core import build_np
+    from svo_raytracer_torch.ops import shade, traverse
+    from svo_raytracer_torch.utils.camera import Camera
+    tree = build_np.build_octree_np(chip_smoke.terrain_voxels(64, 7)
+                                    ).to_device("cuda")
+    cam = Camera(pos=np.array([1.3, 1.8, 1.3]))
+    cam.rotate(-0.5, 0.6)
+    cam5 = torch.tensor(cam.uniform(), dtype=torch.float32, device="cuda")
+    k = (traverse.KE, traverse.KE_BINNED)
+    before = [x.launches for x in k]
+    stats = []
+    with chip_smoke.capture(traverse, "intersect_kernel") as calls:
+        shade.render_image(tree, cam5, 96, 64, render_mode=0, gi_bounces=1,
+                           stats=stats)
+    torch.cuda.synchronize()
+    assert [x.launches - b for x, b in zip(k, before)] == [2, 1]
+    assert [s["launches"] for s in stats] == [1, 1]
+    tiles = traverse.tile_order(96, 64, "cuda")
+    assert all(kw["order"] is tiles for _, kw in calls)
 
 
 @pytest.mark.gpu

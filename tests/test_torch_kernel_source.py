@@ -3,7 +3,9 @@ kernels run (csrc/wf_ray.cuh for K1 with its camera-mode ray derivation,
 its sort keys and its persistent schedule, emulated by a host loop of
 32-lane warps that take 32 ray ids at a time from a counter and write
 through the sort permutation,
-csrc/esvo_ray.cuh for KE, csrc/brick_dda.cuh for K2,
+csrc/esvo_ray.cuh for KE with its schedule, emulated by a host loop of
+128-ray blocks that trace through a permutation and regroup a
+cone-traced segment's rays by octant, csrc/brick_dda.cuh for K2,
 csrc/brick_round.cuh for K3) compiled with g++, their CUDA qualifiers
 defined away, into ctypes libraries, against their plain PyTorch versions
 (wavefront.trace_plain and trace_camera_plain, traverse.intersect_plain,
@@ -213,6 +215,49 @@ def _esvo_tree(name):
     return build_np.build_octree_np(vox)
 
 
+def _esvo_host(packed, o, d, alive, order=None, max_depth=13,
+               cone_trace=False, max_iterations=1500, stack_depth=13):
+    """KE's records by the g++ build of its schedule (blocks of 128 ids,
+    ray order[id], cone-traced segments binned) and the ray each position
+    traced; every slot starts as a sentinel that no record holds."""
+    fn = _host_fn("esvo_host", "esvo_host.cpp", "esvo_trace_host",
+                  traverse.KE.argtypes + [ctypes.c_void_p])
+    B = o.shape[0]
+    f_out = torch.full((len(traverse.F_FIELDS), B), -7.0)
+    i_out = torch.full((len(traverse.I_FIELDS), B), -7, dtype=torch.int32)
+    traced = torch.full((B,), -1, dtype=torch.int64)
+    act = alive.to(torch.uint8)
+    assert fn(packed.data_ptr(), o.data_ptr(), d.data_ptr(), act.data_ptr(),
+              None if order is None else order.data_ptr(), B, max_depth,
+              int(cone_trace), max_iterations, stack_depth,
+              f_out.data_ptr(), i_out.data_ptr(), traced.data_ptr()) == 0
+    got = dict(zip(traverse.F_FIELDS, f_out))
+    got.update(zip(traverse.I_FIELDS, i_out))
+    return got, traced
+
+
+def _esvo_rays(tree, n=2048, seed=17, skip=False):
+    o, d = random_rays(n, seed=seed)
+    o[::97] = np.nan                        # non-finite rays retire at once
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    alive = torch.ones(n, dtype=torch.bool)
+    alive[5::50] = False
+    if skip:
+        tab = torch.from_numpy(brick_scene.table_rows(
+            skip_grid.build_skip_grid(tree, 32)))
+        sk, maybe = skip_grid.skip_distances(tab, o, d, active=alive)
+        o, alive = (o + sk[:, None] * d).contiguous(), maybe & alive
+        assert (sk > 0).any() and (~maybe).any()
+    return o, d, alive
+
+
+def _port_tree(name):
+    jt = _esvo_tree(name)
+    from svo_raytracer_torch.core import octree
+    return octree.from_reference(jt.child, jt.mask, jt.value, jt.normal,
+                                 jt.n_nodes, jt.world_size).to_device("cpu")
+
+
 @pytest.mark.parametrize("name", ["sphere-64", "terrain-64", "checker-16",
                                   "terrain-64-skip"])
 @pytest.mark.parametrize("kw", [dict(), dict(cone_trace=True, max_depth=3),
@@ -222,35 +267,11 @@ def test_esvo_source_body_equals_plain(name, kw):
     skip distance, definite misses inactive).  max_depth 3 lies below every
     tree's depth, so the cutoff fires; with cone tracing the LOD clamp
     lifts rays past t = 0.05 to depth 11, below the cutoff."""
-    fn = _host_fn("esvo_host", "esvo_host.cpp", "esvo_trace_host",
-                  traverse.KE.argtypes)
-    jt = _esvo_tree(name.removesuffix("-skip"))
-    from svo_raytracer_torch.core import octree
-    tree = octree.from_reference(jt.child, jt.mask, jt.value, jt.normal,
-                                 jt.n_nodes, jt.world_size).to_device("cpu")
+    tree = _port_tree(name.removesuffix("-skip"))
     packed = traverse.make_packed_table(tree)
-    o, d = random_rays(2048, seed=17)
-    o[::97] = np.nan                        # non-finite rays retire at once
-    o, d = torch.from_numpy(o), torch.from_numpy(d)
-    alive = torch.ones(2048, dtype=torch.bool)
-    alive[5::50] = False
-    if name.endswith("-skip"):
-        tab = torch.from_numpy(brick_scene.table_rows(
-            skip_grid.build_skip_grid(tree, 32)))
-        skip, maybe = skip_grid.skip_distances(tab, o, d, active=alive)
-        o, alive = (o + skip[:, None] * d).contiguous(), maybe & alive
-        assert (skip > 0).any() and (~maybe).any()
+    o, d, alive = _esvo_rays(tree, skip=name.endswith("-skip"))
     want = traverse.intersect_plain(packed, o, d, alive, **kw)
-    B = o.shape[0]
-    f_out = torch.empty((len(traverse.F_FIELDS), B))
-    i_out = torch.empty((len(traverse.I_FIELDS), B), dtype=torch.int32)
-    assert fn(packed.data_ptr(), o.data_ptr(), d.data_ptr(),
-              alive.to(torch.uint8).data_ptr(), B, kw.get("max_depth", 13),
-              int(kw.get("cone_trace", False)),
-              kw.get("max_iterations", 1500), 13, f_out.data_ptr(),
-              i_out.data_ptr()) == 0
-    got = dict(zip(traverse.F_FIELDS, f_out))
-    got.update(zip(traverse.I_FIELDS, i_out))
+    got, _ = _esvo_host(packed, o, d, alive, **kw)
     assert _equal(want, got) == []
     assert (want["done"] == 1).any() and (want["scale"] < 23).any()
     deeper = (want["done"] == 1) & (traverse.MAX_SCALE - want["scale"] > 3)
@@ -259,6 +280,66 @@ def test_esvo_source_body_equals_plain(name, kw):
                                       or kw.get("cone_trace", False))
     if "max_iterations" in kw:
         assert (want["done"] == 0).any()
+
+
+SCHEDULE_CASES = {
+    "stack_depth=13": dict(),
+    "stack_depth=23": dict(stack_depth=23, max_depth=23),
+    "iteration cap": dict(max_iterations=9),
+    "cone cutoff": dict(cone_trace=True, max_depth=3),
+    "cone": dict(cone_trace=True),
+    "skip rays": dict(),
+    "cone skip rays": dict(cone_trace=True),
+    "B=0": dict(), "B=1": dict(cone_trace=True), "B=37": dict(),
+    "B=37 cone": dict(cone_trace=True), "all dead": dict(cone_trace=True),
+}
+
+
+@pytest.mark.parametrize("case", list(SCHEDULE_CASES))
+def test_esvo_source_schedule_equals_plain(case):
+    """KE's schedule (csrc/esvo.cu, emulated by esvo_host.cpp) over the
+    rays in a permutation (a 64x32 image's tile order, or a random one
+    for other batch sizes): every slot is written (none keeps the
+    sentinel), each ray is traced once, and every field equals
+    intersect_plain in frame order; cone-traced segments take the binned
+    schedule."""
+    kw = SCHEDULE_CASES[case]
+    tree = _port_tree("terrain-64")
+    packed = traverse.make_packed_table(tree)
+    o, d, alive = _esvo_rays(tree, skip="skip" in case)
+    B = int(case.split()[0][2:]) if case.startswith("B=") else o.shape[0]
+    o, d, alive = o[:B].contiguous(), d[:B].contiguous(), alive[:B].clone()
+    if case == "all dead":
+        alive[:] = False
+    order = (traverse.tile_order(64, 32, "cpu") if B == 64 * 32 else
+             torch.from_numpy(np.random.default_rng(3).permutation(B)))
+    want = traverse.intersect_plain(packed, o, d, alive, **kw)
+    got, traced = _esvo_host(packed, o, d, alive, order, **kw)
+    assert _equal(want, got) == []
+    assert not (got["idx"] == -7).any()
+    assert torch.equal(torch.sort(traced).values, torch.arange(B))
+    if case == "iteration cap":
+        assert (want["done"] == 0).any()
+
+
+def test_esvo_source_bins_group_by_octant():
+    """The binned schedule: each block of 128 ids traces the same rays,
+    regrouped by direction octant (as _setup computes it) with the rays
+    that retire at once (inactive or not finite) last."""
+    tree = _port_tree("terrain-64")
+    packed = traverse.make_packed_table(tree)
+    o, d, alive = _esvo_rays(tree, n=1000)
+    d[7::61, 0] = -0.0                      # -0 clamps to +EPS: octant bit
+    order = torch.from_numpy(np.random.default_rng(5).permutation(1000))
+    _, traced = _esvo_host(packed, o, d, alive, order, cone_trace=True)
+    k = traverse._ray_consts(o, d, alive)
+    bins = torch.where(k["dead0"], 8, k["octant"])
+    for b0 in range(0, 1000, 128):
+        blk = traced[b0:b0 + 128]
+        assert torch.equal(torch.sort(blk).values,
+                           torch.sort(order[b0:b0 + 128]).values)
+        assert bool((bins[blk][1:] >= bins[blk][:-1]).all())
+    assert (bins == 8).any() and len(torch.unique(bins)) == 9
 
 
 def _dda_cases(name):
