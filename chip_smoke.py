@@ -924,14 +924,15 @@ def esvo_phase(dev, size, cam5, ws):
                      launches["K2"], seg[f"mode-2 skip G={G2}"][1],
                      k2_small + k2_seg),
         mode2, binned]
+    def excess(n, line):
+        return n * (line["ms"] - line["bound_ms"])
+
     say(f"[esvo {size}] KE's excess as PR 5 counted it (all {launches['KE']} "
         f"launches x (mode-2 line ms - its bound)): "
-        f"{launches['KE'] * (mode2['ms'] - mode2['bound_ms']):.1f} ms; by "
-        f"line: mode-2 "
-        f"{mode2['launches'] * (mode2['ms'] - mode2['bound_ms']):.1f}, "
-        f"bounce {binned['launches'] * (binned['ms'] - binned['bound_ms']):.1f}"
-        f" ms; ordering: the cached tile permutation, no keys or sort per "
-        f"segment")
+        f"{excess(launches['KE'], mode2):.1f} ms; by line: mode-2 "
+        f"{excess(mode2['launches'], mode2):.1f}, bounce "
+        f"{excess(binned['launches'], binned):.1f} ms; ordering: the cached "
+        f"tile permutation, no keys or sort per segment")
     del tree, packed, tabs
     torch.cuda.empty_cache()
     say(f"[esvo {size}] phase took {time.time() - t0:.1f} s")

@@ -34,10 +34,11 @@
 //     or at a crossing boundary) measured slower on every world and in
 //     both modes: a refilled ray runs on alone, out of step with the
 //     warp's coherent rays;
-//   * registers — __launch_bounds__(128, 7): ptxas fits the body in
-//     66-72 registers without spills (at 64 it spilled up to 32 bytes),
-//     28 resident warps per SM; fewer registers and more warps spilled
-//     more and ran slower;
+//   * registers — __launch_bounds__(128, 7): ptxas gives all four
+//     instantiations 72 registers, 28 resident warps per SM; the two
+//     flat-L0 ones spill 8 bytes, the paged ones none (at 64 registers
+//     they spilled up to 32 bytes); fewer registers and more warps
+//     spilled more and ran slower;
 //   * no shared memory — copying the flat L0 rows that phase 2 reads on
 //     every step into shared memory once per block (9 KB at G = 32, 68 KB
 //     at G = 64), or a paged world's page row, measured no faster at

@@ -12,8 +12,9 @@
 // any table word it needs, one crossing per call of `cross` below, until
 // the ray hits, misses or passes ITER_CAP — the per-ray answer the TPU's
 // serve loop computes (wavefront.py:1479-1534).  Between crossings the
-// ray lives in a RayState, so the kernel (wavefront.cu) can hand a lane
-// whose ray ended the next ray.  Every page's tables are at hand, so a
+// ray lives in a RayState; the kernel (wavefront.cu) does not refill a
+// lane whose ray ended: a warp takes its next 32 ids once all its lanes
+// are done.  Every page's tables are at hand, so a
 // ray never punts off an unserved page: the TPU's page-band keys
 // (:1262-1263, :1399-1402) have no counterpart.
 //

@@ -278,14 +278,14 @@ def intersect_plain(packed, o, d, alive, max_depth=C.MAX_DEPTH,
 
 @functools.lru_cache(maxsize=8)
 def _tile_order(width, height, device):
-    tiles_x = -(-width // TILE_W)
-    y, x = np.divmod(np.arange(-(-height // TILE_H) * TILE_H * tiles_x
-                               * TILE_W), tiles_x * TILE_W)
-    key = ((y // TILE_H) * tiles_x + x // TILE_W) * (TILE_W * TILE_H) \
-        + (y % TILE_H) * TILE_W + x % TILE_W
+    tx, ty = -(-width // TILE_W), -(-height // TILE_H)
+    wp = tx * TILE_W
+    # padded row-major ids taken tile by tile, then the padding dropped
+    pad = torch.arange(ty * TILE_H * wp, device=device).reshape(
+        ty, TILE_H, tx, TILE_W).permute(0, 2, 1, 3).reshape(-1)
+    y, x = pad // wp, pad % wp
     keep = (x < width) & (y < height)
-    pix = (y * width + x)[keep][np.argsort(key[keep], kind="stable")]
-    return torch.from_numpy(pix).to(device)
+    return (y * width + x)[keep]
 
 
 def tile_order(width, height, device):
@@ -367,21 +367,13 @@ def _check(packed, o, d, alive, device_type):
 
 def trace(packed, o, d, alive, order=None, **kw):
     """The decode state of each ray: kernel KE over the rays in ``order``
-    (None: frame order) for CUDA tensors; for CPU tensors its plain
-    version over the rays in the same order, written back to the rays'
-    own slots."""
-    if o.device.type != "cpu":
-        return intersect_kernel(packed, o, d, alive, order=order, **kw)
-    _check(packed, o, d, alive, "cpu")
-    _check_order(order, o.shape[0], o.device)
-    if order is None:
+    (None: ray order) for CUDA tensors, its plain version for CPU tensors
+    (in ray order: the records do not depend on the order)."""
+    if o.device.type == "cpu":
+        _check(packed, o, d, alive, "cpu")
+        _check_order(order, o.shape[0], o.device)
         return intersect_plain(packed, o, d, alive, **kw)
-    rec = intersect_plain(packed, o[order], d[order], alive[order], **kw)
-    out = {}
-    for f, v in rec.items():
-        out[f] = torch.empty_like(v)
-        out[f][order] = v
-    return out
+    return intersect_kernel(packed, o, d, alive, order=order, **kw)
 
 
 def _decode(tree, rec, o, d, alive) -> HitResult:
@@ -451,8 +443,9 @@ def intersect_octree(tree, origin, direction, max_depth=C.MAX_DEPTH,
     permutation the rays are traced in (:func:`tile_order` for a render's
     pixel rays; None: ray order), which changes no result.  ``profile``
     (a dict) receives the counts of traced rays, hits, rays still active
-    at the iteration cap and KE launches (reading them synchronizes).  Returns a HitResult
-    whose ``node`` is the SoA index of the hit node."""
+    at the iteration cap and KE launches (reading them synchronizes).
+    Returns a HitResult whose ``node`` is the SoA index of the hit
+    node."""
     if max_depth > stack_depth:
         raise ValueError(f"max_depth={max_depth} exceeds the stack_depth="
                          f"{stack_depth} stack window")

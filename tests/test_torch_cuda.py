@@ -1,7 +1,7 @@
 """Kernels K1 (explicit and camera mode, its ray keys and its persistent
 schedule), KE (its plain and binned schedules, through a permutation),
-K2 and K3 on a CUDA GPU
-against their plain PyTorch versions.  Needs a card and nvcc; skipped elsewhere.  The file imports no
+K2 and K3 on a CUDA GPU against their plain PyTorch versions.  Needs a
+card and nvcc; skipped elsewhere.  The file imports no
 jax, so on a GPU host without JAX it runs from the repository root with
 ``python -m pytest --noconftest tests/test_torch_cuda.py``."""
 

@@ -7,9 +7,9 @@ intersect_octree.
 KE's thread k traces ray order[k] and writes its record to slot
 order[k]; here intersect_plain run over the rays in tile order and
 written back through the permutation must equal intersect_plain in frame
-order in every field (tolerance: equality, NaN equal to NaN), and so
-must traverse.trace given the order (the CPU path takes it too).
-Against JAX the contract is tests/test_torch_traverse.py's: hit masks
+order in every field (tolerance: equality, NaN equal to NaN).  The CPU
+path of traverse.trace checks the order and traces in ray order.  Against
+JAX the contract is tests/test_torch_traverse.py's: hit masks
 equal on every ray and a strict-agreement share of at least MIN_STRICT
 (XLA contracts multiply-adds that the port does not form).  The scenes:
 sphere-64, terrain-64 and checker-16 octrees.  The binned schedule of
@@ -95,7 +95,8 @@ def _same(a, b):
 def test_tile_order_trace_equals_frame_order(trees, name):
     """intersect_plain over the rays in tile order, written back through
     the permutation, equals intersect_plain in frame order in every field
-    (cone-traced too); so does traverse.trace given the order."""
+    (cone-traced too), as does traverse.trace given the order (on the
+    CPU, in ray order)."""
     _, tree = trees[name]
     packed = traverse.make_packed_table(tree)
     o, d, alive = (torch.from_numpy(a) for a in _rays())
