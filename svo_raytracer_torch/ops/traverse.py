@@ -295,7 +295,10 @@ def tile_order(width, height, device):
     (the last column and row of tiles cut at the image's edge).  Built
     once per image size and device, then cached: callers must not write
     to it."""
-    return _tile_order(int(width), int(height), torch.device(device))
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:   # "cuda" and "cuda:0" alike
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return _tile_order(int(width), int(height), dev)
 
 
 def intersect_kernel(packed, o, d, alive, max_depth=C.MAX_DEPTH,
