@@ -927,7 +927,7 @@ def esvo_phase(dev, size, cam5, ws):
     def excess(n, line):
         return n * (line["ms"] - line["bound_ms"])
 
-    say(f"[esvo {size}] KE's excess as PR 5 counted it (all {launches['KE']} "
+    say(f"[esvo {size}] KE's excess on one line (all {launches['KE']} "
         f"launches x (mode-2 line ms - its bound)): "
         f"{excess(launches['KE'], mode2):.1f} ms; by line: mode-2 "
         f"{excess(mode2['launches'], mode2):.1f}, bounce "

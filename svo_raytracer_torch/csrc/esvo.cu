@@ -27,8 +27,9 @@
 //     (4% faster on the bounce segment; 4% slower on primaries and shadow
 //     rays, which already share a direction, so only there);
 //   * the stack — the node-only, never-cleared stack of esvo_ray.cuh in
-//     local memory (96 B of stack frame, against PR 3's 184 B cleared
-//     per ray); stacks in shared memory measured slower;
+//     local memory (96 B of stack frame, where node and word arrays
+//     cleared per ray took 184 B); stacks in shared memory measured
+//     slower;
 //   * registers — __launch_bounds__(128, 12): 12 resident blocks (48
 //     warps) per SM; persistent warps that take 32 ids per atomicAdd
 //     (K1's scheme) measured 2-7% slower.

@@ -22,7 +22,7 @@
 // cleared; a stored slot keeps its entry until it is overwritten, as in
 // the reference.  The array is indexed by scale, 23 x 4 B of local memory
 // of which the stack_depth window is used (PERF.md §6 has the places
-// measured for it: PR 3's cleared node and word arrays, node and word in
+// measured for it: cleared node and word arrays, node and word in
 // shared memory, node only in shared memory).  The outputs are the state
 // fields traverse.py::_decode reads (_DECODE_STATE, :435-436); the decode
 // itself stays in PyTorch.
