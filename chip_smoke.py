@@ -78,6 +78,9 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 SEED = 1          # heightmap seed: bench.py's camera rule then sees sky
+# what is too long for the end of the output (git-ignored)
+OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "chiprun_out")
 W, H = 1920, 1080
 WARM_FRAMES, TIMED_FRAMES = 2, 20
 BIG_TIMED_FRAMES = 10     # 2048^3 and 4096^3 worlds
@@ -275,6 +278,73 @@ def timed(fn, reps=1, warm=True):
     return out, start.elapsed_time(end) / reps
 
 
+# the name (a substring) each kernel's launches carry in a profiler trace
+KERNEL_NAMES = {"K1": "wf_trace_kernel", "K1 keys": "ray_key_kernel",
+                "KE": "esvo_trace_kernel", "K2": "dda_kernel",
+                "K3": "round_kernel"}
+
+
+def device_ms(fn, reps, kernel):
+    """Mean device duration (ms) of the launches of the kernel named
+    ``kernel`` (a substring) over ``reps`` calls of ``fn``, from a
+    torch.profiler trace; every call must launch it once."""
+    durs = [e["dur"] for e in profiled(fn, reps)
+            if e["cat"] == "kernel" and kernel in e["name"]]
+    if len(durs) != reps:
+        raise AssertionError(f"{len(durs)} launches of {kernel} in the "
+                             f"profile of {reps} calls")
+    return sum(durs) / reps / 1e3
+
+
+def profiled(fn, reps=1):
+    """The device events of ``reps`` calls of ``fn`` under
+    torch.profiler (trace_events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return trace_events(prof, "calls")
+
+
+def device_busy_ms(fn, reps):
+    """Device time (ms) of all the kernels, memcpys and memsets one call
+    of ``fn`` launches, the mean over ``reps`` calls under
+    torch.profiler."""
+    return sum(e["dur"] for e in profiled(fn, reps)) / reps / 1e3
+
+
+def launched_kernels(fn):
+    """Names of the device kernels one call of ``fn`` launches."""
+    return [e["name"] for e in profiled(fn) if e["cat"] == "kernel"]
+
+
+def trace_events(prof, tag):
+    """The device events (kernels, memcpys, memsets) of a torch.profiler
+    run, through its chrome trace (svo_raytracer_torch/_build/profile/
+    trace_<tag>.json)."""
+    from svo_raytracer_torch.ops import kernel_build
+    outdir = kernel_build.BUILD_DIR / "profile"
+    outdir.mkdir(parents=True, exist_ok=True)
+    path = str(outdir / f"trace_{tag.replace(' ', '_')}.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        return [e for e in json.load(f)["traceEvents"]
+                if e.get("ph") == "X" and e.get("cat") in
+                ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def kernel_times(fn, reps, kname):
+    """(result of the last call, the kernel's device ms, ms per call by
+    CUDA events): ``reps`` calls timed by events after a warm one, then
+    as many under torch.profiler."""
+    out, call_ms = timed(fn, reps)
+    return out, device_ms(fn, reps, KERNEL_NAMES[kname]), call_ms
+
+
 class Gathered:
     """Within ``with``, the distinct words of ``tables`` that indexing
     (``Tensor.__getitem__``, the plain versions' gathers) reads, through
@@ -329,7 +399,8 @@ def unequal(rec_a, rec_b):
 class Held:
     """A kernel against its plain version on one input set: every field of
     the (dict) records equal on every ray, NaN equal to NaN.  Times the
-    kernel by CUDA events (ms per launch) and its plain version once.
+    kernel (``ms``: its device time by torch.profiler; ``call_ms``: per
+    call by CUDA events) and its plain version once.
     ``bound_ms`` is the least time for the set's own work: ``ray_bytes``
     (ray inputs and records, once) plus the distinct words of ``tables``
     that the plain version gathers (counted on a second, untimed run), and
@@ -337,7 +408,7 @@ class Held:
 
     def __init__(self, kname, name, kernel, plain, ray_bytes, tables, steps,
                  reps=3):
-        rec_k, self.ms = timed(kernel, reps)
+        rec_k, self.ms, self.call_ms = kernel_times(kernel, reps, kname)
         rec_p, self.plain_ms = timed(plain, warm=False)
         diff, self.err = unequal(rec_k, rec_p)
         self.rec, self.rec_p = rec_k, rec_p
@@ -351,8 +422,9 @@ class Held:
         say(f"  {kname} {name}: rays {len(next(iter(rec_k.values())))} "
             f"steps {n_steps} table words read {self.words} unequal fields "
             f"{ {f: n for f, n in diff.items() if n} or 0} kernel "
-            f"{self.ms:.3f} ms plain {self.plain_ms:.1f} ms bound "
-            f"{self.bound_ms:.4f} ms ({self.bound_by})")
+            f"{self.ms:.4f} ms of device time ({self.call_ms:.4f} ms per "
+            f"call) plain {self.plain_ms:.1f} ms bound {self.bound_ms:.4f} "
+            f"ms ({self.bound_by})")
         if any(diff.values()):
             raise AssertionError(f"{kname} {name}: kernel record differs "
                                  f"from its plain version on {diff}")
@@ -374,9 +446,11 @@ class Agreement(Held):
     (wavefront.ray_order, as the main path traces explicit rays): every
     record field (status, t, cell, widx, iters) of every ray, as Held.
     Holds K1's key kernel against ray_keys_plain on the set (``keys``)
-    and times the keys and their sort (``key_sort_ms``) apart from K1.
-    With ``frame_order``, K1 also runs over the rays in frame order, held
-    to the same records and timed (``frame_ms``).  Keeps the kernel's
+    and times the keys and their sort apart from K1 (``key_sort_ms`` by
+    CUDA events, ``key_sort_device_ms`` the device time of all they
+    launch).  With ``frame_order``, K1 also runs over the rays in frame
+    order, held to the same records and timed (``frame_ms``, device
+    time).  Keeps the kernel's
     decoded HitResult (``res_k``) for the next segment of a frame and
     prints K1's active rays, hits, coarse steps per active ray and step
     rate."""
@@ -390,6 +464,8 @@ class Agreement(Held):
         self.keys = hold_keys(ws, name, o, d, alive)
         order, self.key_sort_ms = timed(lambda: wf.ray_order(ws, o, d,
                                                              alive), reps)
+        self.key_sort_device_ms = device_busy_ms(
+            lambda: wf.ray_order(ws, o, d, alive), reps)
 
         def record(trace, *perm):
             return lambda: dict(zip(self.FIELDS, trace(ws, o, d, alive,
@@ -412,17 +488,19 @@ class Agreement(Held):
             f"{steps.mean().item():.1f} max "
             f"{int(steps.max().item()) if steps.numel() else 0}; K1 in key "
             f"order {self.ms:.4f} ms, {rate / self.ms:.3f} G steps/s; keys "
-            f"+ sort {self.key_sort_ms:.4f} ms")
+            f"+ sort {self.key_sort_device_ms:.4f} ms of device time "
+            f"({self.key_sort_ms:.4f} ms by events)")
         self.frame_ms = None
         if frame_order:
-            rec_f, self.frame_ms = timed(record(wf.trace_kernel, None), reps)
+            rec_f, self.frame_ms, _ = kernel_times(
+                record(wf.trace_kernel, None), reps, "K1")
             diff, _ = unequal(rec_f, self.rec_p)
             say(f"    K1 in frame order {self.frame_ms:.4f} ms, "
                 f"{rate / self.frame_ms:.3f} G steps/s; unequal fields "
                 f"{ {f: n for f, n in diff.items() if n} or 0}; key order "
                 f"{self.frame_ms / self.ms:.3f}x faster, "
-                f"{self.frame_ms / (self.ms + self.key_sort_ms):.3f}x with "
-                f"its keys and sort")
+                f"{self.frame_ms / (self.ms + self.key_sort_device_ms):.3f}"
+                f"x with its keys and sort")
             if any(diff.values()):
                 raise AssertionError(f"K1 {name} in frame order differs from "
                                      f"trace_plain on {diff}")
@@ -451,18 +529,51 @@ def hold_ke(name, packed, o, d, alive, order=None, **kw):
     return held
 
 
-def hold_k2(name, tab, G, o, d, alive):
-    """K2 vs brick_dda.coarse_dda_plain; steps are the cells visited (the
-    crossings plus the cell each live ray starts or stops in)."""
+def hold_in_both_orders(held, kname, kernel):
+    """After ``held`` (the kernel over the rays in a permutation, the new
+    schedule): the kernel in ray order (``kernel(None)``), held to the
+    same records and timed (``ray_ms`` device, ``ray_call_ms`` by
+    events)."""
+    rec, held.ray_ms, held.ray_call_ms = kernel_times(lambda: kernel(None),
+                                                      3, kname)
+    diff, _ = unequal(rec, held.rec_p)
+    say(f"    ray order: kernel {held.ray_ms:.4f} ms of device time "
+        f"({held.ray_call_ms:.4f} ms per call), unequal fields "
+        f"{ {f: n for f, n in diff.items() if n} or 0}; the permutation "
+        f"{held.ray_ms / held.ms:.3f}x faster")
+    if any(diff.values()):
+        raise AssertionError(f"{kname} in ray order differs from its plain "
+                             f"version on {diff}")
+    return held
+
+
+def permutation(n, dev, seed=5):
+    """A seeded random (n,) int64 permutation on dev."""
+    import torch
+    return torch.from_numpy(np.random.default_rng(seed).permutation(n)).to(
+        dev)
+
+
+def hold_k2(name, tab, G, o, d, alive, order):
+    """K2 vs brick_dda.coarse_dda_plain, the kernel over the rays in
+    ``order`` (a render's tile order, or a permutation), then in ray
+    order; the rays as the caller gives them (``alive`` None: every ray;
+    directions may be one row expanded).  Steps are the cells visited
+    (the crossings plus the cell each live ray starts or stops in)."""
+    import torch
     from svo_raytracer_torch.ops import brick_dda
-    o, d, alive = o.contiguous(), d.contiguous(), alive.contiguous()
-    return Held("K2", name,
-                lambda: brick_dda.coarse_dda_kernel(tab, o, d, G, 3 * G,
-                                                    alive),
+    live = (torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
+            if alive is None else alive)
+
+    def kernel(perm):
+        return brick_dda.coarse_dda_kernel(tab, o, d, G, 3 * G, alive, perm)
+
+    held = Held("K2", name, lambda: kernel(order),
                 lambda: brick_dda.coarse_dda_plain(tab, o, d, G, 3 * G,
-                                                   alive),
-                o.shape[0] * (12 + 12 + 1 + 4 * 6), [tab],
-                lambda r: int(r["steps"].sum()) + int(alive.sum()))
+                                                   live),
+                o.shape[0] * (12 + 12 + 1 + 1 + 4 * 5), [tab],
+                lambda r: int(r["steps"].sum()) + int(live.sum()))
+    return hold_in_both_orders(held, "K2", kernel)
 
 
 def hold_camera(ws, cam5):
@@ -516,23 +627,29 @@ def camera_contract(ws, cam_held, explicit, origins, dirs):
     return dict(rays_differing=differ, max_abs_dt=dt)
 
 
-def hold_k3(name, scene, o, d, alive, max_rounds=24):
-    """K3 vs brick_pallas.trace_plain; steps are the DDA steps over all
-    rounds (both phases)."""
+def hold_k3(name, scene, o, d, alive, order, max_rounds=K3_ROUNDS):
+    """K3 vs brick_pallas.trace_plain, the kernel over the rays in
+    ``order`` (a render's tile order, or a permutation), then in ray
+    order; steps are the DDA steps over all rounds (both phases)."""
     from svo_raytracer_torch.ops import brick_pallas as bp
     o, d, alive = o.contiguous(), d.contiguous(), alive.contiguous()
-    return Held("K3", name,
-                lambda: bp.trace_kernel(scene, o, d, alive, max_rounds),
+
+    def kernel(perm):
+        return bp.trace_kernel(scene, o, d, alive, max_rounds, perm)
+
+    held = Held("K3", name, lambda: kernel(order),
                 lambda: bp.trace_plain(scene, o, d, alive, max_rounds),
-                o.shape[0] * (12 + 12 + 1 + 4 * len(bp.FIELDS)),
+                o.shape[0] * (12 + 12 + 1 + 1 + 4 * (len(bp.FIELDS) - 1)),
                 [getattr(scene, f) for f in scene.ARRAYS],
                 lambda r: int(r["iters"].sum()))
+    return hold_in_both_orders(held, "K3", kernel)
 
 
 def k3_small_checks(dev, small):
     """K3 vs its plain version on the small scenes' 4,096 random rays
-    (every 50th inactive), then on terrain-64 cut at K3_CUT_ROUNDS rounds.
-    Gate: the cut leaves some rays pending that finish with all rounds."""
+    (every 50th inactive), then on terrain-64 cut at K3_CUT_ROUNDS rounds,
+    each over a random permutation and in ray order.  Gate: the cut
+    leaves some rays pending that finish with all rounds."""
     import torch
     out, full = [], {}
     for sname, scene, (o, d) in small:
@@ -541,11 +658,12 @@ def k3_small_checks(dev, small):
         dv = torch.from_numpy(d).to(dev)
         alive = torch.ones(o.shape[0], dtype=torch.bool, device=dev)
         alive[::50] = False
-        full[sname] = hold_k3(sname, dscene, ov, dv, alive)
+        perm = permutation(o.shape[0], dev)
+        full[sname] = hold_k3(sname, dscene, ov, dv, alive, perm)
         out.append(full[sname])
         if sname == "terrain-64":
             cut = hold_k3(f"{sname} max_rounds {K3_CUT_ROUNDS}", dscene, ov,
-                          dv, alive, K3_CUT_ROUNDS)
+                          dv, alive, perm, K3_CUT_ROUNDS)
             out.append(cut)
             ran_out = int((cut.rec["iters"] < full[sname].rec["iters"])
                           .sum())
@@ -554,6 +672,16 @@ def k3_small_checks(dev, small):
             if ran_out == 0:
                 raise AssertionError("no ray ran out of rounds")
     return out
+
+
+def only_kernel(what, fn, kname):
+    """Gate: one call of ``fn`` (a kernel's wrapper on a main-path input)
+    launches that kernel and no other device kernel."""
+    names = launched_kernels(fn)
+    say(f"    {what}: device kernels of one call {len(names)}: "
+        f"{[n[:60] for n in names]}")
+    if len(names) != 1 or KERNEL_NAMES[kname] not in names[0]:
+        raise AssertionError(f"{what} launched {names}")
 
 
 class capture:
@@ -654,7 +782,7 @@ def esvo_small_checks(dev):
             tab = torch.from_numpy(brick_scene.table_rows(
                 skip_grid.build_skip_grid(tree, G))).to(dev)
             k2.append(hold_k2(f"{sname} G={G}", tab, G, (o - 1.0) * float(G),
-                              d, alive))
+                              d, alive, permutation(4096, dev)))
     return ke, k2
 
 
@@ -729,10 +857,12 @@ def esvo_frames(tree, packed, tabs, cam5):
 def esvo_segment_checks(tree, packed, tabs, cam5):
     """KE and K2 against their plain versions on every segment of one frame
     of each skip-grid configuration (their inputs recorded as
-    render_image makes them; KE in the render's tile order, the bounce in
-    the binned schedule).  The mode-0 bounce segment is also traced in
-    ray order and held to the same records.  Returns ({label: (KE checks,
-    K2 checks)}, the bounce's ray-order check).  Gates that K2 marches
+    render_image makes them; KE and K2 in the render's tile order, the
+    bounce in the binned schedule).  K2 on every segment and the mode-0
+    bounce segment's KE are also traced in ray order and held to the same
+    records.  Returns ({label: (KE checks, K2 checks)}, the bounce's
+    ray-order check).  Gates that KE and K2 took the same tile
+    permutation, that K2's wrapper launches K2 alone, and that K2 marches
     (takes steps) on the G = 64 frame."""
     import torch
     from svo_raytracer_torch.ops import brick_dda, shade, traverse
@@ -753,14 +883,16 @@ def esvo_segment_checks(tree, packed, tabs, cam5):
             say(f"    bounce: tile order {ke[1].ms:.4f} ms, ray order "
                 f"{bounce_ray_order.ms:.4f} ms "
                 f"({bounce_ray_order.ms / ke[1].ms:.3f}x)")
+        tiles = traverse.tile_order(W, H, cam5.device)
+        if not all(k["order"] is tiles for _, k in ke_calls + k2_calls):
+            raise AssertionError(f"{label}: KE and K2 did not both take the "
+                                 f"render's tile order")
         k2 = []
         for n, ((occ, o, d), k) in zip(segs, k2_calls):
-            alive = k["active"]
-            if alive is None:
-                alive = torch.ones(o.shape[0], dtype=torch.bool,
-                                   device=o.device)
             k2.append(hold_k2(f"{label} {n} segment", occ, k["grid_size"], o,
-                              d, alive))
+                              d, k["active"], k["order"]))
+            only_kernel(f"K2's wrapper on the {label} {n} segment",
+                        lambda: brick_dda.coarse_dda(occ, o, d, **k), "K2")
         out[label] = (ke, k2)
     marched = int(out[f"mode-2 skip G={2 * SKIP_G}"][1][0].rec["steps"].sum())
     if marched == 0:
@@ -890,6 +1022,11 @@ def esvo_phase(dev, size, cam5, ws):
         skip_reading=skip_reading,
         segment_ms={label: dict(KE=[c.ms for c in ke], K2=[c.ms for c in k2])
                     for label, (ke, k2) in seg.items()},
+        segment_call_ms={label: dict(KE=[c.call_ms for c in ke],
+                                     K2=[c.call_ms for c in k2])
+                         for label, (ke, k2) in seg.items()},
+        segment_k2_ray_order_ms={label: [c.ray_ms for c in k2]
+                                 for label, (_, k2) in seg.items()},
         segment_ke_g_steps_per_s={label: [c.rate for c in ke]
                                   for label, (ke, _) in seg.items()},
         bounce_ray_order_ms=bounce_ray_order.ms, tile_order_build_ms=tile_ms,
@@ -942,18 +1079,21 @@ def esvo_phase(dev, size, cam5, ws):
 def k3_phase(dev, scene, cam5, wave_depth, small_checks):
     """The K3 path on a world's host BrickScene: shade.shade_direct (render
     mode 2) at W x H from the probe camera, its intersect_fn
-    brick_pallas.intersect_bricks_tpu over the scene on the card (two K3
-    launches per frame: primary and shadow).  One frame with per-segment
+    brick_pallas.intersect_bricks_tpu over the scene on the card, the rays
+    in the image's 8x4 pixel tiles (two K3 launches per frame: primary
+    and shadow).  One frame with per-segment
     stats, then ESVO_WARM_FRAMES and ESVO_TIMED_FRAMES timed alone each,
     with K3's launch count set to 0 just before and read just after; then
     K3 vs its plain version on both segments of a frame, and a profile of
     the frame.  Gates: finite colour on >= 99.9% of pixels and the primary
     hit mask equal to that of the wavefront mode-2 frame (``wave_depth``)
-    on >= 99.9% of pixels.  Returns (summary, kernel entry)."""
+    on >= 99.9% of pixels; the primaries where the two differ are written
+    to OUT_DIR/k3_mask_rays.npz; both segments took the tile order and
+    K3's wrapper launches K3 alone.  Returns (summary, kernel entry)."""
     import functools
     import torch
     from svo_raytracer_torch.ops import brick_pallas as bp
-    from svo_raytracer_torch.ops import shade
+    from svo_raytracer_torch.ops import shade, traverse
     size = scene.world_size
     t0 = time.time()
     dscene = scene.to_device(dev)
@@ -963,7 +1103,9 @@ def k3_phase(dev, scene, cam5, wave_depth, small_checks):
         f"n_mixed {dscene.n_mixed}, table bytes {nbytes}")
     dirs = shade._normalize(shade.pixel_dirs_device(cam5, W, H))
     origins = cam5[0].expand_as(dirs)
-    isect = functools.partial(bp.intersect_bricks_tpu, dscene)
+    # both segments trace the W*H pixel rays in the image's 8x4 tiles
+    tiles = traverse.tile_order(W, H, dev)
+    isect = functools.partial(bp.intersect_bricks_tpu, dscene, order=tiles)
     stats = []
 
     def isect_stats(o, d, active=None, **kw):
@@ -1003,8 +1145,19 @@ def k3_phase(dev, scene, cam5, wave_depth, small_checks):
     # the primaries where the masks differ, traced again with 4x the
     # rounds: those that change ran out of rounds in the frame
     off = torch.nonzero((hit != (wave_depth > 0)).reshape(-1)).flatten()
-    more = isect(origins[off], dirs[off], max_rounds=4 * K3_ROUNDS)
+    more = bp.intersect_bricks_tpu(dscene, origins[off], dirs[off],
+                                   max_rounds=4 * K3_ROUNDS)
     changed = int((more.hit != hit.reshape(-1)[off]).sum())
+    # the rays for a reading on the CPU against the JAX package's engines
+    os.makedirs(OUT_DIR, exist_ok=True)
+    np.savez(os.path.join(OUT_DIR, "k3_mask_rays.npz"),
+             pixel=off.cpu().numpy(), origins=origins[off].cpu().numpy(),
+             dirs=dirs[off].cpu().numpy(),
+             k3_hit=hit.reshape(-1)[off].cpu().numpy(),
+             k3_depth=depth.reshape(-1)[off].cpu().numpy(),
+             wave_depth=wave_depth.reshape(-1)[off].cpu().numpy(),
+             k3_hit_more_rounds=more.hit.cpu().numpy(),
+             cam5=cam5.cpu().numpy(), world_size=size, seed=SEED)
     say(f"[k3 vs wavefront {size}] mode-2 primary hit mask agrees on "
         f"{agree:.6f} of pixels ({off.numel()} differ; of these, "
         f"{changed} change with {4 * K3_ROUNDS} rounds instead of "
@@ -1019,8 +1172,16 @@ def k3_phase(dev, scene, cam5, wave_depth, small_checks):
     # ---- K3 vs plain on both segments of a frame
     with capture(bp, "trace") as calls:
         shade.shade_direct(None, origins, dirs, intersect_fn=isect)
-    segs = [hold_k3(f"mode-2 {n} segment", *a, **k)
-            for n, (a, k) in zip(("primary", "shadow"), calls)]
+    segs = []
+    for n, ((sc, o, d, alive, rounds, order), _) in zip(
+            ("primary", "shadow"), calls):
+        if order is not tiles:
+            raise AssertionError(f"the {n} segment did not take the tile "
+                                 f"order")
+        segs.append(hold_k3(f"mode-2 {n} segment", sc, o, d, alive, order,
+                            rounds))
+        only_kernel(f"K3's wrapper on the {n} segment",
+                    lambda: bp.trace(sc, o, d, alive, rounds, order), "K3")
     prof = profile_window(
         f"k3 {size} mode-2",
         lambda i: shade.shade_direct(None, origins, dirs, intersect_fn=isect),
@@ -1031,6 +1192,8 @@ def k3_phase(dev, scene, cam5, wave_depth, small_checks):
                    differing_pixels=off.numel(),
                    differing_changed_by_more_rounds=changed,
                    segment_ms=[c.ms for c in segs],
+                   segment_call_ms=[c.call_ms for c in segs],
+                   segment_ray_order_ms=[c.ray_ms for c in segs],
                    segment_plain_ms=[c.plain_ms for c in segs])
     entry = kernel_entry(f"K3 v1 brick-round traversal, {size}^3 mode-2 "
                          f"segments", "svo_raytracer_torch/csrc/brick_round.cu",
@@ -1242,9 +1405,6 @@ def profile_window(tag, render, kernels, unprof_ms):
     the host-timed profiled span."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from svo_raytracer_torch.ops import kernel_build
-    outdir = kernel_build.BUILD_DIR / "profile"
-    outdir.mkdir(parents=True, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -1253,12 +1413,7 @@ def profile_window(tag, render, kernels, unprof_ms):
             render(i)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / PROFILED_FRAMES
-    path = str(outdir / f"trace_{tag.replace(' ', '_')}.json")
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        ev = [e for e in json.load(f)["traceEvents"]
-              if e.get("ph") == "X" and e.get("cat") in
-              ("kernel", "gpu_memcpy", "gpu_memset")]
+    ev = trace_events(prof, tag)
     if not ev:
         raise AssertionError("the profiler recorded no device activity")
     busy, end = 0.0, float("-inf")
@@ -1329,9 +1484,11 @@ def check_attr16(dev, scene, ws, rays):
 def kernel_entry(name, source, replaces, launches, timed_checks,
                  all_checks):
     """A kernel's line of the kernels table: times are the means over
-    ``timed_checks``, the bound that of their mean bytes and operations,
-    max_abs_err the largest over ``all_checks``.  No PyTorch call computes
-    what the port's kernels compute, so library_ms is null."""
+    ``timed_checks`` (``ms`` the kernel's device time by torch.profiler,
+    ``call_ms`` per call by CUDA events), the bound that of their mean
+    bytes and operations, max_abs_err the largest over ``all_checks``.
+    No PyTorch call computes what the port's kernels compute, so
+    library_ms is null."""
     bound_ms, bound_by = bound(np.mean([c.nbytes for c in timed_checks]),
                                np.mean([c.ops for c in timed_checks]))
     return dict(
@@ -1339,6 +1496,7 @@ def kernel_entry(name, source, replaces, launches, timed_checks,
         launches=launches,
         max_abs_err=max(c.err for c in all_checks),
         ms=float(np.mean([c.ms for c in timed_checks])),
+        call_ms=float(np.mean([c.call_ms for c in timed_checks])),
         plain_ms=float(np.mean([c.plain_ms for c in timed_checks])),
         bound_ms=float(bound_ms), bound_by=bound_by, library_ms=None)
 
@@ -1369,21 +1527,26 @@ def build_kernels():
 
 
 def print_ranking(kernels, order_ms):
-    """Each kernels line's launches x (ms - bound_ms), and K1's total with
-    its ray ordering: its traversal lines plus ``order_ms``, the main
-    path's explicit segments times their keys + sort ms (timed together,
-    so the key kernel's own line is not added again)."""
+    """Each kernels line's launches x (ms - bound_ms), ms the kernel's
+    device time, and K1's total with its ray ordering: its traversal
+    lines plus ``order_ms``, the main path's explicit segments times the
+    device time of their keys + sort (profiled together, so the key
+    kernel's own line is not added again)."""
     rank = {k["name"]: k["launches"] * (k["ms"] - k["bound_ms"])
             for k in kernels}
     k1 = sum(v for n, v in rank.items() if n.startswith("K1 wavefront"))
     ke = sum(v for n, v in rank.items() if n.startswith("KE per-ray"))
-    say(f"[ranking] launches x (ms - bound_ms): {json.dumps(rank)}")
+    say(f"[ranking] launches x (device ms - bound_ms): {json.dumps(rank)}")
     say(f"[ranking] K1 {k1:.1f} ms; ordering (keys + torch.sort on every "
         f"explicit segment) {order_ms:.1f} ms; K1 with its ordering "
         f"{k1 + order_ms:.1f} ms")
     say(f"[ranking] KE {ke:.1f} ms; ordering (keys + sort per segment) 0.0 "
         f"ms: every segment takes the cached tile permutation; KE with its "
-        f"ordering {ke:.1f} ms")
+        f"ordering {ke:.1f} ms; K3 and K2 take the same permutation")
+    by_call = {k["name"]: k["launches"] * (k["call_ms"] - k["bound_ms"])
+               for k in kernels}
+    say(f"[ranking] by CUDA events per call, launches x (call ms - "
+        f"bound_ms): {json.dumps(by_call)}")
 
 
 def print_grids(ws):
@@ -1466,6 +1629,8 @@ def main():
             segment_ms=[a.ms for a in seg],
             segment_plain_ms=[a.plain_ms for a in seg],
             segment_key_sort_ms=[a.key_sort_ms for a in seg],
+            segment_key_sort_device_ms=[a.key_sort_device_ms for a in seg],
+            segment_call_ms=[a.call_ms for a in seg],
             segment_key_kernel_ms=[a.keys.ms for a in seg],
             segment_active=[a.active for a in seg],
             segment_g_steps_per_s=[a.rate / a.ms for a in seg],
@@ -1475,7 +1640,7 @@ def main():
             camera_vs_explicit=contract)
         key_launches += launches["K1_keys"]
         order_ms += launches["K1_keys"] * float(
-            np.mean([a.key_sort_ms for a in seg[1:]]))
+            np.mean([a.key_sort_device_ms for a in seg[1:]]))
         key_timed += [a.keys for a in seg[1:]]
         key_all += [a.keys for a in seg + [sampled]]
         if profiled:

@@ -6,10 +6,16 @@
 //
 // What bounds it on Hopper: each step is a load of one occupancy word at
 // a data-dependent address.  The table is small (G^2 * ceil(G/32) words:
-// 4 KB at G = 32, 32 KB at G = 64), so each block first copies all of it
-// into shared memory and the march then reads shared memory only; what
-// is left is the per-step integer and float work of up to 3G steps, and
-// warp divergence between rays that stop at different steps.
+// 4 KB at G = 32, 32 KB at G = 64), so it is read from shared memory;
+// what is left is the per-step integer and float work of up to 3G steps,
+// and warp divergence between rays that stop at different steps.
+//
+// Variants (build macros, for timing): K2_STAGE, the table copied into
+// dynamic shared memory sized to its G^2 * W words (else read through the
+// read-only path); K2_RESIDENT, a grid of the resident blocks taking the
+// rays by a static grid stride, each block staging the table once (else
+// one id per thread, every block staging it); K2_PREFETCH, each thread's
+// first ray loaded before the block's __syncthreads().
 //
 // Built by ops/kernel_build.py with nvcc -gencode arch=compute_90a,
 // code=sm_90a -O3 -fmad=false into a shared library with a plain C entry
@@ -21,51 +27,150 @@
 
 #include "brick_dda.cuh"
 
+#ifndef K2_STAGE
+#define K2_STAGE 1
+#endif
+#ifndef K2_RESIDENT
+#define K2_RESIDENT 1
+#endif
+#ifndef K2_PREFETCH
+#define K2_PREFETCH 1
+#endif
+
 namespace {
 
-constexpr int MAX_WORDS = 64 * 64 * 2;  // G <= 64: 32 KB of static shared
+constexpr int MAX_G = 64;
+constexpr int THREADS = 256;
 
-__global__ void __launch_bounds__(256)
-dda_kernel(const int32_t* __restrict__ table, int G, int W, int max_steps,
-           const float* __restrict__ origins, const float* __restrict__ dirs,
-           const uint8_t* __restrict__ active, int n,
-           int32_t* __restrict__ hit, float* __restrict__ t,
-           int32_t* __restrict__ cell, int32_t* __restrict__ steps) {
-  __shared__ int32_t tab[MAX_WORDS];
-  const int n_words = G * G * W;
-  for (int w = threadIdx.x; w < n_words; w += blockDim.x) tab[w] = table[w];
+struct Args {
+  const int32_t* __restrict__ table;
+  int G, W, max_steps;
+  const float* __restrict__ origins;
+  const float* __restrict__ dirs;
+  int o_stride, d_stride;  // floats from one ray's row to the next
+  const uint8_t* __restrict__ active;  // or null: every ray active
+  const int64_t* __restrict__ order;   // thread k traces order[k]; or null
+  int n;
+  uint8_t* __restrict__ hit;
+  float* __restrict__ t;
+  int32_t* __restrict__ cell;
+  int32_t* __restrict__ steps;
+};
+
+struct Ray {
+  int i;
+  float o[3], d[3];
+  bool act;
+};
+
+__device__ inline Ray load_ray(const Args& a, int k) {
+  Ray r;
+  r.i = a.order ? (int)a.order[k] : k;
+  const float* o = a.origins + (size_t)a.o_stride * r.i;
+  const float* d = a.dirs + (size_t)a.d_stride * r.i;
+  for (int c = 0; c < 3; ++c) {
+    r.o[c] = o[c];
+    r.d[c] = d[c];
+  }
+  r.act = a.active ? a.active[r.i] != 0 : true;
+  return r;
+}
+
+__device__ inline void trace_one(const Args& a, const int32_t* tab,
+                                 const Ray& ray) {
+  const dda::Out r = dda::march<!K2_STAGE>(
+      tab, a.G, a.W, a.max_steps, ray.o[0], ray.o[1], ray.o[2], ray.d[0],
+      ray.d[1], ray.d[2], ray.act);
+  const int i = ray.i;
+  a.hit[i] = (uint8_t)r.hit;
+  a.t[i] = r.t;
+  a.cell[3 * i] = r.cx;
+  a.cell[3 * i + 1] = r.cy;
+  a.cell[3 * i + 2] = r.cz;
+  a.steps[i] = r.steps;
+}
+
+__global__ void __launch_bounds__(THREADS) dda_kernel(Args a) {
+  extern __shared__ int32_t tab_s[];
+  int k = blockIdx.x * THREADS + threadIdx.x;
+  const int stride = gridDim.x * THREADS;
+  Ray ray;
+  bool loaded = K2_PREFETCH && k < a.n;
+  if (loaded) ray = load_ray(a, k);
+#if K2_STAGE
+  const int n_words = a.G * a.G * a.W;
+  for (int w = threadIdx.x; w < n_words; w += THREADS)
+    tab_s[w] = (int32_t)dda::ldg(a.table + w);
   __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const dda::Out r = dda::march(
-      tab, G, W, max_steps, origins[3 * i], origins[3 * i + 1],
-      origins[3 * i + 2], dirs[3 * i], dirs[3 * i + 1], dirs[3 * i + 2],
-      active[i] != 0);
-  hit[i] = r.hit;
-  t[i] = r.t;
-  cell[3 * i] = r.cx;
-  cell[3 * i + 1] = r.cy;
-  cell[3 * i + 2] = r.cz;
-  steps[i] = r.steps;
+  const int32_t* tab = tab_s;
+#else
+  const int32_t* tab = a.table;
+#endif
+  for (; k < a.n; k += stride) {
+    if (!loaded) ray = load_ray(a, k);
+    loaded = false;
+    trace_one(a, tab, ray);
+  }
+}
+
+// The grid over n rays and its dynamic shared memory: one id per thread,
+// or (K2_RESIDENT) the resident blocks when n fills more.
+cudaError_t grid_of(int n, int smem, int* blocks) {
+  *blocks = (n + THREADS - 1) / THREADS;
+  if (!K2_RESIDENT) return cudaSuccess;
+  static int cached_dev = -1, cached_smem = -1, cached_resident = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev != cached_dev || smem != cached_smem) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dda_kernel,
+                                                      THREADS, smem);
+    if (e != cudaSuccess) return e;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    cached_dev = dev;
+    cached_smem = smem;
+    cached_resident = per_sm * sms;
+  }
+  if (cached_resident < *blocks) *blocks = cached_resident;
+  return cudaSuccess;
+}
+
+int table_smem(int G) {
+  return K2_STAGE ? G * G * ((G + 31) / 32) * (int)sizeof(int32_t) : 0;
 }
 
 }  // namespace
 
-// table: >= G*G*W i32 words; origins, dirs: (n, 3) f32 grid units;
-// active: (n,) u8.  Outputs hit, t, steps (n,) and cell (n, 3).  Returns
-// the cudaError_t of the launch (0 on success); G > 64 is refused
-// (cudaErrorInvalidValue).
+// table: >= G*G*W i32 words; origins, dirs: (n, 3) f32 grid units, rows
+// o_stride and d_stride floats apart (3, or 0 for one row shared by every
+// ray); active: (n,) u8, or null for every ray; order: (n,) i64
+// permutation the rays are traced in, or null for ray order.  Outputs at
+// the rays' own slots: hit (n,) u8 (0 or 1, the bytes of a bool tensor),
+// t, steps (n,) and cell (n, 3).  Returns the cudaError_t of the launch (0 on success);
+// G outside [1, 64] is refused (cudaErrorInvalidValue).
 extern "C" int dda_march(const int32_t* table, int G, int max_steps,
-                         const float* origins, const float* dirs,
-                         const uint8_t* active, int n, int32_t* hit,
-                         float* t, int32_t* cell, int32_t* steps,
-                         void* stream) {
-  const int W = (G + 31) / 32;
-  if (G < 1 || G * G * W > MAX_WORDS) return (int)cudaErrorInvalidValue;
+                         const float* origins, int o_stride,
+                         const float* dirs, int d_stride,
+                         const uint8_t* active, const int64_t* order, int n,
+                         uint8_t* hit, float* t, int32_t* cell,
+                         int32_t* steps, void* stream) {
+  if (G < 1 || G > MAX_G) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
-  const int threads = 256;
-  const int blocks = (n + threads - 1) / threads;
-  dda_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      table, G, W, max_steps, origins, dirs, active, n, hit, t, cell, steps);
+  const Args a = {table,  G,     (G + 31) / 32, max_steps, origins, dirs,
+                  o_stride, d_stride, active, order, n, hit, t, cell,
+                  steps};
+  const int smem = table_smem(G);
+  int blocks = 0;
+  const cudaError_t e = grid_of(n, smem, &blocks);
+  if (e != cudaSuccess) return (int)e;
+  dda_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// The grid of a launch over n rays at grid size G, for the variant timer.
+extern "C" int dda_grid(int n, int G, int* blocks) {
+  return (int)grid_of(n, table_smem(G), blocks);
 }

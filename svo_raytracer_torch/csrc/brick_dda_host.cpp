@@ -1,29 +1,51 @@
-// CPU build of kernel K2's per-ray body (brick_dda.cuh) for the parity
-// test tests/test_torch_kernel_source.py, which compiles this file with
-// g++ -D__host__= -D__device__= -ffp-contract=off and compares it with
-// ops/brick_dda.py::coarse_dda_plain.  No runtime path uses it: on a GPU
-// the same header is compiled into brick_dda.cu.
+// CPU build of kernel K2's per-ray body (brick_dda.cuh) and of its
+// schedule, for the parity test tests/test_torch_kernel_source.py, which
+// compiles this file with g++ -D__host__= -D__device__= -ffp-contract=off
+// and compares it with ops/brick_dda.py::coarse_dda_plain.  No runtime
+// path uses it: on a GPU the same header is compiled into brick_dda.cu.
+//
+// The host loop emulates brick_dda.cu's grid: `blocks` blocks of 256
+// threads, thread t of block b taking the ids b*256 + t + j*blocks*256
+// below n, and tracing ray order[id] (or ray id), its record written to
+// that ray's slot.  `traced`, if not null, receives the ray traced at
+// each id.  Ray rows lie o_stride and d_stride floats apart (3, or 0 for
+// one row shared by every ray); a null `active` makes every ray active.
 
 #include <stdint.h>
 
 #include "brick_dda.cuh"
 
+namespace {
+
+constexpr int THREADS = 256;
+
+}  // namespace
+
 extern "C" int dda_march_host(const int32_t* table, int G, int max_steps,
-                              const float* origins, const float* dirs,
-                              const uint8_t* active, int n, int32_t* hit,
-                              float* t, int32_t* cell, int32_t* steps) {
+                              const float* origins, int o_stride,
+                              const float* dirs, int d_stride,
+                              const uint8_t* active, const int64_t* order,
+                              int n, uint8_t* hit, float* t, int32_t* cell,
+                              int32_t* steps, int blocks, int64_t* traced) {
   const int W = (G + 31) / 32;
-  for (int i = 0; i < n; ++i) {
-    const dda::Out r = dda::march(
-        table, G, W, max_steps, origins[3 * i], origins[3 * i + 1],
-        origins[3 * i + 2], dirs[3 * i], dirs[3 * i + 1], dirs[3 * i + 2],
-        active[i] != 0);
-    hit[i] = r.hit;
-    t[i] = r.t;
-    cell[3 * i] = r.cx;
-    cell[3 * i + 1] = r.cy;
-    cell[3 * i + 2] = r.cz;
-    steps[i] = r.steps;
+  for (int b = 0; b < blocks; ++b) {
+    for (int th = 0; th < THREADS; ++th) {
+      for (int k = b * THREADS + th; k < n; k += blocks * THREADS) {
+        const int i = order ? (int)order[k] : k;
+        if (traced) traced[k] = i;
+        const float* o = origins + (size_t)o_stride * i;
+        const float* d = dirs + (size_t)d_stride * i;
+        const dda::Out r = dda::march<false>(
+            table, G, W, max_steps, o[0], o[1], o[2], d[0], d[1], d[2],
+            active ? active[i] != 0 : true);
+        hit[i] = (uint8_t)r.hit;
+        t[i] = r.t;
+        cell[3 * i] = r.cx;
+        cell[3 * i + 1] = r.cy;
+        cell[3 * i + 2] = r.cz;
+        steps[i] = r.steps;
+      }
+    }
   }
   return 0;
 }

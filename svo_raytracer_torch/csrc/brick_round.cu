@@ -7,16 +7,19 @@
 // caller _intersect_impl.  The per-ray body is brick_round.cuh.
 //
 // What bounds it on Hopper: each DDA step is a dependent load of one
-// occupancy word at a data-dependent address.  The L0 table (G*G words,
-// 4 KB at G = 32) is copied into shared memory per block, as K2 does with
-// its grid, so phase 2 reads shared memory only.  Phase 1 reads the
-// brick's occupancy words (4 KB per mixed brick, ~13 MB at 1024^3: they
-// fit the 50 MB L2) and a hit reads one attribute word (128 KB per brick)
-// from global memory.  A voxel DDA takes one step per voxel crossed, so
-// rays take many more steps than K1's coarse-refine march, and rays of
-// one warp take different numbers of steps and rounds: warps diverge and
-// idle lanes wait for the longest ray.  This version does nothing about
-// that: no ray sorting, no persistent threads.
+// occupancy word at a data-dependent address.  Phase 1 reads the brick's
+// occupancy words (4 KB per mixed brick, ~13 MB at 1024^3: they fit the
+// 50 MB L2) and a hit reads one attribute word (128 KB per brick); phase
+// 2 reads the L0 table (G*G words, 4 KB at G = 32).  A voxel DDA takes one
+// step per voxel crossed, so rays take many more steps than K1's
+// coarse-refine march, and rays of one warp take different numbers of
+// steps and rounds: warps diverge and idle lanes wait for the longest ray.
+//
+// Variants (build macros, for timing): K3_MIN_BLOCKS, the resident blocks
+// per SM __launch_bounds__ asks for (0: none); K3_RESIDENT, a grid of the
+// resident blocks taking the rays by a static grid stride (else one id per
+// thread); K3_L0_SMEM, L0 copied into shared memory per block (else read
+// through the read-only path).
 //
 // Built by ops/kernel_build.py with nvcc -gencode arch=compute_90a,
 // code=sm_90a -O3 -fmad=false into a shared library with a plain C entry
@@ -28,53 +31,110 @@
 
 #include "brick_round.cuh"
 
+#ifndef K3_MIN_BLOCKS
+#define K3_MIN_BLOCKS 0
+#endif
+#ifndef K3_RESIDENT
+#define K3_RESIDENT 0
+#endif
+#ifndef K3_L0_SMEM
+#define K3_L0_SMEM 1
+#endif
+
 namespace {
 
 constexpr int MAX_G = 32;
 constexpr int THREADS = 128;
 
-__global__ void __launch_bounds__(THREADS)
-round_kernel(br::Scene S, int max_rounds, const float* __restrict__ origins,
-             const float* __restrict__ dirs,
-             const uint8_t* __restrict__ alive, int n,
-             int32_t* __restrict__ hit, int32_t* __restrict__ attr,
-             int32_t* __restrict__ hvox, float* __restrict__ t,
-             int32_t* __restrict__ iters) {
+struct Rays {
+  const float* __restrict__ origins;
+  const float* __restrict__ dirs;
+  const uint8_t* __restrict__ alive;
+  const int64_t* __restrict__ order;  // thread k traces order[k]; or null
+  int n;
+  uint8_t* __restrict__ hit;  // 0 or 1: the bytes of a bool tensor
+  int32_t* __restrict__ attr;
+  int32_t* __restrict__ hvox;
+  float* __restrict__ t;
+  int32_t* __restrict__ iters;
+};
+
+__global__ void
+#if K3_MIN_BLOCKS > 0
+__launch_bounds__(THREADS, K3_MIN_BLOCKS)
+#else
+__launch_bounds__(THREADS)
+#endif
+round_kernel(br::Scene S, int max_rounds, Rays R) {
+#if K3_L0_SMEM
   __shared__ int32_t l0[MAX_G * MAX_G];
   for (int w = threadIdx.x; w < S.G * S.G; w += blockDim.x) l0[w] = S.l0[w];
   __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
   S.l0 = l0;
-  const br::Out r = br::trace_ray(S, origins[3 * i], origins[3 * i + 1],
-                                  origins[3 * i + 2], dirs[3 * i],
-                                  dirs[3 * i + 1], dirs[3 * i + 2],
-                                  alive[i] != 0, max_rounds);
-  hit[i] = r.hit;
-  attr[i] = r.attr;
-  hvox[i] = r.hvox;
-  t[i] = r.t;
-  iters[i] = r.iters;
+#endif
+  for (int k = blockIdx.x * THREADS + threadIdx.x; k < R.n;
+       k += gridDim.x * THREADS) {
+    const int i = R.order ? (int)R.order[k] : k;
+    const float* o = R.origins + 3 * (size_t)i;
+    const float* d = R.dirs + 3 * (size_t)i;
+    const br::Out r = br::trace_ray<!K3_L0_SMEM>(
+        S, o[0], o[1], o[2], d[0], d[1], d[2], R.alive[i] != 0,
+        max_rounds);
+    R.hit[i] = (uint8_t)r.hit;
+    R.attr[i] = r.attr;
+    R.hvox[i] = r.hvox;
+    R.t[i] = r.t;
+    R.iters[i] = r.iters;
+  }
+}
+
+// The grid over n rays: one id per thread, or (K3_RESIDENT) the resident
+// blocks when n fills more.
+cudaError_t grid_of(int n, int* blocks) {
+  *blocks = (n + THREADS - 1) / THREADS;
+  if (!K3_RESIDENT) return cudaSuccess;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, round_kernel,
+                                                    THREADS, 0);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  if (per_sm * sms < *blocks) *blocks = per_sm * sms;
+  return cudaSuccess;
 }
 
 }  // namespace
 
 // Tables as br::Scene (G <= 32); origins: (n, 3) f32 voxel-unit ray
-// origins; dirs: (n, 3) f32 directions (clamped inside); alive: (n,) u8.
-// Outputs (n,) each.  Returns the cudaError_t of the launch (0 on
-// success); G outside [1, 32] is refused (cudaErrorInvalidValue).
+// origins; dirs: (n, 3) f32 directions (clamped inside); alive: (n,) u8;
+// order: (n,) i64 permutation the rays are traced in, or null for ray
+// order.  Outputs (n,) each, at the rays' own slots; hit as u8 0 or 1.
+// Returns the cudaError_t of the launch (0 on success); G outside [1, 32]
+// is refused (cudaErrorInvalidValue).
 extern "C" int brick_round(const int32_t* l0, const int32_t* brick_slot,
                            const int32_t* brick_attr, const int32_t* occ,
                            const int32_t* attrs, int G, int max_rounds,
                            const float* origins, const float* dirs,
-                           const uint8_t* alive, int n, int32_t* hit,
-                           int32_t* attr, int32_t* hvox, float* t,
-                           int32_t* iters, void* stream) {
+                           const uint8_t* alive, const int64_t* order, int n,
+                           uint8_t* hit, int32_t* attr, int32_t* hvox,
+                           float* t, int32_t* iters, void* stream) {
   if (G < 1 || G > MAX_G) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   const br::Scene S = {l0, brick_slot, brick_attr, occ, attrs, G, 32 * G};
-  round_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
-                 (cudaStream_t)stream>>>(S, max_rounds, origins, dirs, alive,
-                                         n, hit, attr, hvox, t, iters);
+  const Rays R = {origins, dirs, alive, order, n, hit, attr, hvox, t, iters};
+  int blocks = 0;
+  const cudaError_t e = grid_of(n, &blocks);
+  if (e != cudaSuccess) return (int)e;
+  round_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(S, max_rounds,
+                                                             R);
   return (int)cudaGetLastError();
+}
+
+// The grid of a launch over n rays (blocks of THREADS), for the variant
+// timer.
+extern "C" int brick_round_grid(int n, int* blocks) {
+  return (int)grid_of(n, blocks);
 }

@@ -12,7 +12,7 @@ Rays starting outside [0, G]^3 first advance to the grid's entry face.
     kernel's lock-step body over the whole batch;
   * kernel K2 (``csrc/brick_dda.cu`` over ``csrc/brick_dda.cuh``) runs
     one thread per ray with the table in shared memory, bit-equal to the
-    plain version;
+    plain version, over the rays in the order its caller passes;
   * :func:`coarse_dda` takes K2 for CUDA tensors and the plain version
     for CPU tensors.
 """
@@ -26,13 +26,14 @@ import torch
 
 from . import kernel_build
 
-#: K2 keeps the whole table in 32 KB of static shared memory
+#: K2 keeps the whole table (up to 32 KB) in shared memory
 MAX_G = 64
 DIR_EPS = float(np.float32(1e-4))
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 K2 = kernel_build.Kernel("brick_dda", ["brick_dda.cu"], "dda_march",
-                         [_P, _I, _I, _P, _P, _P, _I] + [_P] * 5)
+                         [_P, _I, _I, _P, _I, _P, _I, _P, _P, _I]
+                         + [_P] * 5)
 
 
 def _cell_of(p, G):
@@ -97,58 +98,111 @@ def coarse_dda_plain(occ_table, o, d, G, max_steps, alive):
                 steps=steps)
 
 
-def coarse_dda_kernel(occ_table, o, d, G, max_steps, alive):
-    """Kernel K2 on the card: same contract as :func:`coarse_dda_plain`."""
+def _row_stride(a):
+    """Floats from one ray's row of a (B,3) float32 tensor to the next: 3
+    for packed rows, 0 for one row expanded over the batch; None for any
+    other layout."""
+    if a.dtype != torch.float32:
+        return None
+    if a.shape[0] == 0:
+        return 0
+    if a.stride(1) != 1:
+        return None
+    if a.shape[0] == 1:           # only row 0 is read
+        return 0
+    return a.stride(0) if a.stride(0) in (0, 3) else None
+
+
+def coarse_dda_kernel(occ_table, o, d, G, max_steps, alive=None,
+                      order=None):
+    """Kernel K2 on the card: same contract as :func:`coarse_dda_plain`.
+    ``o``, ``d``: (B,3) float32 rows, packed or one row expanded over the
+    batch; ``alive``: contiguous (B,) bool, or None for every ray;
+    ``order``: the (B,) int64 permutation the rays are traced in (None:
+    ray order).  Launches K2 alone: the bool tensors' bytes are its u8
+    input and output."""
     B = o.shape[0]
     dev = o.device
-    hit = torch.empty(B, dtype=torch.int32, device=dev)
+    _check_order(order, B, dev)
+    if alive is not None and (alive.dtype != torch.bool
+                              or not alive.is_contiguous()):
+        raise ValueError("alive must be a contiguous bool tensor")
+    so, sd = _row_stride(o), _row_stride(d)
+    if so is None or sd is None:
+        raise ValueError("origins and directions must be float32 rows, "
+                         "packed or expanded")
+    hit = torch.empty(B, dtype=torch.bool, device=dev)
     t = torch.empty(B, dtype=torch.float32, device=dev)
     cell = torch.empty((B, 3), dtype=torch.int32, device=dev)
     steps = torch.empty(B, dtype=torch.int32, device=dev)
     if B:
         fn = K2.load()
-        act = alive.to(torch.uint8)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
-            rc = fn(occ_table.data_ptr(), G, max_steps, o.data_ptr(),
-                    d.data_ptr(), act.data_ptr(), B, hit.data_ptr(),
-                    t.data_ptr(), cell.data_ptr(), steps.data_ptr(), stream)
+            rc = fn(occ_table.data_ptr(), G, max_steps, o.data_ptr(), so,
+                    d.data_ptr(), sd,
+                    None if alive is None
+                    else alive.view(torch.uint8).data_ptr(),
+                    None if order is None else order.data_ptr(), B,
+                    hit.data_ptr(), t.data_ptr(), cell.data_ptr(),
+                    steps.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"K2 launch failed with cudaError {rc}")
         K2.launches += 1
-    return dict(hit=hit != 0, t=t, cell=cell, steps=steps)
+    return dict(hit=hit, t=t, cell=cell, steps=steps)
+
+
+def _check_order(order, B, device):
+    if order is not None and (order.shape != (B,)
+                              or order.dtype != torch.int64
+                              or order.device != device
+                              or not order.is_contiguous()):
+        raise ValueError("order must be a contiguous (B,) int64 tensor on "
+                         "the rays' device")
 
 
 def coarse_dda(occ_table, origins, dirs, grid_size, max_steps=None,
-               active=None):
+               active=None, order=None):
     """March (B,3) rays in GRID units through a G^3 occupancy grid.
 
     occ_table: (rows, 128) int32 from ``table_rows(pack_occupancy(vox))``
-    on the rays' device.  Returns dict of hit (B,) bool, t (B,) float32
+    on the rays' device.  ``order`` is the (B,) int64 permutation the
+    rays are traced in (a render's pixel tiles; None: ray order), which
+    changes no result.  Returns dict of hit (B,) bool, t (B,) float32
     (entry distance of the hit cell, grid units), cell (B,3) int32 and
     steps (B,) int32.  ``max_steps`` defaults to 3G, as the JAX package's.
-    Kernel K2 for CUDA tensors, its plain version for CPU tensors."""
+    Kernel K2 for CUDA tensors, its plain version for CPU tensors (in ray
+    order: the records do not depend on the order).  On the card a
+    float32 ray tensor with packed or expanded rows and a bool
+    ``active`` go to K2 as they are, with no copy."""
     G = int(grid_size)
     if not 1 <= G <= MAX_G:
         raise ValueError(f"grid_size {G} outside [1, {MAX_G}]")
     if max_steps is None:
         max_steps = 3 * G
-    o = origins.to(torch.float32).contiguous()
-    d = dirs.to(torch.float32).contiguous()
-    B = o.shape[0]
-    alive = (torch.ones(B, dtype=torch.bool, device=o.device)
-             if active is None else active.to(torch.bool).contiguous())
-    if o.shape != (B, 3) or d.shape != (B, 3) or alive.shape != (B,):
-        raise ValueError(f"ray shapes {tuple(o.shape)} {tuple(d.shape)} "
-                         f"{tuple(alive.shape)}")
+    B = origins.shape[0]
+    if (origins.shape != (B, 3) or dirs.shape != (B, 3)
+            or (active is not None and active.shape != (B,))):
+        raise ValueError(f"ray shapes {tuple(origins.shape)} "
+                         f"{tuple(dirs.shape)} "
+                         f"{None if active is None else tuple(active.shape)}")
+    o, d = origins.to(torch.float32), dirs.to(torch.float32)
+    if _row_stride(o) is None:
+        o = o.contiguous()
+    if _row_stride(d) is None:
+        d = d.contiguous()
+    alive = None if active is None else active.to(torch.bool).contiguous()
     if occ_table.dtype != torch.int32 or not occ_table.is_contiguous():
         raise ValueError("occ_table must be contiguous int32")
     if occ_table.numel() < G * G * -(-G // 32):
         raise ValueError(f"occ_table of {occ_table.numel()} words is too "
                          f"small for G = {G}")
     for a in (d, alive, occ_table):
-        if a.device != o.device:
+        if a is not None and a.device != o.device:
             raise ValueError(f"tensor on {a.device}, rays on {o.device}")
+    _check_order(order, B, o.device)
     if o.device.type == "cpu":
+        if alive is None:
+            alive = torch.ones(B, dtype=torch.bool)
         return coarse_dda_plain(occ_table, o, d, G, max_steps, alive)
-    return coarse_dda_kernel(occ_table, o, d, G, max_steps, alive)
+    return coarse_dda_kernel(occ_table, o, d, G, max_steps, alive, order)

@@ -14,7 +14,7 @@ except that JAX rays overflowing a bin's padding lose a round.
     lock-step over the pending rays;
   * kernel K3 (``csrc/brick_round.cu`` over ``csrc/brick_round.cuh``) runs
     one thread per ray looping its own rounds, bit-equal to the plain
-    version;
+    version, over the rays in the order its caller passes;
   * :func:`intersect_bricks_tpu` takes K3 for CUDA tensors and the plain
     version for CPU tensors, and decodes the hits into a HitResult.  It
     serves as the ``intersect_fn`` of ``shade.shade_*``.
@@ -42,7 +42,7 @@ FIELDS = ("hit", "attr", "hvox", "t", "iters")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 K3 = kernel_build.Kernel("brick_round", ["brick_round.cu"], "brick_round",
-                         [_P] * 5 + [_I] * 2 + [_P] * 3 + [_I] + [_P] * 5
+                         [_P] * 5 + [_I] * 2 + [_P] * 4 + [_I] + [_P] * 5
                          + [_P])
 
 
@@ -225,32 +225,50 @@ def _args(scene):
     return [a.data_ptr() for a in arrs] + [scene.grid_size]
 
 
-def trace_kernel(scene, o, d, alive, max_rounds):
-    """Kernel K3 on the card: same contract as :func:`trace_plain`."""
+def _check_order(order, B, device):
+    if order is not None and (order.shape != (B,)
+                              or order.dtype != torch.int64
+                              or order.device != device
+                              or not order.is_contiguous()):
+        raise ValueError("order must be a contiguous (B,) int64 tensor on "
+                         "the rays' device")
+
+
+def trace_kernel(scene, o, d, alive, max_rounds, order=None):
+    """Kernel K3 on the card: same contract as :func:`trace_plain`.
+    Thread k traces ray ``order[k]`` (a (B,) int64 permutation on the
+    rays' device, e.g. ``traverse.tile_order``), or ray k when ``order``
+    is None; the records land at the rays' own slots either way.
+    Launches K3 alone: the bool tensors' bytes are its u8 input and
+    output."""
     B, dev = o.shape[0], o.device
-    out = dict(hit=torch.empty(B, dtype=torch.int32, device=dev),
+    _check_order(order, B, dev)
+    if alive.dtype != torch.bool or not alive.is_contiguous():
+        raise ValueError("alive must be a contiguous bool tensor")
+    out = dict(hit=torch.empty(B, dtype=torch.bool, device=dev),
                attr=torch.empty(B, dtype=torch.int32, device=dev),
                hvox=torch.empty(B, dtype=torch.int32, device=dev),
                t=torch.empty(B, dtype=torch.float32, device=dev),
                iters=torch.empty(B, dtype=torch.int32, device=dev))
     if B:
         fn = K3.load()
-        act = alive.to(torch.uint8)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             rc = fn(*_args(scene), max_rounds, o.data_ptr(), d.data_ptr(),
-                    act.data_ptr(), B,
+                    alive.view(torch.uint8).data_ptr(),
+                    None if order is None else order.data_ptr(), B,
                     *[out[f].data_ptr() for f in FIELDS], stream)
         if rc != 0:
             raise RuntimeError(f"K3 launch failed with cudaError {rc}")
         K3.launches += 1
-    out["hit"] = out["hit"] != 0
     return out
 
 
-def trace(scene, o, d, alive, max_rounds):
-    """K3's records of (B,3) voxel-unit rays: the kernel for CUDA tensors,
-    its plain version for CPU tensors."""
+def trace(scene, o, d, alive, max_rounds, order=None):
+    """K3's records of (B,3) voxel-unit rays: the kernel over the rays in
+    ``order`` (None: ray order) for CUDA tensors, its plain version for
+    CPU tensors (in ray order: the records do not depend on the
+    order)."""
     B = o.shape[0]
     if o.shape != (B, 3) or d.shape != (B, 3) or alive.shape != (B,):
         raise ValueError(f"ray shapes {tuple(o.shape)} {tuple(d.shape)} "
@@ -258,21 +276,24 @@ def trace(scene, o, d, alive, max_rounds):
     for a in (d, alive, scene.l0_table, scene.attrs):
         if a.device != o.device:
             raise ValueError(f"tensor on {a.device}, rays on {o.device}")
+    _check_order(order, B, o.device)
     if o.device.type == "cpu":
         return trace_plain(scene, o, d, alive, max_rounds)
-    return trace_kernel(scene, o, d, alive, max_rounds)
+    return trace_kernel(scene, o, d, alive, max_rounds, order)
 
 
 def intersect_bricks_tpu(scene, origins, dirs, max_depth=None,
                          cone_trace=False, max_iterations=None, active=None,
-                         max_rounds=24) -> HitResult:
+                         max_rounds=24, order=None) -> HitResult:
     """Trace (B,3) world-space rays through a device BrickScene (G <= 32);
     signature-compatible with the JAX package's (``max_depth``,
     ``cone_trace`` and ``max_iterations`` are accepted and unused: the
     engine resolves finest leaves).  Non-finite and inactive rays are
-    misses, as are rays still pending after ``max_rounds`` rounds.  The
-    JAX package's TPU-only knobs (``slack``, ``interpret``) have no
-    counterpart."""
+    misses, as are rays still pending after ``max_rounds`` rounds.
+    ``order`` is the (B,) int64 permutation K3 traces the rays in
+    (``traverse.tile_order`` for a render's pixel rays; None: ray order),
+    which changes no result.  The JAX package's TPU-only knobs
+    (``slack``, ``interpret``) have no counterpart."""
     del max_depth, cone_trace, max_iterations
     if scene.grid_size > MAX_G:
         raise ValueError("brick-wavefront L0 grid is limited to 32^3 "
@@ -283,7 +304,7 @@ def intersect_bricks_tpu(scene, origins, dirs, max_depth=None,
     finite = torch.isfinite(o).all(1) & torch.isfinite(d).all(1)
     alive = finite if active is None else finite & active.to(torch.bool)
     rec = trace(scene, ((o - 1.0) * float(ws)).contiguous(), d.contiguous(),
-                alive.contiguous(), max_rounds)
+                alive.contiguous(), max_rounds, order)
     h = rec["hvox"]
     hvx = torch.div(h, ws * ws, rounding_mode="floor")
     hvy = torch.div(h, ws, rounding_mode="floor") % ws

@@ -1,6 +1,7 @@
 """Kernels K1 (explicit and camera mode, its ray keys and its persistent
 schedule), KE (its plain and binned schedules, through a permutation),
-K2 and K3 on a CUDA GPU against their plain PyTorch versions.  Needs a
+K2 and K3 (each through a permutation, with the wrapper launching the
+kernel alone) on a CUDA GPU against their plain PyTorch versions.  Needs a
 card and nvcc; skipped elsewhere.  The file imports no
 jax, so on a GPU host without JAX it runs from the repository root with
 ``python -m pytest --noconftest tests/test_torch_cuda.py``."""
@@ -265,6 +266,133 @@ def test_brick_round_kernel_equals_plain_on_gpu(name):
         want = brick_pallas.trace_plain(scene, ov, d, alive, rounds)
         assert _equal_fields(want, got) == [], rounds
         assert want["hit"].any() and not want["hit"].all()
+
+
+def _terrain_bricks(dev):
+    from svo_raytracer_torch.core import build_np
+    from svo_raytracer_torch.ops import brick_scene
+    tree = build_np.build_octree_np(chip_smoke.terrain_voxels(64, 7))
+    return brick_scene.brickify(tree).to_device(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_rounds", [24, 2])
+@pytest.mark.parametrize("case", ["B=0", "B=1", "B=37", "all-dead",
+                                  "tile-order", "permutation"])
+def test_brick_round_schedule_on_gpu(case, max_rounds):
+    """K3 over the rays in a permutation (a 64x32 image's tile order or a
+    random one) and in ray order against trace_plain: every field of
+    every slot, batches that fill no block, no live ray."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from svo_raytracer_torch.ops import brick_pallas, traverse
+    scene = _terrain_bricks("cuda")
+    o, d = _rays(2048, seed=21)
+    ov = ((o - 1.0) * float(scene.world_size)).contiguous()
+    alive = torch.isfinite(ov).all(1)
+    alive[4::33] = False
+    B = {"B=0": 0, "B=1": 1, "B=37": 37}.get(case, 2048)
+    ov, d, alive = ov[:B].contiguous(), d[:B].contiguous(), alive[:B].clone()
+    if case == "all-dead":
+        alive[:] = False
+    order = (traverse.tile_order(64, 32, "cuda") if case == "tile-order"
+             else chip_smoke.permutation(B, "cuda"))
+    want = brick_pallas.trace_plain(scene, ov, d, alive, max_rounds)
+    for perm in (order, None):
+        before = brick_pallas.K3.launches
+        got = brick_pallas.trace(scene, ov, d, alive, max_rounds, perm)
+        torch.cuda.synchronize()
+        assert brick_pallas.K3.launches == before + (B > 0)
+        assert _equal_fields(want, got) == [], perm is None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [1, 32, 64])
+@pytest.mark.parametrize("case", ["B=0", "B=1", "B=37", "all-dead",
+                                  "permutation", "expanded-no-active"])
+def test_dda_schedule_on_gpu(G, case):
+    """K2 (resident blocks, a static grid stride) over the rays in a
+    permutation and in ray order against coarse_dda_plain; with one
+    direction row expanded over the batch and no active mask, as the
+    skip frames' shadow and primary segments pass them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from svo_raytracer_torch.ops import brick_dda, brick_scene
+    gen = np.random.default_rng(G + 7)
+    tab = torch.from_numpy(brick_scene.table_rows(brick_scene.pack_occupancy(
+        gen.random((G, G, G)) < 0.05))).cuda()
+    B = {"B=0": 0, "B=1": 1, "B=37": 37}.get(case, 300000)
+    o = torch.from_numpy(gen.uniform(-G, 2 * G, (B, 3)).astype(
+        np.float32)).cuda()
+    d = torch.from_numpy(gen.normal(size=(B, 3)).astype(np.float32)).cuda()
+    d = d / d.norm(dim=1, keepdim=True)
+    alive = torch.from_numpy(gen.random(B) < 0.9).cuda()
+    if case == "all-dead":
+        alive[:] = False
+    if case == "expanded-no-active":
+        d, alive = d[0].expand(B, 3), None
+    order = chip_smoke.permutation(B, "cuda")
+    live = torch.ones(B, dtype=torch.bool, device="cuda") \
+        if alive is None else alive
+    want = brick_dda.coarse_dda_plain(tab, o, d.contiguous(), G, 3 * G, live)
+    for perm in (order, None):
+        before = brick_dda.K2.launches
+        got = brick_dda.coarse_dda(tab, o, d, G, active=alive, order=perm)
+        torch.cuda.synchronize()
+        assert brick_dda.K2.launches == before + (B > 0)
+        assert _equal_fields(want, got) == [], perm is None
+
+
+@pytest.mark.gpu
+def test_k2_k3_wrappers_launch_their_kernel_alone_on_gpu():
+    """One call of K2's and of K3's wrapper on bool masks, packed and
+    expanded rows launches that kernel and no other device kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from svo_raytracer_torch.ops import brick_dda, brick_pallas, brick_scene
+    tab = torch.from_numpy(brick_scene.table_rows(brick_scene.pack_occupancy(
+        np.random.default_rng(1).random((64,) * 3) < 0.05))).cuda()
+    o, d = _rays(4096, seed=3)
+    o = o.nan_to_num()
+    alive = torch.ones(4096, dtype=torch.bool, device="cuda")
+    order = chip_smoke.permutation(4096, "cuda")
+    sun = torch.tensor([0.3, 0.8, 0.5], device="cuda").expand(4096, 3)
+    brick_dda.coarse_dda(tab, o, d, 64)           # built and loaded
+    chip_smoke.only_kernel("K2", lambda: brick_dda.coarse_dda(
+        tab, o * 64.0, sun, 64, active=alive, order=order), "K2")
+    scene = _terrain_bricks("cuda")
+    ov = ((o - 1.0) * float(scene.world_size)).contiguous()
+    brick_pallas.trace(scene, ov, d, alive, 24)
+    chip_smoke.only_kernel("K3", lambda: brick_pallas.trace(
+        scene, ov, d, alive, 24, order), "K3")
+
+
+@pytest.mark.gpu
+def test_render_gives_k2_the_tile_order_on_gpu():
+    """With a skip grid, render_image on the card hands K2 and KE the
+    same cached tile permutation, one K2 launch per segment."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from svo_raytracer_torch.core import build_np
+    from svo_raytracer_torch.ops import brick_dda, brick_scene, shade
+    from svo_raytracer_torch.ops import skip_grid, traverse
+    from svo_raytracer_torch.utils.camera import Camera
+    tree = build_np.build_octree_np(chip_smoke.terrain_voxels(64, 7)
+                                    ).to_device("cuda")
+    tab = torch.from_numpy(brick_scene.table_rows(
+        skip_grid.build_skip_grid(tree, 32))).cuda()
+    cam = Camera(pos=np.array([1.3, 1.8, 1.3]))
+    cam.rotate(-0.5, 0.6)
+    cam5 = torch.tensor(cam.uniform(), dtype=torch.float32, device="cuda")
+    before = brick_dda.K2.launches
+    with chip_smoke.capture(traverse, "trace") as ke, \
+            chip_smoke.capture(brick_dda, "coarse_dda") as k2:
+        shade.render_image(tree, cam5, 96, 64, render_mode=2,
+                           skip_tab=tab, skip_grid_size=32)
+    torch.cuda.synchronize()
+    assert brick_dda.K2.launches == before + 2
+    tiles = traverse.tile_order(96, 64, "cuda")
+    assert len(ke) == 2 and all(k["order"] is tiles for _, k in ke + k2)
 
 
 def _terrain_world():

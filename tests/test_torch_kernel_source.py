@@ -5,8 +5,10 @@ its sort keys and its persistent schedule, emulated by a host loop of
 through the sort permutation,
 csrc/esvo_ray.cuh for KE with its schedule, emulated by a host loop of
 128-ray blocks that trace through a permutation and regroup a
-cone-traced segment's rays by octant, csrc/brick_dda.cuh for K2,
-csrc/brick_round.cuh for K3) compiled with g++, their CUDA qualifiers
+cone-traced segment's rays by octant, csrc/brick_dda.cuh for K2 and
+csrc/brick_round.cuh for K3, each with its schedule emulated by a host
+loop of blocks that take ids by a grid stride and trace through a
+permutation) compiled with g++, their CUDA qualifiers
 defined away, into ctypes libraries, against their plain PyTorch versions
 (wavefront.trace_plain and trace_camera_plain, traverse.intersect_plain,
 brick_dda.coarse_dda_plain, brick_pallas.trace_plain).
@@ -366,24 +368,89 @@ def _dda_cases(name):
     return tab, G, torch.from_numpy(o), torch.from_numpy(d)
 
 
+def _dda_host(tab, G, o, d, alive, order=None, blocks=None):
+    """K2's records by the g++ build of its schedule (``blocks`` blocks of
+    256 threads taking ids by a grid stride; None: one id per thread),
+    ray order[id] at each id, and the ray each id traced; every slot
+    starts as a sentinel that no record holds.  ``alive`` None: every ray
+    active; rows of o and d may be expanded."""
+    fn = _host_fn("dda_host", "brick_dda_host.cpp", "dda_march_host",
+                  brick_dda.K2.argtypes[:-1]
+                  + [ctypes.c_int, ctypes.c_void_p, None])
+    B = o.shape[0]
+    if blocks is None:
+        blocks = -(-B // 256)
+    got = dict(hit=torch.full((B,), True),
+               t=torch.full((B,), -7.0),
+               cell=torch.full((B, 3), -7, dtype=torch.int32),
+               steps=torch.full((B,), -7, dtype=torch.int32))
+    traced = torch.full((B,), -1, dtype=torch.int64)
+    assert fn(tab.data_ptr(), G, 3 * G, o.data_ptr(),
+              brick_dda._row_stride(o), d.data_ptr(),
+              brick_dda._row_stride(d),
+              None if alive is None else alive.view(torch.uint8).data_ptr(),
+              None if order is None else order.data_ptr(), B,
+              got["hit"].data_ptr(), got["t"].data_ptr(),
+              got["cell"].data_ptr(), got["steps"].data_ptr(), blocks,
+              traced.data_ptr()) == 0
+    return got, traced
+
+
 @pytest.mark.parametrize("name", ["random-8", "random-32", "skip-terrain-64"])
 def test_dda_source_body_equals_plain(name):
-    fn = _host_fn("dda_host", "brick_dda_host.cpp", "dda_march_host",
-                  brick_dda.K2.argtypes)
     tab, G, o, d = _dda_cases(name)
     B = o.shape[0]
     alive = torch.rand(B, generator=torch.Generator().manual_seed(3)) < 0.9
     want = brick_dda.coarse_dda_plain(tab, o, d, G, 3 * G, alive)
-    hit = torch.empty(B, dtype=torch.int32)
-    got = dict(t=torch.empty(B), cell=torch.empty((B, 3), dtype=torch.int32),
-               steps=torch.empty(B, dtype=torch.int32))
-    assert fn(tab.data_ptr(), G, 3 * G, o.data_ptr(), d.data_ptr(),
-              alive.to(torch.uint8).data_ptr(), B, hit.data_ptr(),
-              got["t"].data_ptr(), got["cell"].data_ptr(),
-              got["steps"].data_ptr()) == 0
-    got["hit"] = hit != 0
+    got, _ = _dda_host(tab, G, o, d, alive)
     assert _equal(want, got) == []
     assert want["hit"].any() and not want["hit"].all()
+
+
+DDA_SCHEDULE_CASES = ("B=0", "B=1", "B=37", "all dead", "permutation",
+                      "expanded rows, no active", "one block",
+                      "three blocks")
+
+
+@pytest.mark.parametrize("G", [1, 32, 64])
+@pytest.mark.parametrize("case", DDA_SCHEDULE_CASES)
+def test_dda_source_schedule_equals_plain(G, case):
+    """K2's schedule (csrc/brick_dda.cu, emulated by brick_dda_host.cpp):
+    resident blocks that take ids by a static grid stride (one or three
+    blocks over 1,500 rays), ray order[id] at each id, every slot written
+    and each ray traced once; records equal coarse_dda_plain in ray
+    order.  The primary segment passes no active mask, the shadow
+    segment one direction row expanded over the batch."""
+    rng = np.random.default_rng(G)
+    tab = torch.from_numpy(brick_scene.table_rows(
+        brick_scene.pack_occupancy(rng.random((G,) * 3) < 0.05)))
+    B = {"B=0": 0, "B=1": 1, "B=37": 37}.get(case, 1500)
+    o = torch.from_numpy(np.where(
+        rng.random((B, 1)) < 0.5, rng.uniform(0, G, (B, 3)),
+        rng.uniform(-G, 2 * G, (B, 3))).astype(np.float32))
+    d = torch.from_numpy(rng.normal(size=(B, 3)).astype(np.float32))
+    d = d / d.norm(dim=1, keepdim=True)
+    alive = torch.from_numpy(rng.random(B) < 0.9)
+    if case == "all dead":
+        alive[:] = False
+    order = (torch.from_numpy(rng.permutation(B))
+             if case != "B=1" else torch.zeros(1, dtype=torch.int64))
+    blocks = {"one block": 1, "three blocks": 3}.get(case)
+    if case == "expanded rows, no active":
+        d = d[0].expand(B, 3)
+        want = brick_dda.coarse_dda_plain(tab, o, d.contiguous(), G, 3 * G,
+                                          torch.ones(B, dtype=torch.bool))
+        got, traced = _dda_host(tab, G, o, d, None, order)
+    else:
+        want = brick_dda.coarse_dda_plain(tab, o, d, G, 3 * G, alive)
+        got, traced = _dda_host(tab, G, o, d, alive, order, blocks)
+    assert _equal(want, got) == []
+    assert not (got["steps"] == -7).any()
+    assert torch.equal(traced, order)
+    if case == "all dead":
+        assert not want["hit"].any() and not want["steps"].any()
+    elif B == 1500 and G > 1:
+        assert want["hit"].any() and not want["hit"].all()
 
 
 @pytest.mark.parametrize("name, W, H", [("terrain-64", 64, 40),
@@ -420,30 +487,123 @@ def test_camera_source_body_equals_plain(name, W, H):
     assert hits.any() and not hits.all()
 
 
+def _k3_host(scene, o, d, alive, max_rounds, order=None, blocks=None):
+    """K3's records by the g++ build of its schedule (``blocks`` blocks of
+    128 threads taking ids by a grid stride; None: one id per thread),
+    ray order[id] at each id, and the ray each id traced; every slot
+    starts as a sentinel that no record holds."""
+    fn = _host_fn("brick_round_host", "brick_round_host.cpp",
+                  "brick_round_host", brick_pallas.K3.argtypes[:-1]
+                  + [ctypes.c_int, ctypes.c_void_p, None])
+    B = o.shape[0]
+    if blocks is None:
+        blocks = -(-B // 128)
+    got = dict(hit=torch.full((B,), True),
+               attr=torch.full((B,), -7, dtype=torch.int32),
+               hvox=torch.full((B,), -7, dtype=torch.int32),
+               t=torch.full((B,), -7.0),
+               iters=torch.full((B,), -7, dtype=torch.int32))
+    traced = torch.full((B,), -1, dtype=torch.int64)
+    assert fn(*brick_pallas._args(scene), max_rounds, o.data_ptr(),
+              d.data_ptr(), alive.view(torch.uint8).data_ptr(),
+              None if order is None else order.data_ptr(), B,
+              *[got[f].data_ptr() for f in brick_pallas.FIELDS], blocks,
+              traced.data_ptr()) == 0
+    return got, traced
+
+
+def _k3_rays(scene, n=2048, seed=19):
+    o, d = random_rays(n, seed=seed)
+    o[::97] = np.nan
+    o = ((torch.from_numpy(o) - 1.0) * float(scene.world_size)).contiguous()
+    d = torch.from_numpy(d)
+    alive = torch.isfinite(o).all(1)
+    alive[5::50] = False
+    return o, d, alive
+
+
 @pytest.mark.parametrize("name", ["sphere-64", "terrain-64",
                                   "heightmap-256"])
 @pytest.mark.parametrize("max_rounds", [24, 2])
 def test_brick_round_source_body_equals_plain(name, max_rounds):
     """K3 on random rays, with inactive and non-finite ones, with every
     round and cut at 2 rounds."""
-    fn = _host_fn("brick_round_host", "brick_round_host.cpp",
-                  "brick_round_host", brick_pallas.K3.argtypes)
     scene = (brick_scene.brickify(_esvo_tree(name)) if name != "heightmap-256"
              else _scene(name)).to_device("cpu")
-    o, d = random_rays(2048, seed=19)
-    o[::97] = np.nan
-    o = ((torch.from_numpy(o) - 1.0) * float(scene.world_size)).contiguous()
-    d = torch.from_numpy(d)
-    alive = torch.isfinite(o).all(1)
-    alive[5::50] = False
+    o, d, alive = _k3_rays(scene)
     want = brick_pallas.trace_plain(scene, o, d, alive, max_rounds)
-    got = {f: torch.empty_like(want[f], dtype=torch.int32 if f == "hit"
-                               else want[f].dtype)
-           for f in brick_pallas.FIELDS}
-    al = alive.to(torch.uint8)
-    assert fn(*brick_pallas._args(scene), max_rounds, o.data_ptr(),
-              d.data_ptr(), al.data_ptr(), o.shape[0],
-              *[got[f].data_ptr() for f in brick_pallas.FIELDS]) == 0
-    got["hit"] = got["hit"] != 0
+    got, _ = _k3_host(scene, o, d, alive, max_rounds)
     assert _equal(want, got) == []
     assert want["hit"].any() and not want["hit"].all()
+
+
+K3_SCHEDULE_CASES = ("B=0", "B=1", "B=37", "all dead", "tile order",
+                     "one block", "three blocks")
+
+
+@pytest.mark.parametrize("max_rounds", [24, 2])
+@pytest.mark.parametrize("case", K3_SCHEDULE_CASES)
+def test_brick_round_source_schedule_equals_plain(case, max_rounds):
+    """K3's schedule (csrc/brick_round.cu, emulated by
+    brick_round_host.cpp) over the rays in a permutation (a 64x32
+    image's tile order, or a random one for other batch sizes), one id per
+    thread or blocks taking ids by a grid stride: every slot is written,
+    each id traces ray order[id], and every field equals trace_plain in
+    ray order."""
+    scene = brick_scene.brickify(_esvo_tree("terrain-64")).to_device("cpu")
+    o, d, alive = _k3_rays(scene)
+    B = {"B=0": 0, "B=1": 1, "B=37": 37}.get(case, 64 * 32)
+    o, d, alive = o[:B].contiguous(), d[:B].contiguous(), alive[:B].clone()
+    if case == "all dead":
+        alive[:] = False
+    order = (traverse.tile_order(64, 32, "cpu") if case == "tile order"
+             else torch.from_numpy(np.random.default_rng(3).permutation(B)))
+    blocks = {"one block": 1, "three blocks": 3}.get(case)
+    want = brick_pallas.trace_plain(scene, o, d, alive, max_rounds)
+    got, traced = _k3_host(scene, o, d, alive, max_rounds, order, blocks)
+    assert _equal(want, got) == []
+    assert not (got["iters"] == -7).any()
+    assert torch.equal(traced, order)
+    if case == "all dead":
+        assert not want["hit"].any() and not want["iters"].any()
+    elif B == 64 * 32:
+        assert want["hit"].any() and not want["hit"].all()
+
+
+def _column_scene():
+    """A 64^3 world (G = 2) whose occupancy words differ from column to
+    column: in brick (0,0,0) voxel columns (9,9) and (9,11) are empty but
+    (10,9) and (9,12) hold voxel z = 5; brick (1,0,0) is empty and brick
+    (1,1,0) holds one voxel, so its L0 column differs from (1,0)'s."""
+    vox = np.zeros((64,) * 3, np.uint8)
+    vox[10, 9, 5] = vox[9, 12, 5] = 3
+    vox[40, 40, 20] = 1
+    return brick_scene.brickify(build_np.build_octree_np(vox)).to_device(
+        "cpu")
+
+
+def test_brick_round_source_reloads_word_on_xy_steps():
+    """The word kept across steps (csrc/brick_round.cuh dda_vec): rays
+    whose first step crosses an x or a y cell edge into a column that
+    holds the next solid voxel (phase 1) or brick (phase 2) hit it; a
+    kernel that tested the old column's word would march past.  The same
+    rays stepping along z stay in their column."""
+    scene = _column_scene()
+    o = torch.tensor([[9.99, 9.5, 5.5],      # +x into column (10, 9)
+                      [9.5, 11.99, 5.5],     # +y into column (9, 12)
+                      [9.5, 9.5, 4.99],      # +z in column (9, 9): miss
+                      [40.5, 31.99, 20.5],   # L0: +y into brick (1,1,0)
+                      [31.99, 40.5, 20.5]])  # L0: +x into brick (1,1,0)
+    d = torch.tensor([[1.0, 0.01, 0.02], [0.01, 1.0, 0.02],
+                      [0.01, 0.02, 1.0], [0.01, 1.0, 0.02],
+                      [1.0, 0.01, 0.02]])
+    d = d / d.norm(dim=1, keepdim=True)
+    alive = torch.ones(5, dtype=torch.bool)
+    want = brick_pallas.trace_plain(scene, o, d, alive, 24)
+    got, _ = _k3_host(scene, o, d, alive, 24)
+    assert _equal(want, got) == []
+    hv = want["hvox"]
+    vox = torch.stack([hv // 64 // 64, hv // 64 % 64, hv % 64], 1)
+    assert want["hit"].tolist() == [True, True, False, True, True]
+    assert vox[0].tolist() == [10, 9, 5] and vox[1].tolist() == [9, 12, 5]
+    assert vox[3].tolist() == [40, 40, 20] == vox[4].tolist()
