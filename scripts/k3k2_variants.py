@@ -37,27 +37,24 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 
-REPS = 10
+REPS = 20
 SIZE = 1024
 PARENT = os.path.join(ROOT, "_scratch", "parent", "svo_raytracer_torch",
                       "csrc")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 K3_VARIANTS = {
-    "base": (),
+    "word kept in both phases": (),
     "no word reuse": ("-DBR_WORD_REUSE=0",),
-    "no ldg": ("-DBR_LDG=0",),
-    "L0 global": ("-DK3_L0_SMEM=0",),
-    "lb 8": ("-DK3_MIN_BLOCKS=8",),
-    "lb 12": ("-DK3_MIN_BLOCKS=12",),
-    "lb 16": ("-DK3_MIN_BLOCKS=16",),
-    "resident": ("-DK3_RESIDENT=1",),
-    "resident lb 12": ("-DK3_RESIDENT=1", "-DK3_MIN_BLOCKS=12"),
+    "word kept in phase 1": ("-DBR_WORD_REUSE=1",),
+    "word kept in phase 2": ("-DBR_WORD_REUSE=2",),
+    "no word reuse, L0 global": ("-DBR_WORD_REUSE=0", "-DK3_L0_SMEM=0"),
+    "no word reuse, no ldg": ("-DBR_WORD_REUSE=0", "-DBR_LDG=0"),
+    "no word reuse, lb 10": ("-DBR_WORD_REUSE=0", "-DK3_MIN_BLOCKS=10"),
 }
 K2_VARIANTS = {
-    "base (stage, resident, prefetch)": (),
-    "no prefetch": ("-DK2_PREFETCH=0",),
-    "stage, plain grid": ("-DK2_RESIDENT=0",),
+    "stage, resident, prefetch": (),
+    "stage, resident": ("-DK2_PREFETCH=0",),
     "ldg, plain grid": ("-DK2_STAGE=0", "-DK2_RESIDENT=0"),
     "ldg, resident": ("-DK2_STAGE=0",),
 }

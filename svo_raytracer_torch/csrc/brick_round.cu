@@ -59,6 +59,20 @@ struct Rays {
   int32_t* __restrict__ iters;
 };
 
+__device__ inline void trace_one(const br::Scene& S, int max_rounds,
+                                 const Rays& R, int k) {
+  const int i = R.order ? (int)R.order[k] : k;
+  const float* o = R.origins + 3 * (size_t)i;
+  const float* d = R.dirs + 3 * (size_t)i;
+  const br::Out r = br::trace_ray<!K3_L0_SMEM>(
+      S, o[0], o[1], o[2], d[0], d[1], d[2], R.alive[i] != 0, max_rounds);
+  R.hit[i] = (uint8_t)r.hit;
+  R.attr[i] = r.attr;
+  R.hvox[i] = r.hvox;
+  R.t[i] = r.t;
+  R.iters[i] = r.iters;
+}
+
 __global__ void
 #if K3_MIN_BLOCKS > 0
 __launch_bounds__(THREADS, K3_MIN_BLOCKS)
@@ -72,20 +86,14 @@ round_kernel(br::Scene S, int max_rounds, Rays R) {
   __syncthreads();
   S.l0 = l0;
 #endif
+#if K3_RESIDENT
   for (int k = blockIdx.x * THREADS + threadIdx.x; k < R.n;
-       k += gridDim.x * THREADS) {
-    const int i = R.order ? (int)R.order[k] : k;
-    const float* o = R.origins + 3 * (size_t)i;
-    const float* d = R.dirs + 3 * (size_t)i;
-    const br::Out r = br::trace_ray<!K3_L0_SMEM>(
-        S, o[0], o[1], o[2], d[0], d[1], d[2], R.alive[i] != 0,
-        max_rounds);
-    R.hit[i] = (uint8_t)r.hit;
-    R.attr[i] = r.attr;
-    R.hvox[i] = r.hvox;
-    R.t[i] = r.t;
-    R.iters[i] = r.iters;
-  }
+       k += gridDim.x * THREADS)
+    trace_one(S, max_rounds, R, k);
+#else
+  const int k = blockIdx.x * THREADS + threadIdx.x;
+  if (k < R.n) trace_one(S, max_rounds, R, k);
+#endif
 }
 
 // The grid over n rays: one id per thread, or (K3_RESIDENT) the resident

@@ -67,7 +67,7 @@ struct Dda {
 };
 
 #ifndef BR_WORD_REUSE
-#define BR_WORD_REUSE 1
+#define BR_WORD_REUSE 3  // bit 0: phase 1 keeps its word, bit 1: phase 2
 #endif
 #ifndef BR_LDG
 #define BR_LDG 1
@@ -96,7 +96,7 @@ struct Words {
 // leaves the grid, so this loop stops there.  The word of the current
 // column (x, y) stays in a register: a step along z tests another bit of
 // it, and only a step along x or y loads the next word.
-template <class Probe>
+template <bool REUSE, class Probe>
 __host__ __device__ inline Dda dda_vec(float px, float py, float pz,
                                        float dxc, float dyc, float dzc,
                                        float inv_x, float inv_y, float inv_z,
@@ -144,7 +144,7 @@ __host__ __device__ inline Dda dda_vec(float px, float py, float pz,
     if (r.ix < 0 || r.ix >= n || r.iy < 0 || r.iy >= n || r.iz < 0 ||
         r.iz >= n)
       break;
-    if (load || !BR_WORD_REUSE) {
+    if (load || !REUSE) {
       word = probe(r.ix, r.iy);
       load = false;
     }
@@ -210,7 +210,7 @@ __host__ __device__ inline Out trace_ray(const Scene& S, float ox, float oy,
       const float by = (float)((cell / G) % G) * 32.0f;
       const float bz = (float)(cell % G) * 32.0f;
       const Words<true> occ = {S.occ + (size_t)slot * 1024, 32};
-      const Dda r1 = dda_vec(px - bx, py - by, pz - bz, dxc, dyc, dzc, inv_x,
+      const Dda r1 = dda_vec<(BR_WORD_REUSE & 1) != 0>(px - bx, py - by, pz - bz, dxc, dyc, dzc, inv_x,
                              inv_y, inv_z, 32, 1.0f, occ, INNER_STEPS);
       out.iters += r1.steps;
       if (r1.hit) {
@@ -227,7 +227,7 @@ __host__ __device__ inline Out trace_ray(const Scene& S, float ox, float oy,
       t2_0 = r1.t + EXIT_EPS;
     }
     // ---- phase 2: L0 march to the next occupied brick
-    const Dda r2 = dda_vec(px + t2_0 * dxc, py + t2_0 * dyc, pz + t2_0 * dzc,
+    const Dda r2 = dda_vec<(BR_WORD_REUSE & 2) != 0>(px + t2_0 * dxc, py + t2_0 * dyc, pz + t2_0 * dzc,
                            dxc, dyc, dzc, inv_x, inv_y, inv_z, G, 32.0f, l0,
                            3 * G + 4);
     out.iters += r2.steps;
