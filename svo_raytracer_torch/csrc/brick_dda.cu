@@ -5,17 +5,26 @@
 // grid in VMEM.  The per-ray body is brick_dda.cuh.
 //
 // What bounds it on Hopper: each step is a load of one occupancy word at
-// a data-dependent address.  The table is small (G^2 * ceil(G/32) words:
-// 4 KB at G = 32, 32 KB at G = 64), so it is read from shared memory;
-// what is left is the per-step integer and float work of up to 3G steps,
-// and warp divergence between rays that stop at different steps.
-//
-// Variants (build macros, for timing): K2_STAGE, the table copied into
-// dynamic shared memory sized to its G^2 * W words (else read through the
-// read-only path); K2_RESIDENT, a grid of the resident blocks taking the
-// rays by a static grid stride, each block staging the table once (else
-// one id per thread, every block staging it); K2_PREFETCH, each thread's
-// first ray loaded before the block's __syncthreads().
+// a data-dependent address, and rays take few steps (0-3 a ray on the
+// 1080p skip frames), so the rays' own bytes (24 in, 21 out) and the
+// table's copy into shared memory weigh as much as the march.  What the
+// design does, and what measurement kept (PERF.md §6):
+//   * the table — copied into dynamic shared memory sized to its G^2 * W
+//     words (4 KB at G = 32, 32 KB at G = 64), once per resident block:
+//     the grid is the blocks that fit on the card, and each block takes
+//     rays by a static grid stride.  A grid of one id per thread, each
+//     block copying the table, took 1.4x as long at G = 64 (8,100 copies
+//     of 32 KB a launch); loading each thread's first ray before the
+//     copy, or reading the table unstaged through the read-only path,
+//     measured within 2% either way;
+//   * order — the caller passes the permutation the rays are traced in:
+//     thread k traces ray order[k] and writes its record to that ray's
+//     slot.  render_image gives K2 the tile order it gives KE; a warp's
+//     rays then lie in four runs of eight, and K2, bound by the rays'
+//     bytes, takes about 20% longer than in row order;
+//   * no wrapper kernel — the active mask and hit are the bytes of bool
+//     tensors, and a direction row shared by every ray (a shadow
+//     segment's sun) is read in place, so the wrapper launches K2 alone.
 //
 // Built by ops/kernel_build.py with nvcc -gencode arch=compute_90a,
 // code=sm_90a -O3 -fmad=false into a shared library with a plain C entry
@@ -26,16 +35,6 @@
 #include <stdint.h>
 
 #include "brick_dda.cuh"
-
-#ifndef K2_STAGE
-#define K2_STAGE 1
-#endif
-#ifndef K2_RESIDENT
-#define K2_RESIDENT 1
-#endif
-#ifndef K2_PREFETCH
-#define K2_PREFETCH 1
-#endif
 
 namespace {
 
@@ -57,68 +56,33 @@ struct Args {
   int32_t* __restrict__ steps;
 };
 
-struct Ray {
-  int i;
-  float o[3], d[3];
-  bool act;
-};
-
-__device__ inline Ray load_ray(const Args& a, int k) {
-  Ray r;
-  r.i = a.order ? (int)a.order[k] : k;
-  const float* o = a.origins + (size_t)a.o_stride * r.i;
-  const float* d = a.dirs + (size_t)a.d_stride * r.i;
-  for (int c = 0; c < 3; ++c) {
-    r.o[c] = o[c];
-    r.d[c] = d[c];
-  }
-  r.act = a.active ? a.active[r.i] != 0 : true;
-  return r;
-}
-
-__device__ inline void trace_one(const Args& a, const int32_t* tab,
-                                 const Ray& ray) {
-  const dda::Out r = dda::march<!K2_STAGE>(
-      tab, a.G, a.W, a.max_steps, ray.o[0], ray.o[1], ray.o[2], ray.d[0],
-      ray.d[1], ray.d[2], ray.act);
-  const int i = ray.i;
-  a.hit[i] = (uint8_t)r.hit;
-  a.t[i] = r.t;
-  a.cell[3 * i] = r.cx;
-  a.cell[3 * i + 1] = r.cy;
-  a.cell[3 * i + 2] = r.cz;
-  a.steps[i] = r.steps;
-}
-
 __global__ void __launch_bounds__(THREADS) dda_kernel(Args a) {
-  extern __shared__ int32_t tab_s[];
-  int k = blockIdx.x * THREADS + threadIdx.x;
-  const int stride = gridDim.x * THREADS;
-  Ray ray;
-  bool loaded = K2_PREFETCH && k < a.n;
-  if (loaded) ray = load_ray(a, k);
-#if K2_STAGE
+  extern __shared__ int32_t tab[];
   const int n_words = a.G * a.G * a.W;
   for (int w = threadIdx.x; w < n_words; w += THREADS)
-    tab_s[w] = (int32_t)dda::ldg(a.table + w);
+    tab[w] = __ldg(a.table + w);
   __syncthreads();
-  const int32_t* tab = tab_s;
-#else
-  const int32_t* tab = a.table;
-#endif
-  for (; k < a.n; k += stride) {
-    if (!loaded) ray = load_ray(a, k);
-    loaded = false;
-    trace_one(a, tab, ray);
+  for (int k = blockIdx.x * THREADS + threadIdx.x; k < a.n;
+       k += gridDim.x * THREADS) {
+    const int i = a.order ? (int)a.order[k] : k;
+    const float* o = a.origins + (size_t)a.o_stride * i;
+    const float* d = a.dirs + (size_t)a.d_stride * i;
+    const dda::Out r = dda::march(tab, a.G, a.W, a.max_steps, o[0], o[1],
+                                  o[2], d[0], d[1], d[2],
+                                  a.active ? a.active[i] != 0 : true);
+    a.hit[i] = (uint8_t)r.hit;
+    a.t[i] = r.t;
+    a.cell[3 * i] = r.cx;
+    a.cell[3 * i + 1] = r.cy;
+    a.cell[3 * i + 2] = r.cz;
+    a.steps[i] = r.steps;
   }
 }
 
-// The grid over n rays and its dynamic shared memory: one id per thread,
-// or (K2_RESIDENT) the resident blocks when n fills more.
-cudaError_t grid_of(int n, int smem, int* blocks) {
-  *blocks = (n + THREADS - 1) / THREADS;
-  if (!K2_RESIDENT) return cudaSuccess;
-  static int cached_dev = -1, cached_smem = -1, cached_resident = 0;
+// The resident blocks of dda_kernel with `smem` bytes of table on the
+// current card; the last answer is kept.
+cudaError_t resident(int smem, int* blocks) {
+  static int cached_dev = -1, cached_smem = -1, cached_blocks = 0;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -132,14 +96,10 @@ cudaError_t grid_of(int n, int smem, int* blocks) {
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
     cached_dev = dev;
     cached_smem = smem;
-    cached_resident = per_sm * sms;
+    cached_blocks = per_sm * sms;
   }
-  if (cached_resident < *blocks) *blocks = cached_resident;
+  *blocks = cached_blocks;
   return cudaSuccess;
-}
-
-int table_smem(int G) {
-  return K2_STAGE ? G * G * ((G + 31) / 32) * (int)sizeof(int32_t) : 0;
 }
 
 }  // namespace
@@ -149,8 +109,9 @@ int table_smem(int G) {
 // ray); active: (n,) u8, or null for every ray; order: (n,) i64
 // permutation the rays are traced in, or null for ray order.  Outputs at
 // the rays' own slots: hit (n,) u8 (0 or 1, the bytes of a bool tensor),
-// t, steps (n,) and cell (n, 3).  Returns the cudaError_t of the launch (0 on success);
-// G outside [1, 64] is refused (cudaErrorInvalidValue).
+// t, steps (n,) and cell (n, 3).  Launches the resident blocks, or fewer
+// when n rays fill fewer.  Returns the cudaError_t of the launch (0 on
+// success); G outside [1, 64] is refused (cudaErrorInvalidValue).
 extern "C" int dda_march(const int32_t* table, int G, int max_steps,
                          const float* origins, int o_stride,
                          const float* dirs, int d_stride,
@@ -159,18 +120,15 @@ extern "C" int dda_march(const int32_t* table, int G, int max_steps,
                          int32_t* steps, void* stream) {
   if (G < 1 || G > MAX_G) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
-  const Args a = {table,  G,     (G + 31) / 32, max_steps, origins, dirs,
-                  o_stride, d_stride, active, order, n, hit, t, cell,
-                  steps};
-  const int smem = table_smem(G);
+  const int W = (G + 31) / 32;
+  const Args a = {table,  G,     W, max_steps, origins, dirs, o_stride,
+                  d_stride, active, order, n, hit, t, cell, steps};
+  const int smem = G * G * W * (int)sizeof(int32_t);
   int blocks = 0;
-  const cudaError_t e = grid_of(n, smem, &blocks);
+  const cudaError_t e = resident(smem, &blocks);
   if (e != cudaSuccess) return (int)e;
-  dda_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(a);
+  const int fill = (n + THREADS - 1) / THREADS;
+  dda_kernel<<<fill < blocks ? fill : blocks, THREADS, smem,
+               (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
-}
-
-// The grid of a launch over n rays at grid size G, for the variant timer.
-extern "C" int dda_grid(int n, int G, int* blocks) {
-  return (int)grid_of(n, table_smem(G), blocks);
 }

@@ -44,19 +44,7 @@ __host__ __device__ inline int cell_of(float p, int G) {
   return i < 0 ? 0 : (i > G - 1 ? G - 1 : i);
 }
 
-// A table word in device memory, through the read-only path (__ldg) on
-// the card, a plain load in the CPU build.
-__host__ __device__ inline uint32_t ldg(const int32_t* p) {
-#ifdef __CUDA_ARCH__
-  return (uint32_t)__ldg(p);
-#else
-  return (uint32_t)*p;
-#endif
-}
-
-// tab: the G*G*W packed words, in device memory (GLOBAL) or in shared
-// memory.  o, d in grid units.
-template <bool GLOBAL>
+// tab: the G*G*W packed words.  o, d in grid units.
 __host__ __device__ inline Out march(const int32_t* tab, int G, int W,
                                      int max_steps, float ox, float oy,
                                      float oz, float dx0, float dy0,
@@ -100,8 +88,7 @@ __host__ __device__ inline Out march(const int32_t* tab, int G, int W,
     const bool inside = r.cx >= 0 && r.cx < G && r.cy >= 0 && r.cy < G
                         && r.cz >= 0 && r.cz < G;
     if (!(alive0 && inside)) break;
-    const int w = (r.cx * G + r.cy) * W + (r.cz >> 5);
-    const uint32_t word = GLOBAL ? ldg(tab + w) : (uint32_t)tab[w];
+    const uint32_t word = (uint32_t)tab[(r.cx * G + r.cy) * W + (r.cz >> 5)];
     if ((word >> (r.cz & 31)) & 1u) {
       r.hit = 1;
       break;

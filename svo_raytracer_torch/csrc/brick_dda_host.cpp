@@ -35,7 +35,7 @@ extern "C" int dda_march_host(const int32_t* table, int G, int max_steps,
         if (traced) traced[k] = i;
         const float* o = origins + (size_t)o_stride * i;
         const float* d = dirs + (size_t)d_stride * i;
-        const dda::Out r = dda::march<false>(
+        const dda::Out r = dda::march(
             table, G, W, max_steps, o[0], o[1], o[2], d[0], d[1], d[2],
             active ? active[i] != 0 : true);
         hit[i] = (uint8_t)r.hit;

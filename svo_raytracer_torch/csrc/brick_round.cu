@@ -14,12 +14,21 @@
 // step per voxel crossed, so rays take many more steps than K1's
 // coarse-refine march, and rays of one warp take different numbers of
 // steps and rounds: warps diverge and idle lanes wait for the longest ray.
-//
-// Variants (build macros, for timing): K3_MIN_BLOCKS, the resident blocks
-// per SM __launch_bounds__ asks for (0: none); K3_RESIDENT, a grid of the
-// resident blocks taking the rays by a static grid stride (else one id per
-// thread); K3_L0_SMEM, L0 copied into shared memory per block (else read
-// through the read-only path).
+// What the design does, and what measurement kept (PERF.md §6):
+//   * order — the caller passes the permutation the rays are traced in:
+//     thread k traces ray order[k] and writes its record to that ray's
+//     slot.  A render traces both segments in 8x4 pixel tiles
+//     (traverse.tile_order), so a warp's rays start from one patch of the
+//     image, walk the same bricks and take similar step counts: 6% faster
+//     on primaries and 14% on shadow rays than row order.  The TPU's
+//     binning by brick before every round would need a sort per round;
+//   * tables — every table, L0 included, is read through the read-only
+//     path (__ldg): the 4 KB L0 stays in L1 and no block copies it
+//     (copying it into shared memory per block measured 2% slower);
+//   * every step loads its column's word: keeping the word in a register
+//     across steps along z measured 2-6% slower, a grid of the resident
+//     blocks taking rays by a grid stride 22-28% slower, and a minimum of
+//     resident blocks in __launch_bounds__ 0.4-2% slower.
 //
 // Built by ops/kernel_build.py with nvcc -gencode arch=compute_90a,
 // code=sm_90a -O3 -fmad=false into a shared library with a plain C entry
@@ -30,16 +39,6 @@
 #include <stdint.h>
 
 #include "brick_round.cuh"
-
-#ifndef K3_MIN_BLOCKS
-#define K3_MIN_BLOCKS 0
-#endif
-#ifndef K3_RESIDENT
-#define K3_RESIDENT 0
-#endif
-#ifndef K3_L0_SMEM
-#define K3_L0_SMEM 1
-#endif
 
 namespace {
 
@@ -59,59 +58,20 @@ struct Rays {
   int32_t* __restrict__ iters;
 };
 
-__device__ inline void trace_one(const br::Scene& S, int max_rounds,
-                                 const Rays& R, int k) {
+__global__ void __launch_bounds__(THREADS)
+round_kernel(br::Scene S, int max_rounds, Rays R) {
+  const int k = blockIdx.x * THREADS + threadIdx.x;
+  if (k >= R.n) return;
   const int i = R.order ? (int)R.order[k] : k;
   const float* o = R.origins + 3 * (size_t)i;
   const float* d = R.dirs + 3 * (size_t)i;
-  const br::Out r = br::trace_ray<!K3_L0_SMEM>(
-      S, o[0], o[1], o[2], d[0], d[1], d[2], R.alive[i] != 0, max_rounds);
+  const br::Out r = br::trace_ray(S, o[0], o[1], o[2], d[0], d[1], d[2],
+                                  R.alive[i] != 0, max_rounds);
   R.hit[i] = (uint8_t)r.hit;
   R.attr[i] = r.attr;
   R.hvox[i] = r.hvox;
   R.t[i] = r.t;
   R.iters[i] = r.iters;
-}
-
-__global__ void
-#if K3_MIN_BLOCKS > 0
-__launch_bounds__(THREADS, K3_MIN_BLOCKS)
-#else
-__launch_bounds__(THREADS)
-#endif
-round_kernel(br::Scene S, int max_rounds, Rays R) {
-#if K3_L0_SMEM
-  __shared__ int32_t l0[MAX_G * MAX_G];
-  for (int w = threadIdx.x; w < S.G * S.G; w += blockDim.x) l0[w] = S.l0[w];
-  __syncthreads();
-  S.l0 = l0;
-#endif
-#if K3_RESIDENT
-  for (int k = blockIdx.x * THREADS + threadIdx.x; k < R.n;
-       k += gridDim.x * THREADS)
-    trace_one(S, max_rounds, R, k);
-#else
-  const int k = blockIdx.x * THREADS + threadIdx.x;
-  if (k < R.n) trace_one(S, max_rounds, R, k);
-#endif
-}
-
-// The grid over n rays: one id per thread, or (K3_RESIDENT) the resident
-// blocks when n fills more.
-cudaError_t grid_of(int n, int* blocks) {
-  *blocks = (n + THREADS - 1) / THREADS;
-  if (!K3_RESIDENT) return cudaSuccess;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, round_kernel,
-                                                    THREADS, 0);
-  if (e != cudaSuccess) return e;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  if (per_sm * sms < *blocks) *blocks = per_sm * sms;
-  return cudaSuccess;
 }
 
 }  // namespace
@@ -133,16 +93,7 @@ extern "C" int brick_round(const int32_t* l0, const int32_t* brick_slot,
   if (n <= 0) return 0;
   const br::Scene S = {l0, brick_slot, brick_attr, occ, attrs, G, 32 * G};
   const Rays R = {origins, dirs, alive, order, n, hit, attr, hvox, t, iters};
-  int blocks = 0;
-  const cudaError_t e = grid_of(n, &blocks);
-  if (e != cudaSuccess) return (int)e;
-  round_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(S, max_rounds,
-                                                             R);
+  round_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
+                 (cudaStream_t)stream>>>(S, max_rounds, R);
   return (int)cudaGetLastError();
-}
-
-// The grid of a launch over n rays (blocks of THREADS), for the variant
-// timer.
-extern "C" int brick_round_grid(int n, int* blocks) {
-  return (int)grid_of(n, blocks);
 }

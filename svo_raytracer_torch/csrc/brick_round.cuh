@@ -66,41 +66,24 @@ struct Dda {
   int steps;
 };
 
-#ifndef BR_WORD_REUSE
-#define BR_WORD_REUSE 3  // bit 0: phase 1 keeps its word, bit 1: phase 2
-#endif
-#ifndef BR_LDG
-#define BR_LDG 1
-#endif
-
-// A table word in device memory, through the read-only path.
-__host__ __device__ inline uint32_t ld(const int32_t* p) {
-  return BR_LDG ? wf::ldg(p) : (uint32_t)*p;
-}
-
-// The z-packed occupancy words of an n^3 grid: bit z of word x*n + y.
-// GLOBAL: a table in device memory, read by ld(); else a table in shared
-// memory, read by a plain load.
-template <bool GLOBAL>
-struct Words {
+// The z-packed occupancy bits of an n^3 grid in device memory: bit z of
+// word x*n + y, read through the read-only path (wf::ldg).
+struct Bits {
   const int32_t* words;
   int n;
-  __host__ __device__ uint32_t operator()(int x, int y) const {
-    return GLOBAL ? ld(words + x * n + y) : (uint32_t)words[x * n + y];
+  __host__ __device__ bool operator()(int x, int y, int z) const {
+    return ((wf::ldg(words + x * n + y) >> z) & 1u) != 0;
   }
 };
 
 // Masked DDA over an n^3 grid of `cell`-edge cells in [0, n*cell]^3
 // (brick_pallas.py::_dda_vec).  Cell indices truncate toward zero.  The
 // TPU runs max_steps masked steps; a ray stops changing once it hits or
-// leaves the grid, so this loop stops there.  The word of the current
-// column (x, y) stays in a register: a step along z tests another bit of
-// it, and only a step along x or y loads the next word.
-template <bool REUSE, class Probe>
+// leaves the grid, so this loop stops there.
 __host__ __device__ inline Dda dda_vec(float px, float py, float pz,
                                        float dxc, float dyc, float dzc,
                                        float inv_x, float inv_y, float inv_z,
-                                       int n, float cell, const Probe& probe,
+                                       int n, float cell, const Bits& probe,
                                        int max_steps) {
   const float gf = (float)n * cell;
   const float t1x = (0.0f - px) * inv_x, t2x = (gf - px) * inv_x;
@@ -138,17 +121,11 @@ __host__ __device__ inline Dda dda_vec(float px, float py, float pz,
   r.hit = false;
   r.steps = 0;
   r.t = misses_box ? 0.0f : push;
-  bool load = true;
-  uint32_t word = 0;
   for (int s = 0; s < max_steps && !misses_box; ++s) {
     if (r.ix < 0 || r.ix >= n || r.iy < 0 || r.iy >= n || r.iz < 0 ||
         r.iz >= n)
       break;
-    if (load || !REUSE) {
-      word = probe(r.ix, r.iy);
-      load = false;
-    }
-    if ((word >> r.iz) & 1u) {
+    if (probe(r.ix, r.iy, r.iz)) {
       r.hit = true;
       break;
     }
@@ -159,11 +136,9 @@ __host__ __device__ inline Dda dda_vec(float px, float py, float pz,
     if (mx) {
       r.ix += sx;
       tx = tx + adx;
-      load = true;
     } else if (my) {
       r.iy += sy;
       ty = ty + ady;
-      load = true;
     } else {
       r.iz += sz;
       tz = tz + adz;
@@ -178,9 +153,7 @@ __host__ __device__ inline Dda dda_vec(float px, float py, float pz,
 // up to max_rounds rounds of phase 1 + phase 2 (file comment).  Positions
 // of a round and of a uniform-solid entry voxel step along the unclamped
 // direction; the phase-2 start inside the round along the clamped one.
-// L0_GLOBAL: S.l0 lies in device memory, else in shared memory.  Every
-// other table lies in device memory and is read by ld().
-template <bool L0_GLOBAL>
+// Every table is read through the read-only path (wf::ldg).
 __host__ __device__ inline Out trace_ray(const Scene& S, float ox, float oy,
                                          float oz, float dx, float dy,
                                          float dz, bool alive,
@@ -196,7 +169,7 @@ __host__ __device__ inline Out trace_ray(const Scene& S, float ox, float oy,
   const float dxc = wf::clamp_dir(dx), dyc = wf::clamp_dir(dy),
               dzc = wf::clamp_dir(dz);
   const float inv_x = 1.0f / dxc, inv_y = 1.0f / dyc, inv_z = 1.0f / dzc;
-  const Words<L0_GLOBAL> l0 = {S.l0, G};
+  const Bits l0 = {S.l0, G};
   float t_tot = 0.0f;
   int slot = -1, cell = 0;
   for (int rnd = 0; rnd < max_rounds; ++rnd) {
@@ -209,8 +182,8 @@ __host__ __device__ inline Out trace_ray(const Scene& S, float ox, float oy,
       const float bx = (float)(cell / (G * G)) * 32.0f;
       const float by = (float)((cell / G) % G) * 32.0f;
       const float bz = (float)(cell % G) * 32.0f;
-      const Words<true> occ = {S.occ + (size_t)slot * 1024, 32};
-      const Dda r1 = dda_vec<(BR_WORD_REUSE & 1) != 0>(px - bx, py - by, pz - bz, dxc, dyc, dzc, inv_x,
+      const Bits occ = {S.occ + (size_t)slot * 1024, 32};
+      const Dda r1 = dda_vec(px - bx, py - by, pz - bz, dxc, dyc, dzc, inv_x,
                              inv_y, inv_z, 32, 1.0f, occ, INNER_STEPS);
       out.iters += r1.steps;
       if (r1.hit) {
@@ -219,7 +192,8 @@ __host__ __device__ inline Out trace_ray(const Scene& S, float ox, float oy,
         const int gy = ((cell / G) % G) * 32 + r1.iy;
         const int gz = (cell % G) * 32 + r1.iz;
         out.hit = 1;
-        out.attr = (int32_t)ld(S.attrs + (size_t)slot * BRICK_WORDS + widx);
+        out.attr =
+            (int32_t)wf::ldg(S.attrs + (size_t)slot * BRICK_WORDS + widx);
         out.hvox = (gx * ws + gy) * ws + gz;
         out.t = t_tot + r1.t;
         return out;
@@ -227,7 +201,7 @@ __host__ __device__ inline Out trace_ray(const Scene& S, float ox, float oy,
       t2_0 = r1.t + EXIT_EPS;
     }
     // ---- phase 2: L0 march to the next occupied brick
-    const Dda r2 = dda_vec<(BR_WORD_REUSE & 2) != 0>(px + t2_0 * dxc, py + t2_0 * dyc, pz + t2_0 * dzc,
+    const Dda r2 = dda_vec(px + t2_0 * dxc, py + t2_0 * dyc, pz + t2_0 * dzc,
                            dxc, dyc, dzc, inv_x, inv_y, inv_z, G, 32.0f, l0,
                            3 * G + 4);
     out.iters += r2.steps;
@@ -236,8 +210,8 @@ __host__ __device__ inline Out trace_ray(const Scene& S, float ox, float oy,
     const float r_t = t2_0 + r2.t;
     const int cell2 = wf::clampi((r2.ix * G + r2.iy) * G + r2.iz, 0,
                                  G * G * G - 1);
-    const int s2 = (int)ld(S.brick_slot + cell2);
-    const int32_t uattr = (int32_t)ld(S.brick_attr + cell2);
+    const int s2 = (int)wf::ldg(S.brick_slot + cell2);
+    const int32_t uattr = (int32_t)wf::ldg(S.brick_attr + cell2);
     if (s2 < 0 && (uattr & 0xFF) != 0) {
       // uniform-solid brick: a hit at its entry voxel
       const int bx = (cell2 / (G * G)) * 32;

@@ -4,21 +4,13 @@
 // and compares it with ops/brick_pallas.py::trace_plain.  No runtime path
 // uses it: on a GPU the same header is compiled into brick_round.cu.
 //
-// The host loop emulates brick_round.cu's grid: `blocks` blocks of 128
-// threads, thread t of block b taking the ids b*128 + t + j*blocks*128
-// below n, and tracing ray order[id] (or ray id), its record written to
-// that ray's slot.  `traced`, if not null, receives the ray traced at
-// each id.
+// The host loop emulates brick_round.cu's grid, one id per thread: id k
+// traces ray order[k] (or ray k), its record written to that ray's slot.
+// `traced`, if not null, receives the ray traced at each id.
 
 #include <stdint.h>
 
 #include "brick_round.cuh"
-
-namespace {
-
-constexpr int THREADS = 128;
-
-}  // namespace
 
 extern "C" int brick_round_host(const int32_t* l0, const int32_t* brick_slot,
                                 const int32_t* brick_attr,
@@ -27,25 +19,20 @@ extern "C" int brick_round_host(const int32_t* l0, const int32_t* brick_slot,
                                 const float* dirs, const uint8_t* alive,
                                 const int64_t* order, int n, uint8_t* hit,
                                 int32_t* attr, int32_t* hvox, float* t,
-                                int32_t* iters, int blocks,
-                                int64_t* traced) {
+                                int32_t* iters, int64_t* traced) {
   const br::Scene S = {l0, brick_slot, brick_attr, occ, attrs, G, 32 * G};
-  for (int b = 0; b < blocks; ++b) {
-    for (int th = 0; th < THREADS; ++th) {
-      for (int k = b * THREADS + th; k < n; k += blocks * THREADS) {
-        const int i = order ? (int)order[k] : k;
-        if (traced) traced[k] = i;
-        const br::Out r = br::trace_ray<true>(
-            S, origins[3 * i], origins[3 * i + 1], origins[3 * i + 2],
-            dirs[3 * i], dirs[3 * i + 1], dirs[3 * i + 2], alive[i] != 0,
-            max_rounds);
-        hit[i] = (uint8_t)r.hit;
-        attr[i] = r.attr;
-        hvox[i] = r.hvox;
-        t[i] = r.t;
-        iters[i] = r.iters;
-      }
-    }
+  for (int k = 0; k < n; ++k) {
+    const int i = order ? (int)order[k] : k;
+    if (traced) traced[k] = i;
+    const br::Out r = br::trace_ray(
+        S, origins[3 * i], origins[3 * i + 1], origins[3 * i + 2],
+        dirs[3 * i], dirs[3 * i + 1], dirs[3 * i + 2], alive[i] != 0,
+        max_rounds);
+    hit[i] = (uint8_t)r.hit;
+    attr[i] = r.attr;
+    hvox[i] = r.hvox;
+    t[i] = r.t;
+    iters[i] = r.iters;
   }
   return 0;
 }

@@ -487,17 +487,14 @@ def test_camera_source_body_equals_plain(name, W, H):
     assert hits.any() and not hits.all()
 
 
-def _k3_host(scene, o, d, alive, max_rounds, order=None, blocks=None):
-    """K3's records by the g++ build of its schedule (``blocks`` blocks of
-    128 threads taking ids by a grid stride; None: one id per thread),
-    ray order[id] at each id, and the ray each id traced; every slot
-    starts as a sentinel that no record holds."""
+def _k3_host(scene, o, d, alive, max_rounds, order=None):
+    """K3's records by the g++ build of its schedule (id k traces ray
+    order[k]) and the ray each id traced; every slot starts as a sentinel
+    that no record holds."""
     fn = _host_fn("brick_round_host", "brick_round_host.cpp",
                   "brick_round_host", brick_pallas.K3.argtypes[:-1]
-                  + [ctypes.c_int, ctypes.c_void_p, None])
+                  + [ctypes.c_void_p, None])
     B = o.shape[0]
-    if blocks is None:
-        blocks = -(-B // 128)
     got = dict(hit=torch.full((B,), True),
                attr=torch.full((B,), -7, dtype=torch.int32),
                hvox=torch.full((B,), -7, dtype=torch.int32),
@@ -507,7 +504,7 @@ def _k3_host(scene, o, d, alive, max_rounds, order=None, blocks=None):
     assert fn(*brick_pallas._args(scene), max_rounds, o.data_ptr(),
               d.data_ptr(), alive.view(torch.uint8).data_ptr(),
               None if order is None else order.data_ptr(), B,
-              *[got[f].data_ptr() for f in brick_pallas.FIELDS], blocks,
+              *[got[f].data_ptr() for f in brick_pallas.FIELDS],
               traced.data_ptr()) == 0
     return got, traced
 
@@ -537,8 +534,8 @@ def test_brick_round_source_body_equals_plain(name, max_rounds):
     assert want["hit"].any() and not want["hit"].all()
 
 
-K3_SCHEDULE_CASES = ("B=0", "B=1", "B=37", "all dead", "tile order",
-                     "one block", "three blocks")
+K3_SCHEDULE_CASES = ("B=0", "B=1", "B=37", "B=129", "all dead",
+                     "tile order", "random order")
 
 
 @pytest.mark.parametrize("max_rounds", [24, 2])
@@ -546,21 +543,19 @@ K3_SCHEDULE_CASES = ("B=0", "B=1", "B=37", "all dead", "tile order",
 def test_brick_round_source_schedule_equals_plain(case, max_rounds):
     """K3's schedule (csrc/brick_round.cu, emulated by
     brick_round_host.cpp) over the rays in a permutation (a 64x32
-    image's tile order, or a random one for other batch sizes), one id per
-    thread or blocks taking ids by a grid stride: every slot is written,
-    each id traces ray order[id], and every field equals trace_plain in
-    ray order."""
+    image's tile order, or a random one), one id per thread, batches
+    that fill no block included: every slot is written, each id traces
+    ray order[id], and every field equals trace_plain in ray order."""
     scene = brick_scene.brickify(_esvo_tree("terrain-64")).to_device("cpu")
     o, d, alive = _k3_rays(scene)
-    B = {"B=0": 0, "B=1": 1, "B=37": 37}.get(case, 64 * 32)
+    B = {"B=0": 0, "B=1": 1, "B=37": 37, "B=129": 129}.get(case, 64 * 32)
     o, d, alive = o[:B].contiguous(), d[:B].contiguous(), alive[:B].clone()
     if case == "all dead":
         alive[:] = False
     order = (traverse.tile_order(64, 32, "cpu") if case == "tile order"
              else torch.from_numpy(np.random.default_rng(3).permutation(B)))
-    blocks = {"one block": 1, "three blocks": 3}.get(case)
     want = brick_pallas.trace_plain(scene, o, d, alive, max_rounds)
-    got, traced = _k3_host(scene, o, d, alive, max_rounds, order, blocks)
+    got, traced = _k3_host(scene, o, d, alive, max_rounds, order)
     assert _equal(want, got) == []
     assert not (got["iters"] == -7).any()
     assert torch.equal(traced, order)
@@ -583,11 +578,11 @@ def _column_scene():
 
 
 def test_brick_round_source_reloads_word_on_xy_steps():
-    """The word kept across steps (csrc/brick_round.cuh dda_vec): rays
-    whose first step crosses an x or a y cell edge into a column that
-    holds the next solid voxel (phase 1) or brick (phase 2) hit it; a
-    kernel that tested the old column's word would march past.  The same
-    rays stepping along z stay in their column."""
+    """Rays whose first step crosses an x or a y cell edge into a column
+    that holds the next solid voxel (phase 1) or brick (phase 2) hit it:
+    a DDA that kept the old column's word across steps (a design that
+    measured slower, PERF.md §6) would march past.  A ray stepping along
+    z stays in its empty column and misses."""
     scene = _column_scene()
     o = torch.tensor([[9.99, 9.5, 5.5],      # +x into column (10, 9)
                       [9.5, 11.99, 5.5],     # +y into column (9, 12)
