@@ -66,7 +66,8 @@ def camera_rays(cam5, width, height, pixels):
 
 
 def engines(jscene, jws, scene, ws, o, d):
-    """{engine: (hit, t)} of the four engines on (n,3) world rays."""
+    """{engine: (hit, t)} of the four engines on (n,3) world rays, and of
+    both K3s given 96 rounds (intersect_bricks_tpu's default is 24)."""
     out = {}
     r = jbrick_pallas.intersect_bricks_tpu(jscene, jnp.asarray(o),
                                            jnp.asarray(d), interpret=True)
@@ -77,6 +78,12 @@ def engines(jscene, jws, scene, ws, o, d):
     ot, dt = torch.from_numpy(o), torch.from_numpy(d)
     r = brick_pallas.intersect_bricks_tpu(scene, ot, dt)
     out["port K3"] = (r.hit.numpy(), r.t.numpy())
+    r = jbrick_pallas.intersect_bricks_tpu(jscene, jnp.asarray(o),
+                                           jnp.asarray(d), max_rounds=96,
+                                           interpret=True)
+    out["JAX K3 96 rounds"] = (np.asarray(r.hit), np.asarray(r.t))
+    r = brick_pallas.intersect_bricks_tpu(scene, ot, dt, max_rounds=96)
+    out["port K3 96 rounds"] = (r.hit.numpy(), r.t.numpy())
     r = wavefront.intersect_wavefront(ws, ot, dt)
     out["port wavefront"] = (r.hit.numpy(), r.t.numpy())
     return out
@@ -117,9 +124,11 @@ def main():
                             d.astype(np.float32))
         print(f"{name}: traced in {time.time() - t0:.1f} s", flush=True)
     print("pixel (x, y): frame hits K3 / wavefront | K3 frame's rays: "
-          "JAX K3, JAX wavefront, port K3, port wavefront | wavefront "
-          "frame's rays: the same four (hit 1/0, t)")
-    tally = dict(jax_engines_disagree=0, port_fault=0, rays_differ=0)
+          "JAX K3, JAX wavefront, port K3, JAX K3 and port K3 with 96 "
+          "rounds, port wavefront | wavefront frame's rays: the same six "
+          "(hit 1/0, t)")
+    tally = dict(jax_engines_disagree=0, port_fault=0, rays_differ=0,
+                 jax_96_rounds_miss=0)
     for k, p in enumerate(pixels):
         cells = []
         for name in sets:
@@ -129,7 +138,10 @@ def main():
         b = res["wavefront frame's rays"]
         jax_split = a["JAX K3"][0][k] != a["JAX wavefront"][0][k]
         port_off = (a["port K3"][0][k] != a["JAX K3"][0][k]
+                    or a["port K3 96 rounds"][0][k]
+                    != a["JAX K3 96 rounds"][0][k]
                     or b["port wavefront"][0][k] != b["JAX wavefront"][0][k])
+        tally["jax_96_rounds_miss"] += int(not a["JAX K3 96 rounds"][0][k])
         tally["jax_engines_disagree"] += int(jax_split)
         tally["port_fault"] += int(port_off)
         tally["rays_differ"] += int(a["JAX K3"][0][k]
@@ -137,11 +149,36 @@ def main():
         print(f"  {int(p) % width:4d} {int(p) // width:4d}: "
               f"{int(z['k3_hit'][k])} / {int(z['wave_depth'][k] > 0)} | "
               f"{cells[0]} | {cells[1]}")
+    # JAX's K3 bins its rays by brick each round and a ray that overflows
+    # its bin's padding waits a round; traced alone, no ray waits
+    a = res["K3 frame's rays"]
+    split = np.nonzero(a["JAX K3 96 rounds"][0]
+                       != a["port K3 96 rounds"][0])[0]
+    for k in split:
+        r = jbrick_pallas.intersect_bricks_tpu(
+            jdev, jnp.asarray(o1[k:k + 1]), jnp.asarray(d1[k:k + 1]),
+            max_rounds=96, interpret=True)
+        print(f"  pixel {int(pixels[k])}: JAX's K3 with 96 rounds on this "
+              f"ray alone: hit {bool(r.hit[0])} t {float(r.t[0]):.6f} "
+              f"(port {bool(a['port K3 96 rounds'][0][k])} "
+              f"{float(a['port K3 96 rounds'][1][k]):.6f})")
+    ot, dt = torch.from_numpy(o1), torch.from_numpy(d1)
+    for rounds in (24, 48, 96, 192, 400, 1000):
+        r = brick_pallas.intersect_bricks_tpu(dscene, ot, dt,
+                                              max_rounds=rounds)
+        h = r.hit.numpy()
+        same_t = bool((np.abs(r.t.numpy()[h] - z["wave_depth"][h])
+                       <= 1e-6).all())
+        print(f"  the port's K3 with {rounds} rounds: {int(h.sum())} of "
+              f"{len(pixels)} hit, each at the wavefront frame's depth "
+              f"(1e-6) {same_t}; DDA steps up to {int(r.iters.max())}")
     print(f"[verdict] of {len(pixels)} pixels: the JAX package's two "
           f"engines disagree on the K3 frame's ray at "
           f"{tally['jax_engines_disagree']}; a port engine differs from its "
           f"JAX counterpart at {tally['port_fault']}; JAX's K3 answers the "
-          f"two frames' rays differently at {tally['rays_differ']}")
+          f"two frames' rays differently at {tally['rays_differ']}; JAX's "
+          f"K3 still misses the K3 frame's ray with 96 rounds at "
+          f"{tally['jax_96_rounds_miss']}")
 
 
 if __name__ == "__main__":

@@ -357,9 +357,10 @@ def test_k2_k3_wrappers_launch_their_kernel_alone_on_gpu():
     alive = torch.ones(4096, dtype=torch.bool, device="cuda")
     order = chip_smoke.permutation(4096, "cuda")
     sun = torch.tensor([0.3, 0.8, 0.5], device="cuda").expand(4096, 3)
-    brick_dda.coarse_dda(tab, o, d, 64)           # built and loaded
+    og = o * 64.0
+    brick_dda.coarse_dda(tab, og, d, 64)          # built and loaded
     chip_smoke.only_kernel("K2", lambda: brick_dda.coarse_dda(
-        tab, o * 64.0, sun, 64, active=alive, order=order), "K2")
+        tab, og, sun, 64, active=alive, order=order), "K2")
     scene = _terrain_bricks("cuda")
     ov = ((o - 1.0) * float(scene.world_size)).contiguous()
     brick_pallas.trace(scene, ov, d, alive, 24)
