@@ -27,10 +27,12 @@ package's contract.
 After the 1024^3 wavefront world, its host BrickScene goes to the card
 for kernel K3, the v1 brick-round engine (brick_pallas.
 intersect_bricks_tpu), which renders 1920x1080 mode-2 frames as the
-intersect_fn of shade.shade_direct; K3 is held equal to its plain version
+intersect_fn of shade.shade_direct, both segments in the image's 8x4
+pixel tiles; K3 is held equal to its plain version
 (brick_pallas.trace_plain) on the small scenes (also cut at a few rounds)
-and on both segments of a frame, and its primary hit mask against the
-wavefront mode-2 frame's.
+and on both segments of a frame, in that order and in ray order, and its
+primary hit mask against the wavefront mode-2 frame's (the pixels that
+differ go to chiprun_out/k3_mask_rays.npz).
 
 Then the ESVO path runs on the same heightmap and camera: the octree is
 built on the card (models/heightmap.generate_chunk_heightmap,
@@ -41,10 +43,15 @@ kernels KE (the per-ray ESVO traversal) and K2 (the skip grid's coarse
 DDA).  Both are held equal to their plain versions
 (traverse.intersect_plain, brick_dda.coarse_dda_plain) on small scenes (KE
 also cut at a depth below the trees' and cone-traced), on sampled rays of
-the world and on every segment of each skip-grid frame, KE in the order
-the render traces it (the image's 8x4 pixel tiles; the mode-0 bounce in
-the binned schedule, and again in ray order).  KE's two kernels-line
-entries split its launches: mode-2 segments, and cone-traced bounces.
+the world and on every segment of each skip-grid frame, KE and K2 in the
+order the render traces them (the image's 8x4 pixel tiles; the mode-0
+bounce in KE's binned schedule), K2 and the bounce again in ray order.
+KE's two kernels-line entries split its launches: mode-2 segments, and
+cone-traced bounces.  K2's and K3's wrappers are held to launch their
+kernel alone.
+
+Each kernels-line entry gives the kernel's device time (CUDA events
+behind a spin kernel, device_ms) beside its time per call.
 
 Each check's bound counts the ray inputs and records once, the distinct
 table words its plain version gathers, and its steps' operations.
@@ -278,10 +285,8 @@ def timed(fn, reps=1, warm=True):
     return out, start.elapsed_time(end) / reps
 
 
-# the name (a substring) each kernel's launches carry in a profiler trace
-KERNEL_NAMES = {"K1": "wf_trace_kernel", "K1 keys": "ray_key_kernel",
-                "KE": "esvo_trace_kernel", "K2": "dda_kernel",
-                "K3": "round_kernel"}
+# the name (a substring) of a kernel's device records in a profiler trace
+KERNEL_NAMES = {"K2": "dda_kernel", "K3": "round_kernel"}
 
 
 # Device time.  torch.profiler on the H100 hosts lost device records in a
@@ -319,7 +324,7 @@ def device_ms(fn, reps):
     return total / reps
 
 
-def profiled(fn, reps=1):
+def profiled(fn, reps):
     """The events of ``reps`` calls of ``fn`` under torch.profiler: the
     device's (DEVICE_CATS) and the host's kernel launches (cuda_runtime
     and cuda_driver events named *LaunchKernel*)."""
@@ -433,8 +438,8 @@ def unequal(rec_a, rec_b):
 class Held:
     """A kernel against its plain version on one input set: every field of
     the (dict) records equal on every ray, NaN equal to NaN.  Times the
-    kernel (``ms``: its device time by torch.profiler; ``call_ms``: per
-    call by CUDA events) and its plain version once.
+    kernel (``ms``: its device time, device_ms; ``call_ms``: per call by
+    CUDA events) and its plain version once.
     ``bound_ms`` is the least time for the set's own work: ``ray_bytes``
     (ray inputs and records, once) plus the distinct words of ``tables``
     that the plain version gathers (counted on a second, untimed run), and
@@ -1516,7 +1521,7 @@ def check_attr16(dev, scene, ws, rays):
 def kernel_entry(name, source, replaces, launches, timed_checks,
                  all_checks):
     """A kernel's line of the kernels table: times are the means over
-    ``timed_checks`` (``ms`` the kernel's device time by torch.profiler,
+    ``timed_checks`` (``ms`` the kernel's device time, device_ms;
     ``call_ms`` per call by CUDA events), the bound that of their mean
     bytes and operations, max_abs_err the largest over ``all_checks``.
     No PyTorch call computes what the port's kernels compute, so

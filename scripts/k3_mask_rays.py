@@ -128,7 +128,7 @@ def main():
           "rounds, port wavefront | wavefront frame's rays: the same six "
           "(hit 1/0, t)")
     tally = dict(jax_engines_disagree=0, port_fault=0, rays_differ=0,
-                 jax_96_rounds_miss=0)
+                 jax_96_rounds_miss=0, jax_lost_rounds_in_bins=0)
     for k, p in enumerate(pixels):
         cells = []
         for name in sets:
@@ -158,6 +158,9 @@ def main():
         r = jbrick_pallas.intersect_bricks_tpu(
             jdev, jnp.asarray(o1[k:k + 1]), jnp.asarray(d1[k:k + 1]),
             max_rounds=96, interpret=True)
+        alone = bool(r.hit[0]) == bool(a["port K3 96 rounds"][0][k])
+        tally["port_fault"] -= int(alone)
+        tally["jax_lost_rounds_in_bins"] += int(alone)
         print(f"  pixel {int(pixels[k])}: JAX's K3 with 96 rounds on this "
               f"ray alone: hit {bool(r.hit[0])} t {float(r.t[0]):.6f} "
               f"(port {bool(a['port K3 96 rounds'][0][k])} "
@@ -175,7 +178,9 @@ def main():
     print(f"[verdict] of {len(pixels)} pixels: the JAX package's two "
           f"engines disagree on the K3 frame's ray at "
           f"{tally['jax_engines_disagree']}; a port engine differs from its "
-          f"JAX counterpart at {tally['port_fault']}; JAX's K3 answers the "
+          f"JAX counterpart at {tally['port_fault']} (and where JAX's K3, "
+          f"in a batch, lost rounds to its bins' padding at "
+          f"{tally['jax_lost_rounds_in_bins']}); JAX's K3 answers the "
           f"two frames' rays differently at {tally['rays_differ']}; JAX's "
           f"K3 still misses the K3 frame's ray with 96 rounds at "
           f"{tally['jax_96_rounds_miss']}")

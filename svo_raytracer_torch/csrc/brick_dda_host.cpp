@@ -8,8 +8,8 @@
 // threads, thread t of block b taking the ids b*256 + t + j*blocks*256
 // below n, and tracing ray order[id] (or ray id), its record written to
 // that ray's slot.  `traced`, if not null, receives the ray traced at
-// each id.  Ray rows lie o_stride and d_stride floats apart (3, or 0 for
-// one row shared by every ray); a null `active` makes every ray active.
+// each id.  Direction rows lie d_stride floats apart (3, or 0 for one row
+// shared by every ray); a null `active` makes every ray active.
 
 #include <stdint.h>
 
@@ -22,8 +22,8 @@ constexpr int THREADS = 256;
 }  // namespace
 
 extern "C" int dda_march_host(const int32_t* table, int G, int max_steps,
-                              const float* origins, int o_stride,
-                              const float* dirs, int d_stride,
+                              const float* origins, const float* dirs,
+                              int d_stride,
                               const uint8_t* active, const int64_t* order,
                               int n, uint8_t* hit, float* t, int32_t* cell,
                               int32_t* steps, int blocks, int64_t* traced) {
@@ -33,7 +33,7 @@ extern "C" int dda_march_host(const int32_t* table, int G, int max_steps,
       for (int k = b * THREADS + th; k < n; k += blocks * THREADS) {
         const int i = order ? (int)order[k] : k;
         if (traced) traced[k] = i;
-        const float* o = origins + (size_t)o_stride * i;
+        const float* o = origins + 3 * (size_t)i;
         const float* d = dirs + (size_t)d_stride * i;
         const dda::Out r = dda::march(
             table, G, W, max_steps, o[0], o[1], o[2], d[0], d[1], d[2],

@@ -24,11 +24,11 @@
 //     binning by brick before every round would need a sort per round;
 //   * tables — every table, L0 included, is read through the read-only
 //     path (__ldg): the 4 KB L0 stays in L1 and no block copies it
-//     (copying it into shared memory per block measured 2% slower);
+//     (copying it into shared memory per block measured 1-2% slower);
 //   * every step loads its column's word: keeping the word in a register
-//     across steps along z measured 2-6% slower, a grid of the resident
-//     blocks taking rays by a grid stride 22-28% slower, and a minimum of
-//     resident blocks in __launch_bounds__ 0.4-2% slower.
+//     across steps along z measured 2-8% slower, a grid of the resident
+//     blocks taking rays by a grid stride 17-31% slower, and a minimum of
+//     resident blocks in __launch_bounds__ 0.3-2% slower.
 //
 // Built by ops/kernel_build.py with nvcc -gencode arch=compute_90a,
 // code=sm_90a -O3 -fmad=false into a shared library with a plain C entry

@@ -32,8 +32,7 @@ DIR_EPS = float(np.float32(1e-4))
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 K2 = kernel_build.Kernel("brick_dda", ["brick_dda.cu"], "dda_march",
-                         [_P, _I, _I, _P, _I, _P, _I, _P, _P, _I]
-                         + [_P] * 5)
+                         [_P, _I, _I, _P, _P, _I, _P, _P, _I] + [_P] * 5)
 
 
 def _cell_of(p, G):
@@ -99,9 +98,9 @@ def coarse_dda_plain(occ_table, o, d, G, max_steps, alive):
 
 
 def _row_stride(a):
-    """Floats from one ray's row of a (B,3) float32 tensor to the next: 3
-    for packed rows, 0 for one row expanded over the batch; None for any
-    other layout."""
+    """Floats from one row of a (B,3) float32 tensor to the next: 3 for
+    packed rows, 0 for one row expanded over the batch (a shadow
+    segment's sun direction); None for any other layout."""
     if a.dtype != torch.float32:
         return None
     if a.shape[0] == 0:
@@ -116,21 +115,22 @@ def _row_stride(a):
 def coarse_dda_kernel(occ_table, o, d, G, max_steps, alive=None,
                       order=None):
     """Kernel K2 on the card: same contract as :func:`coarse_dda_plain`.
-    ``o``, ``d``: (B,3) float32 rows, packed or one row expanded over the
-    batch; ``alive``: contiguous (B,) bool, or None for every ray;
+    ``o``: contiguous (B,3) float32; ``d``: (B,3) float32 rows, packed or
+    one row expanded over the batch; ``alive``: contiguous (B,) bool, or
+    None for every ray;
     ``order``: the (B,) int64 permutation the rays are traced in (None:
     ray order).  Launches K2 alone: the bool tensors' bytes are its u8
     input and output."""
     B = o.shape[0]
     dev = o.device
-    _check_order(order, B, dev)
+    kernel_build.check_order(order, B, dev)
     if alive is not None and (alive.dtype != torch.bool
                               or not alive.is_contiguous()):
         raise ValueError("alive must be a contiguous bool tensor")
-    so, sd = _row_stride(o), _row_stride(d)
-    if so is None or sd is None:
-        raise ValueError("origins and directions must be float32 rows, "
-                         "packed or expanded")
+    sd = _row_stride(d)
+    if o.dtype != torch.float32 or not o.is_contiguous() or sd is None:
+        raise ValueError("origins must be contiguous float32 and "
+                         "directions float32 rows, packed or expanded")
     hit = torch.empty(B, dtype=torch.bool, device=dev)
     t = torch.empty(B, dtype=torch.float32, device=dev)
     cell = torch.empty((B, 3), dtype=torch.int32, device=dev)
@@ -139,7 +139,7 @@ def coarse_dda_kernel(occ_table, o, d, G, max_steps, alive=None,
         fn = K2.load()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
-            rc = fn(occ_table.data_ptr(), G, max_steps, o.data_ptr(), so,
+            rc = fn(occ_table.data_ptr(), G, max_steps, o.data_ptr(),
                     d.data_ptr(), sd,
                     None if alive is None
                     else alive.view(torch.uint8).data_ptr(),
@@ -150,15 +150,6 @@ def coarse_dda_kernel(occ_table, o, d, G, max_steps, alive=None,
             raise RuntimeError(f"K2 launch failed with cudaError {rc}")
         K2.launches += 1
     return dict(hit=hit, t=t, cell=cell, steps=steps)
-
-
-def _check_order(order, B, device):
-    if order is not None and (order.shape != (B,)
-                              or order.dtype != torch.int64
-                              or order.device != device
-                              or not order.is_contiguous()):
-        raise ValueError("order must be a contiguous (B,) int64 tensor on "
-                         "the rays' device")
 
 
 def coarse_dda(occ_table, origins, dirs, grid_size, max_steps=None,
@@ -172,9 +163,10 @@ def coarse_dda(occ_table, origins, dirs, grid_size, max_steps=None,
     (entry distance of the hit cell, grid units), cell (B,3) int32 and
     steps (B,) int32.  ``max_steps`` defaults to 3G, as the JAX package's.
     Kernel K2 for CUDA tensors, its plain version for CPU tensors (in ray
-    order: the records do not depend on the order).  On the card a
-    float32 ray tensor with packed or expanded rows and a bool
-    ``active`` go to K2 as they are, with no copy."""
+    order: the records do not depend on the order).  On the card
+    contiguous float32 origins, float32 directions with packed or
+    expanded rows and a bool ``active`` go to K2 as they are, with no
+    copy."""
     G = int(grid_size)
     if not 1 <= G <= MAX_G:
         raise ValueError(f"grid_size {G} outside [1, {MAX_G}]")
@@ -186,9 +178,8 @@ def coarse_dda(occ_table, origins, dirs, grid_size, max_steps=None,
         raise ValueError(f"ray shapes {tuple(origins.shape)} "
                          f"{tuple(dirs.shape)} "
                          f"{None if active is None else tuple(active.shape)}")
-    o, d = origins.to(torch.float32), dirs.to(torch.float32)
-    if _row_stride(o) is None:
-        o = o.contiguous()
+    o = origins.to(torch.float32).contiguous()
+    d = dirs.to(torch.float32)
     if _row_stride(d) is None:
         d = d.contiguous()
     alive = None if active is None else active.to(torch.bool).contiguous()
@@ -200,7 +191,7 @@ def coarse_dda(occ_table, origins, dirs, grid_size, max_steps=None,
     for a in (d, alive, occ_table):
         if a is not None and a.device != o.device:
             raise ValueError(f"tensor on {a.device}, rays on {o.device}")
-    _check_order(order, B, o.device)
+    kernel_build.check_order(order, B, o.device)
     if o.device.type == "cpu":
         if alive is None:
             alive = torch.ones(B, dtype=torch.bool)

@@ -225,15 +225,6 @@ def _args(scene):
     return [a.data_ptr() for a in arrs] + [scene.grid_size]
 
 
-def _check_order(order, B, device):
-    if order is not None and (order.shape != (B,)
-                              or order.dtype != torch.int64
-                              or order.device != device
-                              or not order.is_contiguous()):
-        raise ValueError("order must be a contiguous (B,) int64 tensor on "
-                         "the rays' device")
-
-
 def trace_kernel(scene, o, d, alive, max_rounds, order=None):
     """Kernel K3 on the card: same contract as :func:`trace_plain`.
     Thread k traces ray ``order[k]`` (a (B,) int64 permutation on the
@@ -242,7 +233,7 @@ def trace_kernel(scene, o, d, alive, max_rounds, order=None):
     Launches K3 alone: the bool tensors' bytes are its u8 input and
     output."""
     B, dev = o.shape[0], o.device
-    _check_order(order, B, dev)
+    kernel_build.check_order(order, B, dev)
     if alive.dtype != torch.bool or not alive.is_contiguous():
         raise ValueError("alive must be a contiguous bool tensor")
     out = dict(hit=torch.empty(B, dtype=torch.bool, device=dev),
@@ -276,7 +267,7 @@ def trace(scene, o, d, alive, max_rounds, order=None):
     for a in (d, alive, scene.l0_table, scene.attrs):
         if a.device != o.device:
             raise ValueError(f"tensor on {a.device}, rays on {o.device}")
-    _check_order(order, B, o.device)
+    kernel_build.check_order(order, B, o.device)
     if o.device.type == "cpu":
         return trace_plain(scene, o, d, alive, max_rounds)
     return trace_kernel(scene, o, d, alive, max_rounds, order)

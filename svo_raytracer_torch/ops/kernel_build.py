@@ -21,6 +21,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
@@ -87,6 +89,18 @@ def library(name: str, sources, compiler: str, flags) -> Path:
 def load(name: str, sources, compiler: str, flags) -> ctypes.CDLL:
     """Build (if needed) and dlopen the library of ``sources``."""
     return ctypes.CDLL(str(library(name, sources, compiler, flags)))
+
+
+def check_order(order, B, device):
+    """Raise unless ``order`` is None or a contiguous (B,) int64 tensor on
+    ``device``: the permutation a kernel traces its B rays in (thread k
+    traces ray order[k])."""
+    if order is not None and (order.shape != (B,)
+                              or order.dtype != torch.int64
+                              or order.device != device
+                              or not order.is_contiguous()):
+        raise ValueError("order must be a contiguous (B,) int64 tensor on "
+                         "the rays' device")
 
 
 class Kernel:

@@ -313,7 +313,7 @@ def intersect_kernel(packed, o, d, alive, max_depth=C.MAX_DEPTH,
     regroups its rays by direction octant before tracing them."""
     _check(packed, o, d, alive, "cuda")
     B = o.shape[0]
-    _check_order(order, B, o.device)
+    kernel_build.check_order(order, B, o.device)
     f_out = torch.empty((len(F_FIELDS), B), dtype=torch.float32,
                         device=o.device)
     i_out = torch.empty((len(I_FIELDS), B), dtype=torch.int32,
@@ -338,15 +338,6 @@ def intersect_kernel(packed, o, d, alive, max_depth=C.MAX_DEPTH,
     rec = dict(zip(F_FIELDS, f_out.unbind(0)))
     rec.update(zip(I_FIELDS, i_out.unbind(0)))
     return rec
-
-
-def _check_order(order, B, device):
-    if order is not None and (order.shape != (B,)
-                              or order.dtype != torch.int64
-                              or order.device != device
-                              or not order.is_contiguous()):
-        raise ValueError("order must be a contiguous (B,) int64 tensor on "
-                         "the rays' device")
 
 
 def _check(packed, o, d, alive, device_type):
@@ -374,7 +365,7 @@ def trace(packed, o, d, alive, order=None, **kw):
     (in ray order: the records do not depend on the order)."""
     if o.device.type == "cpu":
         _check(packed, o, d, alive, "cpu")
-        _check_order(order, o.shape[0], o.device)
+        kernel_build.check_order(order, o.shape[0], o.device)
         return intersect_plain(packed, o, d, alive, **kw)
     return intersect_kernel(packed, o, d, alive, order=order, **kw)
 

@@ -215,8 +215,8 @@ def test_k3_k2_orders_reject_bad_permutations(scenes):
 
 
 def test_k2_row_strides():
-    """K2 takes packed rows and one row expanded over the batch as they
-    are, and any other layout after a copy."""
+    """K2 takes directions in packed rows or one row expanded over the
+    batch as they are, and any other layout after a copy."""
     a = torch.zeros(5, 3)
     assert brick_dda._row_stride(a) == 3
     assert brick_dda._row_stride(a[0].expand(5, 3)) == 0

@@ -373,7 +373,7 @@ def _dda_host(tab, G, o, d, alive, order=None, blocks=None):
     256 threads taking ids by a grid stride; None: one id per thread),
     ray order[id] at each id, and the ray each id traced; every slot
     starts as a sentinel that no record holds.  ``alive`` None: every ray
-    active; rows of o and d may be expanded."""
+    active; the rows of d may be one row expanded."""
     fn = _host_fn("dda_host", "brick_dda_host.cpp", "dda_march_host",
                   brick_dda.K2.argtypes[:-1]
                   + [ctypes.c_int, ctypes.c_void_p, None])
@@ -385,8 +385,7 @@ def _dda_host(tab, G, o, d, alive, order=None, blocks=None):
                cell=torch.full((B, 3), -7, dtype=torch.int32),
                steps=torch.full((B,), -7, dtype=torch.int32))
     traced = torch.full((B,), -1, dtype=torch.int64)
-    assert fn(tab.data_ptr(), G, 3 * G, o.data_ptr(),
-              brick_dda._row_stride(o), d.data_ptr(),
+    assert fn(tab.data_ptr(), G, 3 * G, o.data_ptr(), d.data_ptr(),
               brick_dda._row_stride(d),
               None if alive is None else alive.view(torch.uint8).data_ptr(),
               None if order is None else order.data_ptr(), B,
