@@ -32,7 +32,7 @@ pixel tiles; K3 is held equal to its plain version
 (brick_pallas.trace_plain) on the small scenes (also cut at a few rounds)
 and on both segments of a frame, in that order and in ray order, and its
 primary hit mask against the wavefront mode-2 frame's (the pixels that
-differ go to chiprun_out/k3_mask_rays.npz).
+differ go to svo_raytracer_torch/_build/k3_mask_rays.npz).
 
 Then the ESVO path runs on the same heightmap and camera: the octree is
 built on the card (models/heightmap.generate_chunk_heightmap,
@@ -85,9 +85,6 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 SEED = 1          # heightmap seed: bench.py's camera rule then sees sky
-# what is too long for the end of the output (git-ignored)
-OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                       "chiprun_out")
 W, H = 1920, 1080
 WARM_FRAMES, TIMED_FRAMES = 2, 20
 BIG_TIMED_FRAMES = 10     # 2048^3 and 4096^3 worlds
@@ -290,10 +287,10 @@ KERNEL_NAMES = {"K2": "dda_kernel", "K3": "round_kernel"}
 
 
 # Device time.  torch.profiler on the H100 hosts lost device records in a
-# long process, more the longer it had run (13 of 20 launches after 200 s
-# on one host, all of them after 120-200 s in two smoke runs), and clipped
-# others (K1 at half its duration), whatever the session waited after its
-# launches: its records cannot time a kernel there.  CUDA events do: each
+# long process (every record of 3 launches, 120-200 s into two smoke
+# runs, the second with sessions that waited 50 ms after their launches
+# and were taken five times) and clipped others (K1 at half its
+# duration): its records cannot time a kernel there.  CUDA events do: each
 # call is bracketed by two events queued behind a spin kernel that keeps
 # the card busy while the host enqueues the call, so the events time the
 # card's work and not the host's.
@@ -1117,12 +1114,13 @@ def k3_phase(dev, scene, cam5, wave_depth, small_checks):
     the frame.  Gates: finite colour on >= 99.9% of pixels and the primary
     hit mask equal to that of the wavefront mode-2 frame (``wave_depth``)
     on >= 99.9% of pixels; the primaries where the two differ are written
-    to OUT_DIR/k3_mask_rays.npz; both segments took the tile order and
+    to svo_raytracer_torch/_build/k3_mask_rays.npz (scripts/
+    k3_mask_rays.py reads them); both segments took the tile order and
     K3's wrapper launches K3 alone.  Returns (summary, kernel entry)."""
     import functools
     import torch
     from svo_raytracer_torch.ops import brick_pallas as bp
-    from svo_raytracer_torch.ops import shade, traverse
+    from svo_raytracer_torch.ops import kernel_build, shade, traverse
     size = scene.world_size
     t0 = time.time()
     dscene = scene.to_device(dev)
@@ -1178,8 +1176,8 @@ def k3_phase(dev, scene, cam5, wave_depth, small_checks):
                                    max_rounds=4 * K3_ROUNDS)
     changed = int((more.hit != hit.reshape(-1)[off]).sum())
     # the rays for a reading on the CPU against the JAX package's engines
-    os.makedirs(OUT_DIR, exist_ok=True)
-    np.savez(os.path.join(OUT_DIR, "k3_mask_rays.npz"),
+    kernel_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    np.savez(kernel_build.BUILD_DIR / "k3_mask_rays.npz",
              pixel=off.cpu().numpy(), origins=origins[off].cpu().numpy(),
              dirs=dirs[off].cpu().numpy(),
              k3_hit=hit.reshape(-1)[off].cpu().numpy(),

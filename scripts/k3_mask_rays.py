@@ -4,7 +4,7 @@ frame's, traced on the CPU through both engines of the JAX package and
 of the port.
 
 chip_smoke.py's K3 phase writes those pixels to
-chiprun_out/k3_mask_rays.npz: their ids, the rays K3's frame traced
+svo_raytracer_torch/_build/k3_mask_rays.npz: their ids, the rays K3's frame traced
 (shade.pixel_dirs_device, normalized), K3's hit and depth, the
 wavefront frame's depth, and the camera.  The wavefront frame traced
 each pixel along the camera-mode ray (render_wave._frame_rays, its own
@@ -24,7 +24,7 @@ difference is the reference's own; where they agree and a port engine
 does not, it is a port fault.
 
     env JAX_PLATFORMS=cpu python3 scripts/k3_mask_rays.py \\
-        [chiprun_out/k3_mask_rays.npz]
+        [svo_raytracer_torch/_build/k3_mask_rays.npz]
 """
 
 from __future__ import annotations
@@ -91,7 +91,7 @@ def engines(jscene, jws, scene, ws, o, d):
 
 def main():
     path = sys.argv[1] if len(sys.argv) > 1 else os.path.join(
-        ROOT, "chiprun_out", "k3_mask_rays.npz")
+        ROOT, "svo_raytracer_torch", "_build", "k3_mask_rays.npz")
     z = np.load(path)
     size, seed = int(z["world_size"]), int(z["seed"])
     width, height = int(z["width"]), int(z["height"])

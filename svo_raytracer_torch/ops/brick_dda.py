@@ -117,10 +117,9 @@ def coarse_dda_kernel(occ_table, o, d, G, max_steps, alive=None,
     """Kernel K2 on the card: same contract as :func:`coarse_dda_plain`.
     ``o``: contiguous (B,3) float32; ``d``: (B,3) float32 rows, packed or
     one row expanded over the batch; ``alive``: contiguous (B,) bool, or
-    None for every ray;
-    ``order``: the (B,) int64 permutation the rays are traced in (None:
-    ray order).  Launches K2 alone: the bool tensors' bytes are its u8
-    input and output."""
+    None for every ray; ``order``: the (B,) int64 permutation the rays
+    are traced in (None: ray order).  Launches K2 alone: the bool
+    tensors' bytes are its u8 input and output."""
     B = o.shape[0]
     dev = o.device
     kernel_build.check_order(order, B, dev)

@@ -1001,12 +1001,7 @@ def trace_kernel(ws: WaveScene, o, d, alive, order=None):
     device, e.g. :func:`ray_order`), or ray k when ``order`` is None; the
     records land at the rays' own slots either way."""
     B = _check_rays(ws, o, d, alive, "cuda")
-    if order is not None and (order.shape != (B,)
-                              or order.dtype != torch.int64
-                              or order.device != o.device
-                              or not order.is_contiguous()):
-        raise ValueError("order must be a contiguous (B,) int64 tensor on "
-                         "the rays' device")
+    kernel_build.check_order(order, B, o.device)
     status = torch.empty(B, dtype=torch.int32, device=o.device)
     t = torch.empty(B, dtype=torch.float32, device=o.device)
     cell = torch.empty_like(status)
