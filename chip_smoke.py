@@ -43,9 +43,9 @@ kernels KE (the per-ray ESVO traversal) and K2 (the skip grid's coarse
 DDA).  Both are held equal to their plain versions
 (traverse.intersect_plain, brick_dda.coarse_dda_plain) on small scenes (KE
 also cut at a depth below the trees' and cone-traced), on sampled rays of
-the world and on every segment of each skip-grid frame, KE and K2 in the
-order the render traces them (the image's 8x4 pixel tiles; the mode-0
-bounce in KE's binned schedule), K2 and the bounce again in ray order.
+the world and on every segment of each skip-grid frame, as the render
+traces them: KE in the image's 8x4 pixel tiles (the mode-0 bounce in
+KE's binned schedule, and again in ray order), K2 in ray order.
 KE's two kernels-line entries split its launches: mode-2 segments, and
 cone-traced bounces.  K2's and K3's wrappers are held to launch their
 kernel alone.
@@ -590,26 +590,28 @@ def permutation(n, dev, seed=5):
         dev)
 
 
-def hold_k2(name, tab, G, o, d, alive, order):
-    """K2 vs brick_dda.coarse_dda_plain, the kernel over the rays in
-    ``order`` (a render's tile order, or a permutation), then in ray
-    order; the rays as the caller gives them (``alive`` None: every ray;
-    directions may be one row expanded).  Steps are the cells visited
-    (the crossings plus the cell each live ray starts or stops in)."""
+def hold_k2(name, tab, G, o, d, alive):
+    """K2 vs brick_dda.coarse_dda_plain on the rays as the caller gives
+    them (``alive`` None: every ray; directions may be one row expanded).
+    The bytes are what K2 reads and writes: 12 a ray of origins, one
+    direction row (12 bytes) or 12 a ray, a byte a ray of ``alive``
+    where there is one, and 21 a ray of records.  Steps are the cells
+    visited (the crossings plus the cell each live ray starts or stops
+    in)."""
     import torch
     from svo_raytracer_torch.ops import brick_dda
-    live = (torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
+    B = o.shape[0]
+    live = (torch.ones(B, dtype=torch.bool, device=o.device)
             if alive is None else alive)
-
-    def kernel(perm):
-        return brick_dda.coarse_dda_kernel(tab, o, d, G, 3 * G, alive, perm)
-
-    held = Held("K2", name, lambda: kernel(order),
+    dir_bytes = 12 * (1 if brick_dda._row_stride(d) == 0 else B)
+    return Held("K2", name,
+                lambda: brick_dda.coarse_dda_kernel(tab, o, d, G, 3 * G,
+                                                    alive),
                 lambda: brick_dda.coarse_dda_plain(tab, o, d, G, 3 * G,
                                                    live),
-                o.shape[0] * (12 + 12 + 1 + 1 + 4 * 5), [tab],
+                B * (12 + 1 + 4 * 5) + dir_bytes
+                + (0 if alive is None else B), [tab],
                 lambda r: int(r["steps"].sum()) + int(live.sum()))
-    return hold_in_both_orders(held, "K2", kernel)
 
 
 def hold_camera(ws, cam5):
@@ -808,7 +810,7 @@ def esvo_small_checks(dev):
             tab = torch.from_numpy(brick_scene.table_rows(
                 skip_grid.build_skip_grid(tree, G))).to(dev)
             k2.append(hold_k2(f"{sname} G={G}", tab, G, (o - 1.0) * float(G),
-                              d, alive, permutation(4096, dev)))
+                              d, alive))
     return ke, k2
 
 
@@ -883,13 +885,13 @@ def esvo_frames(tree, packed, tabs, cam5):
 def esvo_segment_checks(tree, packed, tabs, cam5):
     """KE and K2 against their plain versions on every segment of one frame
     of each skip-grid configuration (their inputs recorded as
-    render_image makes them; KE and K2 in the render's tile order, the
-    bounce in the binned schedule).  K2 on every segment and the mode-0
-    bounce segment's KE are also traced in ray order and held to the same
-    records.  Returns ({label: (KE checks, K2 checks)}, the bounce's
-    ray-order check).  Gates that KE and K2 took the same tile
-    permutation, that K2's wrapper launches K2 alone, and that K2 marches
-    (takes steps) on the G = 64 frame."""
+    render_image makes them; KE in the render's tile order, the bounce in
+    the binned schedule, K2 in ray order).  The mode-0 bounce segment's
+    KE is also traced in ray order and held to the same records.  Returns
+    ({label: (KE checks, K2 checks)}, the bounce's ray-order check).
+    Gates that KE took the render's tile permutation and K2 none, that
+    K2's wrapper launches K2 alone, and that K2 marches (takes steps) on
+    the G = 64 frame."""
     import torch
     from svo_raytracer_torch.ops import brick_dda, shade, traverse
     out, bounce_ray_order = {}, None
@@ -910,13 +912,14 @@ def esvo_segment_checks(tree, packed, tabs, cam5):
                 f"{bounce_ray_order.ms:.4f} ms "
                 f"({bounce_ray_order.ms / ke[1].ms:.3f}x)")
         tiles = traverse.tile_order(W, H, cam5.device)
-        if not all(k["order"] is tiles for _, k in ke_calls + k2_calls):
-            raise AssertionError(f"{label}: KE and K2 did not both take the "
-                                 f"render's tile order")
+        if not (all(k["order"] is tiles for _, k in ke_calls)
+                and all("order" not in k for _, k in k2_calls)):
+            raise AssertionError(f"{label}: KE did not take the render's "
+                                 f"tile order, or K2 took an order")
         k2 = []
         for n, ((occ, o, d), k) in zip(segs, k2_calls):
             k2.append(hold_k2(f"{label} {n} segment", occ, k["grid_size"], o,
-                              d, k["active"], k["order"]))
+                              d, k["active"]))
             only_kernel(f"K2's wrapper on the {label} {n} segment",
                         lambda: brick_dda.coarse_dda(occ, o, d, **k), "K2")
         out[label] = (ke, k2)
@@ -1051,8 +1054,6 @@ def esvo_phase(dev, size, cam5, ws):
         segment_call_ms={label: dict(KE=[c.call_ms for c in ke],
                                      K2=[c.call_ms for c in k2])
                          for label, (ke, k2) in seg.items()},
-        segment_k2_ray_order_ms={label: [c.ray_ms for c in k2]
-                                 for label, (_, k2) in seg.items()},
         segment_ke_g_steps_per_s={label: [c.rate for c in ke]
                                   for label, (ke, _) in seg.items()},
         bounce_ray_order_ms=bounce_ray_order.ms, tile_order_build_ms=tile_ms,
@@ -1577,7 +1578,8 @@ def print_ranking(kernels, order_ms):
         f"{k1 + order_ms:.1f} ms")
     say(f"[ranking] KE {ke:.1f} ms; ordering (keys + sort per segment) 0.0 "
         f"ms: every segment takes the cached tile permutation; KE with its "
-        f"ordering {ke:.1f} ms; K3 and K2 take the same permutation")
+        f"ordering {ke:.1f} ms; K3 takes the same permutation, K2 ray "
+        f"order")
     by_call = {k["name"]: k["launches"] * (k["call_ms"] - k["bound_ms"])
                for k in kernels}
     say(f"[ranking] by CUDA events per call, launches x (call ms - "

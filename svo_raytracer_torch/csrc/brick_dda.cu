@@ -17,11 +17,10 @@
 //     copies of 32 KB a launch); loading each thread's first ray before
 //     the copy, or reading the table unstaged through the read-only
 //     path, measured within 3% either way;
-//   * order — the caller passes the permutation the rays are traced in:
-//     thread k traces ray order[k] and writes its record to that ray's
-//     slot.  render_image gives K2 the tile order it gives KE; a warp's
-//     rays then lie in four runs of eight, and K2, bound by the rays'
-//     bytes, takes 14-29% longer than in row order;
+//   * ray order — thread k traces ray k.  K2 is bound by the rays' own
+//     bytes, and tracing them through the render's 8x4 pixel tiles (the
+//     permutation KE takes) made a warp's loads four runs of eight and
+//     took 14-29% longer than ray order, so K2 takes no permutation;
 //   * no wrapper kernel — the active mask and hit are the bytes of bool
 //     tensors, and a direction row shared by every ray (a shadow
 //     segment's sun) is read in place, so the wrapper launches K2 alone.
@@ -48,7 +47,6 @@ struct Args {
   const float* __restrict__ dirs;
   int d_stride;  // floats from one ray's direction to the next: 3 or 0
   const uint8_t* __restrict__ active;  // or null: every ray active
-  const int64_t* __restrict__ order;   // thread k traces order[k]; or null
   int n;
   uint8_t* __restrict__ hit;
   float* __restrict__ t;
@@ -62,9 +60,8 @@ __global__ void __launch_bounds__(THREADS) dda_kernel(Args a) {
   for (int w = threadIdx.x; w < n_words; w += THREADS)
     tab[w] = __ldg(a.table + w);
   __syncthreads();
-  for (int k = blockIdx.x * THREADS + threadIdx.x; k < a.n;
-       k += gridDim.x * THREADS) {
-    const int i = a.order ? (int)a.order[k] : k;
+  for (int i = blockIdx.x * THREADS + threadIdx.x; i < a.n;
+       i += gridDim.x * THREADS) {
     const float* o = a.origins + 3 * (size_t)i;
     const float* d = a.dirs + (size_t)a.d_stride * i;
     const dda::Out r = dda::march(tab, a.G, a.W, a.max_steps, o[0], o[1],
@@ -106,23 +103,21 @@ cudaError_t resident(int smem, int* blocks) {
 
 // table: >= G*G*W i32 words; origins, dirs: (n, 3) f32 grid units, the
 // directions' rows d_stride floats apart (3, or 0 for one row shared by
-// every ray); active: (n,) u8, or null for every ray; order: (n,) i64
-// permutation the rays are traced in, or null for ray order.  Outputs at
-// the rays' own slots: hit (n,) u8 (0 or 1, the bytes of a bool tensor),
-// t, steps (n,) and cell (n, 3).  Launches the resident blocks, or fewer
+// every ray); active: (n,) u8, or null for every ray.  Outputs: hit (n,)
+// u8 (0 or 1, the bytes of a bool tensor), t, steps (n,) and cell (n, 3).  Launches the resident blocks, or fewer
 // when n rays fill fewer.  Returns the cudaError_t of the launch (0 on
 // success); G outside [1, 64] is refused (cudaErrorInvalidValue).
 extern "C" int dda_march(const int32_t* table, int G, int max_steps,
                          const float* origins, const float* dirs,
                          int d_stride,
-                         const uint8_t* active, const int64_t* order, int n,
+                         const uint8_t* active, int n,
                          uint8_t* hit, float* t, int32_t* cell,
                          int32_t* steps, void* stream) {
   if (G < 1 || G > MAX_G) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   const int W = (G + 31) / 32;
-  const Args a = {table, G,     W, max_steps, origins, dirs, d_stride,
-                  active, order, n,  hit, t, cell, steps};
+  const Args a = {table,  G, W,   max_steps, origins, dirs, d_stride,
+                  active, n, hit, t,         cell,    steps};
   const int smem = G * G * W * (int)sizeof(int32_t);
   int blocks = 0;
   const cudaError_t e = resident(smem, &blocks);

@@ -5,10 +5,8 @@
 // path uses it: on a GPU the same header is compiled into brick_dda.cu.
 //
 // The host loop emulates brick_dda.cu's grid: `blocks` blocks of 256
-// threads, thread t of block b taking the ids b*256 + t + j*blocks*256
-// below n, and tracing ray order[id] (or ray id), its record written to
-// that ray's slot.  `traced`, if not null, receives the ray traced at
-// each id.  Direction rows lie d_stride floats apart (3, or 0 for one row
+// threads, thread t of block b tracing the rays b*256 + t + j*blocks*256
+// below n.  `traced`, if not null, counts the times each ray is traced.  Direction rows lie d_stride floats apart (3, or 0 for one row
 // shared by every ray); a null `active` makes every ray active.
 
 #include <stdint.h>
@@ -24,15 +22,13 @@ constexpr int THREADS = 256;
 extern "C" int dda_march_host(const int32_t* table, int G, int max_steps,
                               const float* origins, const float* dirs,
                               int d_stride,
-                              const uint8_t* active, const int64_t* order,
-                              int n, uint8_t* hit, float* t, int32_t* cell,
+                              const uint8_t* active, int n, uint8_t* hit, float* t, int32_t* cell,
                               int32_t* steps, int blocks, int64_t* traced) {
   const int W = (G + 31) / 32;
   for (int b = 0; b < blocks; ++b) {
     for (int th = 0; th < THREADS; ++th) {
-      for (int k = b * THREADS + th; k < n; k += blocks * THREADS) {
-        const int i = order ? (int)order[k] : k;
-        if (traced) traced[k] = i;
+      for (int i = b * THREADS + th; i < n; i += blocks * THREADS) {
+        if (traced) ++traced[i];
         const float* o = origins + 3 * (size_t)i;
         const float* d = dirs + (size_t)d_stride * i;
         const dda::Out r = dda::march(

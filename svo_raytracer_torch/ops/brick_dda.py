@@ -12,7 +12,7 @@ Rays starting outside [0, G]^3 first advance to the grid's entry face.
     kernel's lock-step body over the whole batch;
   * kernel K2 (``csrc/brick_dda.cu`` over ``csrc/brick_dda.cuh``) runs
     one thread per ray with the table in shared memory, bit-equal to the
-    plain version, over the rays in the order its caller passes;
+    plain version;
   * :func:`coarse_dda` takes K2 for CUDA tensors and the plain version
     for CPU tensors.
 """
@@ -32,7 +32,7 @@ DIR_EPS = float(np.float32(1e-4))
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 K2 = kernel_build.Kernel("brick_dda", ["brick_dda.cu"], "dda_march",
-                         [_P, _I, _I, _P, _P, _I, _P, _P, _I] + [_P] * 5)
+                         [_P, _I, _I, _P, _P, _I, _P, _I] + [_P] * 5)
 
 
 def _cell_of(p, G):
@@ -112,17 +112,14 @@ def _row_stride(a):
     return a.stride(0) if a.stride(0) in (0, 3) else None
 
 
-def coarse_dda_kernel(occ_table, o, d, G, max_steps, alive=None,
-                      order=None):
+def coarse_dda_kernel(occ_table, o, d, G, max_steps, alive=None):
     """Kernel K2 on the card: same contract as :func:`coarse_dda_plain`.
     ``o``: contiguous (B,3) float32; ``d``: (B,3) float32 rows, packed or
     one row expanded over the batch; ``alive``: contiguous (B,) bool, or
-    None for every ray; ``order``: the (B,) int64 permutation the rays
-    are traced in (None: ray order).  Launches K2 alone: the bool
-    tensors' bytes are its u8 input and output."""
+    None for every ray.  Launches K2 alone: the bool tensors' bytes are
+    its u8 input and output."""
     B = o.shape[0]
     dev = o.device
-    kernel_build.check_order(order, B, dev)
     if alive is not None and (alive.dtype != torch.bool
                               or not alive.is_contiguous()):
         raise ValueError("alive must be a contiguous bool tensor")
@@ -141,8 +138,7 @@ def coarse_dda_kernel(occ_table, o, d, G, max_steps, alive=None,
             rc = fn(occ_table.data_ptr(), G, max_steps, o.data_ptr(),
                     d.data_ptr(), sd,
                     None if alive is None
-                    else alive.view(torch.uint8).data_ptr(),
-                    None if order is None else order.data_ptr(), B,
+                    else alive.view(torch.uint8).data_ptr(), B,
                     hit.data_ptr(), t.data_ptr(), cell.data_ptr(),
                     steps.data_ptr(), stream)
         if rc != 0:
@@ -152,17 +148,15 @@ def coarse_dda_kernel(occ_table, o, d, G, max_steps, alive=None,
 
 
 def coarse_dda(occ_table, origins, dirs, grid_size, max_steps=None,
-               active=None, order=None):
+               active=None):
     """March (B,3) rays in GRID units through a G^3 occupancy grid.
 
     occ_table: (rows, 128) int32 from ``table_rows(pack_occupancy(vox))``
-    on the rays' device.  ``order`` is the (B,) int64 permutation the
-    rays are traced in (a render's pixel tiles; None: ray order), which
-    changes no result.  Returns dict of hit (B,) bool, t (B,) float32
+    on the rays' device.  Returns dict of hit (B,) bool, t (B,) float32
     (entry distance of the hit cell, grid units), cell (B,3) int32 and
     steps (B,) int32.  ``max_steps`` defaults to 3G, as the JAX package's.
-    Kernel K2 for CUDA tensors, its plain version for CPU tensors (in ray
-    order: the records do not depend on the order).  On the card
+    Kernel K2 for CUDA tensors, its plain version for CPU tensors.  On the
+    card
     contiguous float32 origins, float32 directions with packed or
     expanded rows and a bool ``active`` go to K2 as they are, with no
     copy."""
@@ -190,9 +184,8 @@ def coarse_dda(occ_table, origins, dirs, grid_size, max_steps=None,
     for a in (d, alive, occ_table):
         if a is not None and a.device != o.device:
             raise ValueError(f"tensor on {a.device}, rays on {o.device}")
-    kernel_build.check_order(order, B, o.device)
     if o.device.type == "cpu":
         if alive is None:
             alive = torch.ones(B, dtype=torch.bool)
         return coarse_dda_plain(occ_table, o, d, G, max_steps, alive)
-    return coarse_dda_kernel(occ_table, o, d, G, max_steps, alive, order)
+    return coarse_dda_kernel(occ_table, o, d, G, max_steps, alive)

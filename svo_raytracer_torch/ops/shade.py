@@ -329,8 +329,8 @@ def render_image(tree, cam5, width, height, render_mode=2, frame_number=1,
     dirs = _normalize(pixel_dirs_device(cam5, width, height))
     origins = cam5[0].expand_as(dirs)
 
-    # every segment traces the W*H pixel rays in 8x4 pixel tiles, in KE
-    # and, with a skip grid, in K2
+    # KE traces every segment's W*H pixel rays in 8x4 pixel tiles (K2,
+    # bound by the rays' bytes, is faster in ray order)
     tiles = traverse.tile_order(width, height, cam5.device)
 
     def isect(o, d, **kw):
@@ -343,8 +343,7 @@ def render_image(tree, cam5, width, height, render_mode=2, frame_number=1,
 
     if skip_tab is not None:
         isect = skip_grid.make_skipping_isect(isect, skip_tab,
-                                              grid_size=skip_grid_size,
-                                              order=tiles)
+                                              grid_size=skip_grid_size)
     beam = None
     if use_beam:
         bt = beam_prepass(tree, cam5, width, height, beam_tile, max_depth,

@@ -79,34 +79,28 @@ def build_skip_grid(tree, grid_size: int = 32) -> np.ndarray:
     return pack_occupancy(occ)
 
 
-def skip_distances(occ_table, origins, dirs, grid_size=32, active=None,
-                   order=None):
+def skip_distances(occ_table, origins, dirs, grid_size=32, active=None):
     """(skip_t, maybe_hit): the world-unit skip distance along ``dirs`` and
-    a conservative may-hit mask of world-space rays.  ``order`` is the
-    (B,) int64 permutation K2 traces the rays in (None: ray order), which
-    changes no result."""
+    a conservative may-hit mask of world-space rays."""
     G = grid_size
     o_g = (origins.to(torch.float32) - 1.0) * float(G)
     out = brick_dda.coarse_dda(occ_table, o_g, dirs, grid_size=G,
-                               active=active, order=order)
+                               active=active)
     skip = torch.clamp_min(out["t"] / float(G) - EPS_WORLD, 0.0)
     return torch.where(out["hit"], skip, torch.zeros_like(skip)), out["hit"]
 
 
-def make_skipping_isect(isect, occ_table, grid_size=32, order=None):
+def make_skipping_isect(isect, occ_table, grid_size=32):
     """Wrap a traversal ``isect(origins, dirs, ..., active=...)`` with the
     DDA skip: each ray's origin moves forward by its skip distance,
     definite misses leave the batch, and the skip is added back onto
     ``t`` (``hit_pos`` and ``voxel_pos`` come from the moved origin and
     need no fix-up).  The skip is conservative, so hits equal the
-    unskipped traversal's up to restarted-ray float variance.  ``order``
-    is the permutation K2 traces each batch in (a render's pixel tiles,
-    the one it gives the traversal; None: ray order)."""
+    unskipped traversal's up to restarted-ray float variance."""
 
     def wrapped(origins, dirs, *args, active=None, **kwargs):
         skip, maybe = skip_distances(occ_table, origins, dirs,
-                                     grid_size=grid_size, active=active,
-                                     order=order)
+                                     grid_size=grid_size, active=active)
         act = maybe if active is None else maybe & active
         o2 = origins + skip[:, None] * dirs
         res = isect(o2, dirs, *args, active=act, **kwargs)

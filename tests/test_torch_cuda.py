@@ -1,7 +1,7 @@
 """Kernels K1 (explicit and camera mode, its ray keys and its persistent
 schedule), KE (its plain and binned schedules, through a permutation),
-K2 and K3 (each through a permutation, with the wrapper launching the
-kernel alone) on a CUDA GPU against their plain PyTorch versions.  Needs a
+K2 (in ray order) and K3 (through a permutation), each with its
+wrapper launching the kernel alone, on a CUDA GPU against their plain PyTorch versions.  Needs a
 card and nvcc; skipped elsewhere.  The file imports no
 jax, so on a GPU host without JAX it runs from the repository root with
 ``python -m pytest --noconftest tests/test_torch_cuda.py``."""
@@ -309,12 +309,12 @@ def test_brick_round_schedule_on_gpu(case, max_rounds):
 @pytest.mark.gpu
 @pytest.mark.parametrize("G", [1, 32, 64])
 @pytest.mark.parametrize("case", ["B=0", "B=1", "B=37", "all-dead",
-                                  "permutation", "expanded-no-active"])
+                                  "300000 rays", "expanded-no-active"])
 def test_dda_schedule_on_gpu(G, case):
-    """K2 (resident blocks, a static grid stride) over the rays in a
-    permutation and in ray order against coarse_dda_plain; with one
-    direction row expanded over the batch and no active mask, as the
-    skip frames' shadow and primary segments pass them."""
+    """K2 (resident blocks, a static grid stride) against
+    coarse_dda_plain; with one direction row expanded over the batch and
+    no active mask, as the skip frames' shadow and primary segments pass
+    them."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     from svo_raytracer_torch.ops import brick_dda, brick_scene
@@ -331,16 +331,14 @@ def test_dda_schedule_on_gpu(G, case):
         alive[:] = False
     if case == "expanded-no-active":
         d, alive = d[0].expand(B, 3), None
-    order = chip_smoke.permutation(B, "cuda")
     live = torch.ones(B, dtype=torch.bool, device="cuda") \
         if alive is None else alive
     want = brick_dda.coarse_dda_plain(tab, o, d.contiguous(), G, 3 * G, live)
-    for perm in (order, None):
-        before = brick_dda.K2.launches
-        got = brick_dda.coarse_dda(tab, o, d, G, active=alive, order=perm)
-        torch.cuda.synchronize()
-        assert brick_dda.K2.launches == before + (B > 0)
-        assert _equal_fields(want, got) == [], perm is None
+    before = brick_dda.K2.launches
+    got = brick_dda.coarse_dda(tab, o, d, G, active=alive)
+    torch.cuda.synchronize()
+    assert brick_dda.K2.launches == before + (B > 0)
+    assert _equal_fields(want, got) == []
 
 
 @pytest.mark.gpu
@@ -360,7 +358,7 @@ def test_k2_k3_wrappers_launch_their_kernel_alone_on_gpu():
     og = o * 64.0
     brick_dda.coarse_dda(tab, og, d, 64)          # built and loaded
     chip_smoke.only_kernel("K2", lambda: brick_dda.coarse_dda(
-        tab, og, sun, 64, active=alive, order=order), "K2")
+        tab, og, sun, 64, active=alive), "K2")
     scene = _terrain_bricks("cuda")
     ov = ((o - 1.0) * float(scene.world_size)).contiguous()
     brick_pallas.trace(scene, ov, d, alive, 24)
@@ -369,9 +367,10 @@ def test_k2_k3_wrappers_launch_their_kernel_alone_on_gpu():
 
 
 @pytest.mark.gpu
-def test_render_gives_k2_the_tile_order_on_gpu():
-    """With a skip grid, render_image on the card hands K2 and KE the
-    same cached tile permutation, one K2 launch per segment."""
+def test_render_gives_ke_the_tiles_and_k2_ray_order_on_gpu():
+    """With a skip grid, render_image on the card hands KE the cached
+    tile permutation and K2 the rays in ray order, one K2 launch per
+    segment."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     from svo_raytracer_torch.core import build_np
@@ -393,7 +392,8 @@ def test_render_gives_k2_the_tile_order_on_gpu():
     torch.cuda.synchronize()
     assert brick_dda.K2.launches == before + 2
     tiles = traverse.tile_order(96, 64, "cuda")
-    assert len(ke) == 2 and all(k["order"] is tiles for _, k in ke + k2)
+    assert len(ke) == 2 and all(k["order"] is tiles for _, k in ke)
+    assert len(k2) == 2 and all("order" not in k for _, k in k2)
 
 
 def _terrain_world():

@@ -1,19 +1,21 @@
 """The orders in which kernels K3 and K2 trace their rays, on the CPU.
 
-K3 (brick_pallas.trace_kernel) and K2 (brick_dda.coarse_dda_kernel)
-trace ray order[k] at position k and write its record to that ray's
-slot, so a schedule is right only if the records do not depend on the
-order: the plain versions over the rays in a permutation, written back
+K3 (brick_pallas.trace_kernel) traces ray order[k] at position k and
+writes its record to that ray's slot; K2 (brick_dda.coarse_dda_kernel)
+hands each resident block the rays of a grid stride.  Either schedule is
+right only if a ray's record does not depend on where in the batch it is
+traced: the plain versions over the rays in a permutation, written back
 through it, must equal them in ray order in every field (tolerance:
-equality, NaN equal to NaN).  The CPU paths check the order and trace in
-ray order.  Against the JAX package the contracts are the existing
+equality, NaN equal to NaN).  K3's CPU path checks the order and traces
+in ray order.  Against the JAX package the contracts are the existing
 ones: tests/test_torch_brick_round.py's floors for intersect_bricks_tpu
 (hit agreement >= 0.995, strict >= 0.98 of common hits) and
 tests/test_torch_skip.py's for the skip distances (hit equal, t within
 T_TOL on >= MIN_AGREE of rays: XLA contracts multiply-adds that the port
-rounds twice).  render_image hands K2 the tile permutation it hands KE.
-The schedules themselves (the blocks, the grid stride) are held by the
-g++ builds of the kernels' sources in tests/test_torch_kernel_source.py.
+rounds twice).  render_image hands KE the tile permutation and K2 the
+rays in ray order (K2, bound by the rays' bytes, is faster so).  The
+schedules themselves (the blocks, the grid stride) are held by the g++
+builds of the kernels' sources in tests/test_torch_kernel_source.py.
 """
 
 import jax.numpy as jnp
@@ -124,9 +126,10 @@ def test_ordered_intersect_bricks_matches_unordered_and_jax(scenes, name):
 @pytest.mark.parametrize("G", [1, 32, 64])
 def test_k2_records_do_not_depend_on_the_order(G):
     """coarse_dda_plain over the rays in a permutation, written back,
-    equals it in ray order in every field; coarse_dda given the order
-    (and given an expanded direction row and no active mask, as the
-    shadow and primary segments pass them) equals it too."""
+    equals it in ray order in every field, so K2's blocks may take the
+    rays in any split; coarse_dda equals it too, and given an expanded
+    direction row and no active mask (as the shadow and primary segments
+    pass them) equals the plain version on the packed rows."""
     rng = np.random.default_rng(G + 40)
     tab = torch.from_numpy(brick_scene.table_rows(
         brick_scene.pack_occupancy(rng.random((G,) * 3) < 0.04)))
@@ -139,13 +142,13 @@ def test_k2_records_do_not_depend_on_the_order(G):
     want = brick_dda.coarse_dda_plain(tab, o, d, G, 3 * G, alive)
     back = _written_back(brick_dda.coarse_dda_plain(
         tab, o[order], d[order], G, 3 * G, alive[order]), order)
-    got = brick_dda.coarse_dda(tab, o, d, G, active=alive, order=order)
+    got = brick_dda.coarse_dda(tab, o, d, G, active=alive)
     for f, a in want.items():
         assert _same(a, back[f]) and _same(a, got[f]), f
     row = d[3].expand(B, 3)
     full = brick_dda.coarse_dda_plain(tab, o, row.contiguous(), G, 3 * G,
                                       torch.ones(B, dtype=torch.bool))
-    got = brick_dda.coarse_dda(tab, o, row, G, order=order)
+    got = brick_dda.coarse_dda(tab, o, row, G)
     for f, a in full.items():
         assert _same(a, got[f]), f
     if G > 1:
@@ -153,26 +156,29 @@ def test_k2_records_do_not_depend_on_the_order(G):
 
 
 @pytest.mark.parametrize("G", [16, 32])
-def test_ordered_skip_distances_match_unordered_and_jax(scenes, G):
-    """skip_distances(..., order=...) equals the unordered call and the
-    JAX package's skip_distances (Pallas K2 in interpret mode) on the
-    same world rays and grid."""
+def test_shadow_layout_skip_distances_match_packed_and_jax(scenes, G):
+    """skip_distances of world rays toward one sun direction, given as
+    the shadow segment passes it (one row expanded over the batch, no
+    active mask), equals the call on packed rows with every ray active,
+    and the JAX package's skip_distances (Pallas K2 in interpret mode)
+    on the same rays and grid."""
     jt, _, _, tree = scenes["terrain-64"]
     words = skip_grid.build_skip_grid(tree, G)
     tab = torch.from_numpy(brick_scene.table_rows(words))
-    o, d, act = _rays(3)
+    o, _, _ = _rays(3)
     o[::61] = 1.5                  # K2's NaN rays are held elsewhere
-    ot, dt, at = (torch.from_numpy(a) for a in (o, d, act))
-    order = traverse.tile_order(W, H, "cpu")
-    skip, maybe = skip_grid.skip_distances(tab, ot, dt, grid_size=G,
-                                           active=at, order=order)
-    skip0, maybe0 = skip_grid.skip_distances(tab, ot, dt, grid_size=G,
-                                             active=at)
+    sun = np.asarray(shade.SUN_DIR_DIRECT, np.float32)
+    d = np.broadcast_to(sun, o.shape).copy()
+    ot = torch.from_numpy(o)
+    row = torch.from_numpy(sun).expand(o.shape[0], 3)
+    skip, maybe = skip_grid.skip_distances(tab, ot, row, grid_size=G)
+    skip0, maybe0 = skip_grid.skip_distances(
+        tab, ot, torch.from_numpy(d), grid_size=G,
+        active=torch.ones(o.shape[0], dtype=torch.bool))
     assert torch.equal(skip, skip0) and torch.equal(maybe, maybe0)
     jskip, jmaybe = jskip_grid.skip_distances(
         jbrick_dda.table_rows(jnp.asarray(words)), jnp.asarray(o),
-        jnp.asarray(d), grid_size=G, active=jnp.asarray(act),
-        interpret=True)
+        jnp.asarray(d), grid_size=G, interpret=True)
     assert np.array_equal(np.asarray(jmaybe), maybe.numpy())
     close = np.abs(np.asarray(jskip) - skip.numpy()) <= T_TOL
     assert close.mean() >= MIN_AGREE
@@ -180,9 +186,10 @@ def test_ordered_skip_distances_match_unordered_and_jax(scenes, G):
 
 
 @pytest.mark.parametrize("mode", [0, 2])
-def test_render_gives_k2_the_permutation_it_gives_ke(scenes, mode):
-    """With a skip grid, render_image hands every K2 batch and every KE
-    segment the same cached tile permutation of its image size."""
+def test_render_gives_ke_the_tiles_and_k2_ray_order(scenes, mode):
+    """With a skip grid, render_image hands every KE segment the cached
+    tile permutation of its image size, and every K2 batch its rays in
+    ray order (coarse_dda takes no permutation)."""
     _, _, _, tree = scenes["terrain-64"]
     cam = Camera(pos=np.array([1.3, 1.8, 1.3]))
     cam.rotate(-0.5, 0.6)
@@ -195,23 +202,24 @@ def test_render_gives_k2_the_permutation_it_gives_ke(scenes, mode):
                            skip_tab=tab, skip_grid_size=32)
     tiles = traverse.tile_order(W, H, "cpu")
     assert len(ke) == 2 and len(k2) == 2
-    assert all(k["order"] is tiles for _, k in ke + k2)
+    assert all(k["order"] is tiles for _, k in ke)
+    assert all("order" not in k for _, k in k2)
 
 
-def test_k3_k2_orders_reject_bad_permutations(scenes):
-    """An order of the wrong length, type or layout raises."""
+def test_k3_order_rejects_bad_permutations(scenes):
+    """An order of the wrong length, type or layout raises, through
+    intersect_bricks_tpu and through trace."""
     _, _, scene, _ = scenes["terrain-64"]
     o, d, act = _rays(9)
     ot, dt = torch.from_numpy(o), torch.from_numpy(d)
     B = ot.shape[0]
-    tab = torch.from_numpy(brick_scene.table_rows(
-        brick_scene.pack_occupancy(np.ones((8,) * 3, bool))))
+    alive = torch.ones(B, dtype=torch.bool)
     for bad in (torch.arange(B - 1), torch.arange(B, dtype=torch.int32),
                 torch.arange(2 * B)[::2]):
         with pytest.raises(ValueError):
             brick_pallas.intersect_bricks_tpu(scene, ot, dt, order=bad)
         with pytest.raises(ValueError):
-            skip_grid.skip_distances(tab, ot, dt, grid_size=8, order=bad)
+            brick_pallas.trace(scene, ot, dt, alive, 24, bad)
 
 
 def test_k2_row_strides():

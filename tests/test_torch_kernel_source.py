@@ -7,7 +7,7 @@ csrc/esvo_ray.cuh for KE with its schedule, emulated by a host loop of
 128-ray blocks that trace through a permutation and regroup a
 cone-traced segment's rays by octant, csrc/brick_dda.cuh for K2 and
 csrc/brick_round.cuh for K3, each with its schedule emulated by a host
-loop of blocks that take ids by a grid stride and trace through a
+loop of blocks that take ids by a grid stride, K3's through a
 permutation) compiled with g++, their CUDA qualifiers
 defined away, into ctypes libraries, against their plain PyTorch versions
 (wavefront.trace_plain and trace_camera_plain, traverse.intersect_plain,
@@ -368,12 +368,12 @@ def _dda_cases(name):
     return tab, G, torch.from_numpy(o), torch.from_numpy(d)
 
 
-def _dda_host(tab, G, o, d, alive, order=None, blocks=None):
+def _dda_host(tab, G, o, d, alive, blocks=None):
     """K2's records by the g++ build of its schedule (``blocks`` blocks of
-    256 threads taking ids by a grid stride; None: one id per thread),
-    ray order[id] at each id, and the ray each id traced; every slot
-    starts as a sentinel that no record holds.  ``alive`` None: every ray
-    active; the rows of d may be one row expanded."""
+    256 threads taking rays by a grid stride; None: one ray per thread),
+    and the times each ray was traced; every slot starts as a sentinel
+    that no record holds.  ``alive`` None: every ray active; the rows of
+    d may be one row expanded."""
     fn = _host_fn("dda_host", "brick_dda_host.cpp", "dda_march_host",
                   brick_dda.K2.argtypes[:-1]
                   + [ctypes.c_int, ctypes.c_void_p, None])
@@ -384,11 +384,11 @@ def _dda_host(tab, G, o, d, alive, order=None, blocks=None):
                t=torch.full((B,), -7.0),
                cell=torch.full((B, 3), -7, dtype=torch.int32),
                steps=torch.full((B,), -7, dtype=torch.int32))
-    traced = torch.full((B,), -1, dtype=torch.int64)
+    traced = torch.zeros(B, dtype=torch.int64)
     assert fn(tab.data_ptr(), G, 3 * G, o.data_ptr(), d.data_ptr(),
               brick_dda._row_stride(d),
               None if alive is None else alive.view(torch.uint8).data_ptr(),
-              None if order is None else order.data_ptr(), B,
+              B,
               got["hit"].data_ptr(), got["t"].data_ptr(),
               got["cell"].data_ptr(), got["steps"].data_ptr(), blocks,
               traced.data_ptr()) == 0
@@ -406,7 +406,8 @@ def test_dda_source_body_equals_plain(name):
     assert want["hit"].any() and not want["hit"].all()
 
 
-DDA_SCHEDULE_CASES = ("B=0", "B=1", "B=37", "all dead", "permutation",
+DDA_SCHEDULE_CASES = ("B=0", "B=1", "B=37", "all dead",
+                      "expanded rows, three blocks",
                       "expanded rows, no active", "one block",
                       "three blocks")
 
@@ -415,10 +416,9 @@ DDA_SCHEDULE_CASES = ("B=0", "B=1", "B=37", "all dead", "permutation",
 @pytest.mark.parametrize("case", DDA_SCHEDULE_CASES)
 def test_dda_source_schedule_equals_plain(G, case):
     """K2's schedule (csrc/brick_dda.cu, emulated by brick_dda_host.cpp):
-    resident blocks that take ids by a static grid stride (one or three
-    blocks over 1,500 rays), ray order[id] at each id, every slot written
-    and each ray traced once; records equal coarse_dda_plain in ray
-    order.  The primary segment passes no active mask, the shadow
+    resident blocks that take rays by a static grid stride (one or three
+    blocks over 1,500 rays), every slot written and each ray traced
+    once; records equal coarse_dda_plain.  The primary segment passes no active mask, the shadow
     segment one direction row expanded over the batch."""
     rng = np.random.default_rng(G)
     tab = torch.from_numpy(brick_scene.table_rows(
@@ -432,20 +432,19 @@ def test_dda_source_schedule_equals_plain(G, case):
     alive = torch.from_numpy(rng.random(B) < 0.9)
     if case == "all dead":
         alive[:] = False
-    order = (torch.from_numpy(rng.permutation(B))
-             if case != "B=1" else torch.zeros(1, dtype=torch.int64))
-    blocks = {"one block": 1, "three blocks": 3}.get(case)
-    if case == "expanded rows, no active":
+    blocks = {"one block": 1, "three blocks": 3,
+              "expanded rows, three blocks": 3}.get(case)
+    if case.startswith("expanded rows"):
         d = d[0].expand(B, 3)
         want = brick_dda.coarse_dda_plain(tab, o, d.contiguous(), G, 3 * G,
                                           torch.ones(B, dtype=torch.bool))
-        got, traced = _dda_host(tab, G, o, d, None, order)
+        got, traced = _dda_host(tab, G, o, d, None, blocks)
     else:
         want = brick_dda.coarse_dda_plain(tab, o, d, G, 3 * G, alive)
-        got, traced = _dda_host(tab, G, o, d, alive, order, blocks)
+        got, traced = _dda_host(tab, G, o, d, alive, blocks)
     assert _equal(want, got) == []
     assert not (got["steps"] == -7).any()
-    assert torch.equal(traced, order)
+    assert torch.equal(traced, torch.ones(B, dtype=torch.int64))
     if case == "all dead":
         assert not want["hit"].any() and not want["steps"].any()
     elif B == 1500 and G > 1:
