@@ -1,7 +1,18 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (svo_raytracer_torch) on one GPU.
 
-Drives the port's main path at full size on three seeded heightmap worlds
+First, bench.py's own world through the port's bench module
+(svo_raytracer_torch/bench.py): the 1024^3 perlin terrain generated and
+built on the card as eight 512^3 chunks (models/procgen, models/world),
+brickified on the host and prepared, the probe camera, and bench.py's
+gi-1 and gi-3 frames at 1920x1080 (K1 (a), camera-mode primaries (b),
+K1's keys), with n_left 0 on every segment; K1 held equal to
+trace_plain on sampled rays and on both segments of a gi-1 frame, camera
+mode to trace_camera_plain, and one ESVO mode-2 frame on the same octree
+through shade.render_image with KE held to traverse.intersect_plain
+(lines ``[bench-world ...]``).
+
+Then it drives the main path at full size on three seeded heightmap worlds
 (value noise, built directly as BrickScenes), each through its own part of
 kernel K1, with the camera placed by bench.py's downward-probe rule and
 render mode 0 at 1920x1080; every primary segment runs in K1's camera
@@ -113,6 +124,26 @@ PEAK_OPS_PER_S = 67e12
 OPS_PER_STEP = {"K1": 40, "KE": 50, "K2": 30, "K3": 30, "K1 keys": 75}
 K3_ROUNDS = 24            # intersect_bricks_tpu's default max_rounds
 K3_CUT_ROUNDS = 2         # few enough rounds that some rays run out
+
+# bench.py's world (svo_raytracer_torch/bench.py, bench_world_phase): its
+# nodes, mixed bricks, and the probe camera's surface and height.  The
+# JAX package built it with 16,083,240 nodes, n_mixed 4,589 and the
+# camera at 1.399 over 1.349 (BENCH_r05.json, printed to 1e-3).  The
+# port's grid differs from jitted JAX's on 47 voxels, each within 5e-6
+# of a noise threshold (tests/data/bench_world_near.npz, listed on the
+# card by scripts/bench_world_margins.py and held against JAX in
+# tests/test_torch_worldgen.py); with them flipped the port builds
+# 16,083,240 nodes.
+BENCH_WORLD = dict(n_nodes=16_083_312, n_mixed=4_589, surface_y=1.349,
+                   camera_y=1.399)
+BENCH_CAMERA_TOL = 1e-3
+# bench.py's probe camera looks down on this world: 96.7% of its 1080p
+# primaries hit the terrain (NVIDIA H100 80GB HBM3, 700 W), above the
+# heightmap worlds' (0.05, 0.95).  The bench world's frames take this
+# range, and the ESVO frame's hit mask must agree with the wavefront's on
+# BENCH_HIT_AGREEMENT of the pixels.
+BENCH_HIT_RANGE = (0.05, 0.99)
+BENCH_HIT_AGREEMENT = 0.999
 
 # The worlds of the main path, each through its part of kernel K1 (every
 # primary segment in camera mode, sub-slice (b)): (size, n_mixed class,
@@ -1267,29 +1298,6 @@ def prepare_world(dev, scene, **prepare_kw):
     return ws
 
 
-def place_camera(ws, dev):
-    """bench.py's rule: probe 25 columns straight down, take the deepest
-    free fall, sit 0.05 above its surface, pitch -0.35, yaw 0.4."""
-    import torch
-    from svo_raytracer_torch.ops import wavefront as wf
-    from svo_raytracer_torch.utils.camera import Camera
-    gx = np.linspace(1.2, 1.8, 5, dtype=np.float32)
-    pxz = np.stack(np.meshgrid(gx, gx, indexing="ij"), -1).reshape(-1, 2)
-    probe_o = np.concatenate([pxz[:, :1], np.full((25, 1), 1.999, np.float32),
-                              pxz[:, 1:]], axis=1)
-    probe_d = np.tile(np.asarray([[0.0, -1.0, 0.0]], np.float32), (25, 1))
-    probe = wf.intersect_wavefront(ws, torch.from_numpy(probe_o).to(dev),
-                                   torch.from_numpy(probe_d).to(dev))
-    ts = probe.t.cpu().numpy()
-    best = int(np.argmax(ts))
-    surf_y = 1.999 - float(ts[best])
-    cam = Camera(pos=np.array([probe_o[best, 0], min(surf_y + 0.05, 1.99),
-                               probe_o[best, 2]]))
-    cam.rotate(-0.35, 0.4)
-    say(f"[camera] at y={cam.pos[1]:.4f} (surface {surf_y:.4f})")
-    return torch.tensor(cam.uniform(), dtype=torch.float32, device=dev)
-
-
 def frame_configs(bounces_list, timed_frames, mode2=False):
     """The wavefront frames of a world's main path: label -> (render
     arguments, warm frames, timed frames).  Mode 0 at each GI bounce
@@ -1352,16 +1360,18 @@ def render_frames(ws, cam5, configs):
     return frames
 
 
-def main_path(dev, ws, configs):
+def main_path(ws, configs):
     """The main path on one world: camera probe and frames, with K1's
     launch counts (and its key kernel's) set to 0 just before and read
     just after.  K1.launches counts both entry points of the library, so
     the explicit-ray entry's launches are K1's less K1_CAMERA's."""
     import torch
+    from svo_raytracer_torch import bench
     from svo_raytracer_torch.ops import wavefront as wf
     torch.cuda.reset_peak_memory_stats()
     wf.K1.launches = wf.K1_CAMERA.launches = wf.K1_KEYS.launches = 0
-    cam5 = place_camera(ws, dev)
+    cam5, surf_y = bench.place_camera(ws)
+    say(f"[camera] at y={float(cam5[0, 1]):.4f} (surface {surf_y:.4f})")
     frames = render_frames(ws, cam5, configs)
     launches = dict(K1_explicit=wf.K1.launches - wf.K1_CAMERA.launches,
                     K1_camera=wf.K1_CAMERA.launches,
@@ -1372,6 +1382,176 @@ def main_path(dev, ws, configs):
     if min(launches.values()) < 1:
         raise AssertionError(f"the main path missed a kernel: {launches}")
     return cam5, frames, launches, peak
+
+
+def bench_world_phase(dev):
+    """bench.py's world through the port (svo_raytracer_torch/bench.py's
+    functions, so the two cannot drift): the 1024^3 perlin terrain built
+    on the card as eight 512^3 chunks, brickified on the host, prepared,
+    the probe camera, and bench.py's gi-1 and gi-3 frames at 1920x1080 as
+    the main path (K1 (a) at G = 32, camera-mode primaries, K1's keys),
+    with the launch counts set to 0 just before and read just after.
+    Gates: the world's node and mixed-brick counts and the camera
+    (BENCH_WORLD), n_left 0 on every segment, the primary hit fraction
+    (BENCH_HIT_RANGE), finite colour, the ESVO frame's hit mask against
+    the wavefront's (BENCH_HIT_AGREEMENT).  Then K1 == trace_plain on
+    16,384 sampled rays and on both segments of a gi-1 frame, camera mode
+    == trace_camera_plain and the explicit-ray contract, and one ESVO
+    mode-2 frame on the same DeviceOctree through shade.render_image with
+    KE == intersect_plain on sampled rays.  Returns (summary, kernels
+    entries, K1 key launches, the checks whose keys count, the ordering
+    device ms)."""
+    import torch
+    from svo_raytracer_torch import bench
+    from svo_raytracer_torch.models import procgen
+    from svo_raytracer_torch.ops import render_wave, shade, traverse
+    from svo_raytracer_torch.ops import wavefront as wf
+    t0 = time.time()
+    size, chunk, width, height = bench.FULL
+    if (width, height) != (W, H):
+        raise AssertionError("the bench frame is not the smoke frame")
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path, with the launch counts set to 0 just before
+    wf.K1.launches = wf.K1_CAMERA.launches = wf.K1_KEYS.launches = 0
+    tree, ws, cam5, info = bench.setup(size, chunk, dev)
+    setup_peak = torch.cuda.max_memory_allocated()
+    table_bytes = sum(getattr(ws, f).numel() * getattr(ws, f).element_size()
+                      for f in wf.WaveScene.ARRAYS)
+    cam_y = float(cam5[0, 1])
+    # the noise alone: one chunk's peak above what is already allocated
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    chunk_vox = procgen.generate_chunk((0, -size // 2, 0), chunk,
+                                       device=dev)
+    torch.cuda.synchronize()
+    noise_peak = torch.cuda.max_memory_allocated() - base
+    del chunk_vox
+    say(f"[bench-world] {size}^3 perlin terrain in {chunk}^3 chunks on the "
+        f"card: noise {info['noise']:.3f} s, chunk builds "
+        f"{info['build']:.3f} s, splices {info['splice']:.3f} s, in all "
+        f"{info['build_s']:.3f} s; n_nodes {tree.n_nodes}; node table to "
+        f"the host {info['to_host']:.3f} s, brickify {info['brickify']:.3f} "
+        f"s, prepare {info['prepare']:.3f} s: G {ws.grid_size}, n_mixed "
+        f"{ws.n_mixed}, table bytes {table_bytes}; peak device memory "
+        f"{setup_peak / 2**30:.3f} GiB ({setup_peak} B), of one {chunk}^3 "
+        f"chunk's noise (y-slabs of {procgen.SLAB}) "
+        f"{noise_peak / 2**30:.3f} GiB")
+    say(f"[bench-world] camera at y={cam_y:.5f} (surface "
+        f"{info['surface_y']:.5f}); expected {BENCH_WORLD}")
+    got = dict(n_nodes=tree.n_nodes, n_mixed=ws.n_mixed,
+               surface_y=info["surface_y"], camera_y=cam_y)
+    off = {k: (got[k], v) for k, v in BENCH_WORLD.items()
+           if abs(got[k] - v) > (BENCH_CAMERA_TOL if isinstance(v, float)
+                                 else 0)}
+    if off:
+        raise AssertionError(f"the bench world differs from its expected "
+                             f"build: {off}")
+    frames = {}
+    for row, stats in bench.rows(ws, cam5, W, H, "Mrays/s (bench world)",
+                                 dict(build_s=info["build_s"])):
+        b = len(stats) - 1
+        hitfrac = stats[0]["hits"] / stats[0]["rays"]
+        frames[f"gi{b}"] = dict(stats=stats, hitfrac=hitfrac,
+                                ms=row[f"frame_ms{'' if b == 1 else '_gi3'}"])
+        say(f"[bench-world row] {json.dumps(row)}")
+        say(f"[bench-world gi-{b}] primary hit fraction {hitfrac:.4f}; "
+            f"n_left {bench.n_left(stats)}")
+        for i, s in enumerate(stats):
+            say(f"  segment {i}: rays {s['rays']} hits {s['hits']} "
+                f"ITER_CAP-retired {s['capped']} K1 launches "
+                f"{s['launches']}{' (camera mode)' if s['camera'] else ''}")
+        if any(bench.n_left(stats).values()):
+            raise AssertionError(f"rays left at ITER_CAP: {row['n_left']}")
+        if not BENCH_HIT_RANGE[0] < hitfrac < BENCH_HIT_RANGE[1]:
+            raise AssertionError(f"hit fraction {hitfrac} out of range")
+        if not stats[0]["camera"] or any(s["launches"] < 1 for s in stats):
+            raise AssertionError("a segment did not launch K1, or the "
+                                 "primaries were not in camera mode")
+    launches = dict(K1_explicit=wf.K1.launches - wf.K1_CAMERA.launches,
+                    K1_camera=wf.K1_CAMERA.launches,
+                    K1_keys=wf.K1_KEYS.launches)
+    say(f"[bench-world main path] launches {launches}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"the main path missed a kernel: {launches}")
+    _, col, _ = render_wave.render_frame_wavefront(ws, cam5, W, H,
+                                                   render_mode=0,
+                                                   gi_bounces=1)
+    finite = torch.isfinite(col).all(-1).float().mean().item()
+    if finite < 0.999:
+        raise AssertionError(f"finite colour on {finite} of pixels")
+    # ---- K1 against its plain versions on this world
+    say(f"[bench-world compare] K1 vs trace_plain on 16384 sampled rays")
+    sampled = Agreement(ws, "bench world-16384", *sampled_rays(ws, cam5))
+    seg = compare_segments(ws, cam5, 1)
+    say("[bench-world camera] K1 camera mode vs trace_camera_plain")
+    cam = hold_camera(ws, cam5)
+    origins, dirs, _, _ = render_wave._frame_rays(cam5, W, H)
+    contract = camera_contract(ws, cam, seg[0], origins, dirs)
+    del origins, dirs
+    # ---- one ESVO mode-2 frame on the same octree
+    packed = traverse.make_packed_table(tree)
+    stats = []
+    ke0 = traverse.KE.launches
+    ecol, edepth, _ = shade.render_image(tree, cam5, W, H, render_mode=2,
+                                         packed=packed, stats=stats)
+    ehit = (edepth > 0).float().mean().item()
+    _, wdepth, _ = render_wave.render_frame_wavefront(ws, cam5, W, H,
+                                                      render_mode=3)
+    agree = ((wdepth > 0) == (edepth > 0)).float().mean().item()
+    say(f"[bench-world esvo] mode-2 frame on the {tree.n_nodes}-node "
+        f"octree: KE launches {traverse.KE.launches - ke0}, primary hit "
+        f"fraction {ehit:.4f}, finite colour "
+        f"{torch.isfinite(ecol).all(-1).float().mean().item():.6f}; hit "
+        f"mask vs the wavefront frame agrees on {agree:.6f} of pixels")
+    if (traverse.KE.launches - ke0 < 1 or agree < BENCH_HIT_AGREEMENT
+            or not BENCH_HIT_RANGE[0] < ehit < BENCH_HIT_RANGE[1]):
+        raise AssertionError("the ESVO frame launched no KE, its hit "
+                             "fraction is out of range or its hit mask "
+                             "disagrees with the wavefront frame's")
+    ke = hold_ke("bench world-16384", packed,
+                 *esvo_sampled_rays(tree, packed, cam5))
+    del tree, packed
+    prof = {label: profile_window(
+        f"bench-world {label}",
+        lambda i, b=int(label[2:]): render_wave.render_frame_wavefront(
+            ws, cam5, W, H, render_mode=0, frame_number=i + 2,
+            gi_bounces=b),
+        {"K1": "wf_trace_kernel", "K1 keys": "ray_key", "sort": "RadixSort"},
+        f["ms"]) for label, f in frames.items()}
+    checks = seg + [sampled]
+    kernels = [
+        kernel_entry(f"K1 wavefront traversal (a) flat L0, bench world "
+                     f"{size}^3 perlin terrain",
+                     "svo_raytracer_torch/csrc/wavefront.cu",
+                     "svo_raytracer_tpu/ops/wavefront.py:891",
+                     launches["K1_explicit"], checks, checks),
+        kernel_entry(f"K1 wavefront traversal (b) camera-mode primaries on "
+                     f"(a) flat L0, bench world {size}^3 perlin terrain",
+                     "svo_raytracer_torch/csrc/wavefront.cu",
+                     "svo_raytracer_tpu/ops/wavefront.py:987",
+                     launches["K1_camera"], [cam], [cam])]
+    order_ms = launches["K1_keys"] * seg[1].key_sort_device_ms
+    summary = dict(
+        world=dict(got, noise_s=info["noise"], build_s=info["build"],
+                   splice_s=info["splice"], total_build_s=info["build_s"],
+                   to_host_s=info["to_host"], brickify_s=info["brickify"],
+                   prepare_s=info["prepare"], table_bytes=table_bytes,
+                   setup_peak_bytes=setup_peak,
+                   chunk_noise_peak_bytes=noise_peak),
+        frames={k: dict(hitfrac=v["hitfrac"],
+                        n_left=bench.n_left(v["stats"]))
+                for k, v in frames.items()},
+        row=row, launches=launches, camera_vs_explicit=contract,
+        segment_ms=[a.ms for a in seg], camera_ms=cam.ms,
+        esvo=dict(hitfrac=ehit, wavefront_hit_agreement=agree,
+                  ke_sampled_ms=ke.ms), profile=prof,
+        segment_key_sort_device_ms=[a.key_sort_device_ms for a in seg],
+        segment_g_steps_per_s=[a.rate / a.ms for a in seg],
+        segment_active=[a.active for a in seg],
+        max_memory_allocated=torch.cuda.max_memory_allocated())
+    say(f"[bench-world] phase took {time.time() - t0:.1f} s")
+    return (summary, kernels, launches["K1_keys"],
+            [a.keys for a in seg + [sampled]], order_ms)
 
 
 def sampled_rays(ws, cam5):
@@ -1617,6 +1797,12 @@ def main():
 
     build_kernels()
 
+    # ---- bench.py's world first: its main path and its checks
+    summary, kernels = {}, []
+    (summary["bench_world"], bench_kernels, bench_key_launches,
+     bench_keys, bench_order_ms) = bench_world_phase(dev)
+    kernels += bench_kernels
+
     # ---- kernel vs plain on the test scenes (flat G = 2, G = 64, paged)
     say("[compare] K1 vs trace_plain on the card")
     small = [(n, brick_scene.brickify(build_np.build_octree_np(v)),
@@ -1638,16 +1824,15 @@ def main():
     k3_small = k3_small_checks(dev, small[:2])
 
     # ---- the main path on each world (WORLDS), through its part of K1
-    summary, kernels = {}, []
-    key_launches, key_timed, key_all = 0, [], [c.keys
-                                                for c in checks.values()]
-    order_ms = 0.0
+    key_launches, key_timed = bench_key_launches, bench_keys[1:2]
+    key_all = bench_keys + [c.keys for c in checks.values()]
+    order_ms = bench_order_ms
     for (size, n_range, bounces, n_timed, profiled, part, line,
          small_names, first) in WORLDS:
         scene, ws = build_world(dev, size, n_range)
         grids = print_grids(ws)
         configs = frame_configs(bounces, n_timed, mode2=first)
-        cam5, frames, launches, peak = main_path(dev, ws, configs)
+        cam5, frames, launches, peak = main_path(ws, configs)
         say(f"[compare {size}] K1 vs trace_plain on 16384 sampled rays")
         rays = sampled_rays(ws, cam5)
         sampled = Agreement(ws, "world-16384", *rays)

@@ -1,10 +1,12 @@
 """The port never imports jax or the JAX package: with both blocked in
 sys.modules, every svo_raytracer_torch module imports, a few rays trace on
 the CPU through the wavefront engine and through the v1 brick engine
-(brick_pallas), chip_smoke.py's scene and camera helpers run, a wavefront
-mode-2 frame renders with camera-mode primaries, and a 32^3 heightmap
-octree built by the port renders a mode-2 frame with a skip grid through
-chip_smoke's ESVO world helper."""
+(brick_pallas), chip_smoke.py's scene helpers and the bench's probe
+camera run, a wavefront mode-2 frame renders with camera-mode primaries,
+a 32^3 heightmap octree built by the port renders a mode-2 frame with a
+skip grid through chip_smoke's ESVO world helper, a 32^3 perlin world
+builds from 16^3 chunks through models/world.build_world, and the bench's
+small pipeline (64^3, one warm and one timed frame) runs on the CPU."""
 
 import os
 import subprocess
@@ -40,7 +42,8 @@ from svo_raytracer_torch.core import build_np
 from svo_raytracer_torch.ops import brick_scene
 tree = build_np.build_octree_np(chip_smoke.sphere_voxels(32, 12))
 ws = wavefront.prepare(brick_scene.brickify(tree), "cpu")
-cam5 = chip_smoke.place_camera(ws, "cpu")
+from svo_raytracer_torch import bench
+cam5, _ = bench.place_camera(ws)
 assert cam5.shape == (5, 3) and 1.0 < float(cam5[0, 1]) < 2.0, cam5
 stats = []
 col, depth, _ = render_wave.render_frame_wavefront(ws, cam5, 32, 24,
@@ -55,6 +58,16 @@ col, depth, _ = shade.render_image(etree, cam5, 32, 24, render_mode=2,
                                    packed=packed, skip_tab=tabs[32])
 assert col.shape == (24, 32, 3) and bool(torch.isfinite(col).all())
 assert 0.0 < float((depth > 0).float().mean()) < 1.0, depth
+from svo_raytracer_torch.models import procgen, world
+w32 = world.build_world(32, 16, lambda o: procgen.generate_chunk(
+    o, 16, device="cpu"), world_offset=(0, -16, 0))
+assert w32.n_nodes > 8 + 8 * 8 and w32.child.device.type == "cpu", w32
+assert 0 < int(w32.child.max()) < w32.n_nodes
+bench.WARM_FRAMES = bench.TIMED_FRAMES = 1
+rows = []
+bench.run(64, 64, 64, 40, "cpu", emit=rows.append)
+assert len(rows) == 2 and rows[1]["n_left"] == dict(prim=0, gi1=0, gi2=0,
+                                                     gi3=0), rows
 assert not any(k.split(".")[0] in ("jax", "svo_raytracer_tpu")
                for k, v in sys.modules.items() if v is not None)
 print("ok")
