@@ -1,10 +1,14 @@
 """Kernels K1 (explicit and camera mode, its ray keys and its persistent
 schedule), KE (its plain and binned schedules, through a permutation),
 K2 (in ray order) and K3 (through a permutation), each with its
-wrapper launching the kernel alone, on a CUDA GPU against their plain PyTorch versions.  Needs a
-card and nvcc; skipped elsewhere.  The file imports no
+wrapper launching the kernel alone, on a CUDA GPU against their plain
+PyTorch versions; the noise on the card against the CPU's, and the
+bench's small pipeline on the card.  Needs a card and nvcc; skipped
+elsewhere.  The file imports no
 jax, so on a GPU host without JAX it runs from the repository root with
 ``python -m pytest --noconftest tests/test_torch_cuda.py``."""
+
+import os
 
 import numpy as np
 import pytest
@@ -494,3 +498,51 @@ def test_launch_counters_once_per_segment():
     torch.cuda.synchronize()
     assert [x.launches - b for x, b in zip(k, before)] == [3, 1, 2]
     assert [s["launches"] for s in stats] == [1, 1, 1]
+
+
+@pytest.mark.gpu
+def test_noise_on_gpu_equals_cpu():
+    """The noise is float32 operations in the same order on both devices:
+    cnoise, snoise and worley on 10^5 points, two 64^3 chunks of the
+    bench world and its near-threshold voxels (tests/data/
+    bench_world_near.npz) equal the CPU's bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from svo_raytracer_torch.models import procgen
+    from svo_raytracer_torch.ops import noise
+    a = torch.from_numpy((np.random.default_rng(4).uniform(
+        -1, 1, (3, 100000)) * 3000).astype(np.float32))
+    for fn, n in ((noise.cnoise, 2), (noise.snoise, 3), (noise.worley, 2)):
+        cpu, gpu = fn(*a[:n]), fn(*a[:n].cuda())
+        if fn is not noise.worley:      # worley gives (F1, F2)
+            cpu, gpu = (cpu,), (gpu,)
+        for c, g in zip(cpu, gpu):
+            assert torch.equal(c, g.cpu()), fn.__name__
+    for origin in ((448, -192, 512), (960, -128, 64)):
+        assert torch.equal(procgen.generate_chunk(origin, 64).cpu(),
+                           procgen.generate_chunk(origin, 64, device="cpu"))
+    data = np.load(os.path.join(os.path.dirname(__file__), "data",
+                                "bench_world_near.npz"))
+    xyz = [torch.from_numpy(np.ascontiguousarray(data["xyz"][:, i],
+                                                 np.int32)) for i in range(3)]
+    gpu = noise.sample_perlin_terrain(*(t.cuda() for t in xyz)).cpu()
+    assert torch.equal(gpu, noise.sample_perlin_terrain(*xyz))
+    assert torch.equal(gpu, torch.from_numpy(data["voxel"]))
+
+
+@pytest.mark.gpu
+def test_bench_small_on_gpu(monkeypatch):
+    """The bench's 64^3 pipeline on the card: every segment through K1,
+    n_left 0, the card named in the row."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from svo_raytracer_torch import bench
+    monkeypatch.setattr(bench, "WARM_FRAMES", 1)
+    monkeypatch.setattr(bench, "TIMED_FRAMES", 1)
+    launches = wavefront.K1.launches
+    rows = []
+    bench.run(64, 64, 64, 40, emit=rows.append)
+    assert wavefront.K1.launches - launches >= 2 * (2 + 4)
+    assert rows[-1]["n_left"] == dict(prim=0, gi1=0, gi2=0, gi3=0)
+    assert rows[-1]["device"] == bench.card("cuda")
+    assert rows[-1]["max_memory_allocated"] > 0
