@@ -4,12 +4,12 @@ negative and large (|x| > 289) coordinates included.
 
 Tolerances.  Eager JAX runs the same float32 operations in the same
 order: cnoise and snoise equal it bit for bit, worley within 1 ulp
-(6e-8 on values below 1.5; XLA's CPU square root is not the correctly
-rounded one).  Jitted JAX contracts multiply-adds into fused ones: snoise
-and worley within atol 1e-6 of it (measured: 8.4e-7, 2.4e-7); cnoise
-within atol 4e-6 (measured: 3.6e-6 on 10^6 points), since its fade
-polynomial t^3 (t (6t - 15) + 10) cancels as t -> 1 and carries the fused
-rounding into the output.  The voxel samplers are exact: the perlin
+(6e-8 on values below 1.5, where XLA's CPU square root is not the
+correctly rounded one).  Jitted JAX contracts multiply-adds into fused
+ones: snoise and worley within atol 1e-6 of it (on these sets 4.8e-7 and
+1.2e-7); cnoise within atol 4e-6 (on these sets 2.4e-6), since its fade
+polynomial t^3 (t (6t - 15) + 10) cancels as t -> 1 and carries the
+fused rounding into the output.  The voxel samplers are exact: the perlin
 terrain grid equals jitted JAX's except on voxels whose surface or
 simplex gate lies within those tolerances of its threshold (none on
 these grids), sphere and box grids everywhere.
