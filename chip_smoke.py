@@ -12,6 +12,16 @@ mode to trace_camera_plain, and one ESVO mode-2 frame on the same octree
 through shade.render_image with KE held to traverse.intersect_plain
 (lines ``[bench-world ...]``).
 
+On the same world, octree and camera, the differentiable renderers
+train at 1920x1080 (lines ``[train ...]``): SGD steps of the wavefront
+K-hit chain with K = 2 and K = 3 (diff/wave_diff.py, K launches of K1 a
+step) and of the ESVO render_diff (diff/render_diff.py, one KE launch a
+step), with falling losses; the hand-written compositor backward held
+to autograd, gradients on exactly the hit entries, K1 held to
+trace_plain on every stage's rays (stages 2 and 3 start inside solid),
+KE on render_diff's frame, a small train step on the card held to the
+CPU's, and checkpoints read back bit-equal.
+
 Then it drives the main path at full size on three seeded heightmap worlds
 (value noise, built directly as BrickScenes), each through its own part of
 kernel K1, with the camera placed by bench.py's downward-probe rule and
@@ -145,6 +155,18 @@ BENCH_CAMERA_TOL = 1e-3
 BENCH_HIT_RANGE = (0.05, 0.99)
 BENCH_HIT_AGREEMENT = 0.999
 
+# The train phase (train_phase) on the bench world at 1920x1080: warm
+# and timed SGD steps of each kind, the learning rates and the entries
+# sampled for the zero-gradient gate.  A per-entry gradient is diluted by
+# the mean over 6.2 M values, and a 1/1024 voxel at density 10 has alpha
+# ~0.01, so the rates are large: in a sweep of powers of ten
+# (scripts/train_lr_sweep.py; NVIDIA H100 80GB HBM3, 700 W) the losses of
+# 7 steps fell at every rate up to 1e7 for both kinds and rose at 1e8;
+# 1e6 leaves a factor of ten.
+TRAIN_WARM, TRAIN_TIMED = 2, 5
+TRAIN_LR = {"wave": 1e6, "esvo": 1e6}
+TRAIN_GRAD_SAMPLE = 1 << 20
+
 # The worlds of the main path, each through its part of kernel K1 (every
 # primary segment in camera mode, sub-slice (b)): (size, n_mixed class,
 # GI bounces, timed frames, profiled, K1 part, its TPU source line, the
@@ -192,6 +214,27 @@ def terrain_voxels(size, seed):
     solid = y <= heights[x, z]
     mat = np.where(y >= heights[x, z] - 3, 3, 1)
     return np.where(solid, mat, 0).astype(np.uint8)
+
+
+def two_wall_voxels():
+    """tests/test_wave_diff.py's 32^3 scene: two parallel 1-voxel walls
+    normal to +z, material 1 at z = 10 and material 2 at z = 20."""
+    v = np.zeros((32, 32, 32), np.int32)
+    v[8:24, 8:24, 10] = 1
+    v[8:24, 8:24, 20] = 2
+    return v
+
+
+# test_wave_diff.py's train step on the two walls: the camera stands past
+# the walls and looks back (-z) at a 16x8 frame
+TWO_WALL_FRAME = (16, 8)
+
+
+def two_wall_camera():
+    """The two-wall train step's (5, 3) float32 camera uniform."""
+    from svo_raytracer_torch.utils.camera import Camera
+    return Camera(pos=np.array([1.5, 1.5, 1.95])).uniform().astype(
+        np.float32)
 
 
 def g64_scene():
@@ -1400,7 +1443,8 @@ def bench_world_phase(dev):
     mode-2 frame on the same DeviceOctree through shade.render_image with
     KE == intersect_plain on sampled rays.  Returns (summary, kernels
     entries, K1 key launches, the checks whose keys count, the ordering
-    device ms)."""
+    device ms, and (WaveScene, DeviceOctree, packed table, camera) for the
+    train phase)."""
     import torch
     from svo_raytracer_torch import bench
     from svo_raytracer_torch.models import procgen
@@ -1510,7 +1554,6 @@ def bench_world_phase(dev):
                              "disagrees with the wavefront frame's")
     ke = hold_ke("bench world-16384", packed,
                  *esvo_sampled_rays(tree, packed, cam5))
-    del tree, packed
     prof = {label: profile_window(
         f"bench-world {label}",
         lambda i, b=int(label[2:]): render_wave.render_frame_wavefront(
@@ -1551,7 +1594,288 @@ def bench_world_phase(dev):
         max_memory_allocated=torch.cuda.max_memory_allocated())
     say(f"[bench-world] phase took {time.time() - t0:.1f} s")
     return (summary, kernels, launches["K1_keys"],
-            [a.keys for a in seg + [sampled]], order_ms)
+            [a.keys for a in seg + [sampled]], order_ms,
+            (ws, tree, packed, cam5))
+
+
+def train_steps(label, step, params, launches):
+    """TRAIN_WARM + TRAIN_TIMED SGD steps ``params, loss = step(params)``,
+    each timed alone on the host clock and ended by
+    torch.cuda.synchronize(), the peak device memory reset just before.
+    ``launches()`` reads the kernel's launch count.  Gates: every loss
+    finite, none above the one before, the last below the first.
+    Returns (the trained params, the run's numbers)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n0 = launches()
+    losses, times = [], []
+    for _ in range(TRAIN_WARM + TRAIN_TIMED):
+        t0 = time.perf_counter()
+        params, loss = step(params)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    out = dict(ms=float(np.median(times[TRAIN_WARM:])), times=times,
+               losses=losses, peak_bytes=torch.cuda.max_memory_allocated(),
+               launches_per_step=(launches() - n0) / len(times))
+    say(f"[train {label}] median step {out['ms']:.3f} ms (timed "
+        f"{', '.join(f'{t:.3f}' for t in times[TRAIN_WARM:])}); peak "
+        f"device memory {out['peak_bytes'] / 2**30:.3f} GiB "
+        f"({out['peak_bytes']} B); launches per step "
+        f"{out['launches_per_step']:g}; losses "
+        f"{', '.join(repr(v) for v in losses)}")
+    if (not all(np.isfinite(losses))
+            or any(b > a for a, b in zip(losses, losses[1:]))
+            or not losses[-1] < losses[0]):
+        raise AssertionError(f"train {label}: the loss did not fall: "
+                             f"{losses}")
+    return params, out
+
+
+def grad_support(what, grads, hit_ids, n, dev):
+    """Gate: the gradients of both tables are non-zero on every hit entry
+    (``hit_ids``) and exactly zero on the entries no ray hit among
+    TRAIN_GRAD_SAMPLE sampled ones (of ``n``)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    sample = torch.randint(0, n, (TRAIN_GRAD_SAMPLE,), device=dev,
+                           generator=gen)
+    unhit = sample[~torch.isin(sample, hit_ids)]
+    nz_den = int((grads.density[hit_ids] != 0).sum())
+    nz_alb = int((grads.albedo[hit_ids] != 0).any(1).sum())
+    stray = int((grads.density[unhit] != 0).sum()
+                + (grads.albedo[unhit] != 0).any(1).sum())
+    say(f"  [train grads {what}] hit entries {hit_ids.numel()}: non-zero "
+        f"density {nz_den}, albedo {nz_alb}; unhit sampled entries "
+        f"{unhit.numel()}: non-zero {stray}")
+    if nz_den != hit_ids.numel() or nz_alb != hit_ids.numel() or stray:
+        raise AssertionError(f"{what}: gradients off the hit entries or "
+                             f"zero on some")
+    return dict(hit=hit_ids.numel(), unhit_sampled=unhit.numel())
+
+
+def train_phase(dev, ws, tree, packed, cam5):
+    """The differentiable renderers at 1920x1080 on the bench world (its
+    WaveScene, DeviceOctree and probe camera, from bench_world_phase).
+
+    The main path, with the launch counts set to 0 just before and read
+    just after: wavefront K-hit SGD steps (diff/wave_diff.py) with K = 2
+    and K = 3 (K launches of K1 a step, each ordered by its keys), then
+    the ESVO render_diff step (diff/render_diff.py, one KE launch a
+    step); each TRAIN_WARM + TRAIN_TIMED steps toward 0.8 x its untrained
+    image, at TRAIN_LR.  Gates: the losses (train_steps); the launches
+    per step; composite_khit's backward equal to autograd of
+    composite_khit_ref on the K = 3 chain (rtol 1e-4, atol 1e-6; forward
+    within 1e-6); gradients non-zero on every hit entry and zero on
+    sampled unhit ones (both renderers); K1 == trace_plain on every ray
+    of the chain's three stages (stages 2 and 3 start just past the hit
+    cube, mostly inside solid), KE == intersect_plain on render_diff's
+    frame in its tile order; a two-wall train step (test_wave_diff.py's,
+    16x8, K = 2) on the card equal to the CPU's (atol 1e-5, loss rtol
+    1e-5); a checkpoint
+    written on the card and read back bit-equal.  Then a profile of 5
+    steps of each kind, and the compositor's device time.  Returns
+    (summary, kernels entries, K1 key launches, the key checks)."""
+    import torch
+    from svo_raytracer_torch.core import build_np
+    from svo_raytracer_torch.diff import checkpoint
+    from svo_raytracer_torch.diff import render_diff as rd
+    from svo_raytracer_torch.diff import wave_diff as wd
+    from svo_raytracer_torch.ops import brick_scene, kernel_build, shade
+    from svo_raytracer_torch.ops import traverse
+    from svo_raytracer_torch.ops import wavefront as wf
+    t0 = time.time()
+    dirs = rd.d_unit(shade.pixel_dirs_device(cam5, W, H))
+    origins = cam5[0].expand_as(dirs)
+    say(f"[train] {W}x{H} on the bench world: {TRAIN_WARM} warm + "
+        f"{TRAIN_TIMED} timed steps of each kind, lr {TRAIN_LR} (large: "
+        f"a per-entry gradient is diluted by the mean over {3 * W * H} "
+        f"values), targets 0.8 x the untrained image")
+    # ---- the main path, with the launch counts set to 0 just before
+    wf.K1.launches = wf.K1_CAMERA.launches = wf.K1_KEYS.launches = 0
+    traverse.KE.launches = traverse.KE_BINNED.launches = 0
+    n_wave = wd.param_size(ws)
+    runs, targets, steps = {}, {}, {}
+    for K in (2, 3):
+        label = f"wave K={K}"
+        p0 = wd.init_params(ws)
+        targets[K] = 0.8 * wd.render_wave_diff(p0, ws, origins, dirs,
+                                               K).reshape(H, W, 3)
+        steps[K] = wd.make_wave_train_step(ws, W, H, K=K,
+                                           lr=TRAIN_LR["wave"])
+        runs[label] = train_steps(
+            label, lambda p, K=K: steps[K](p, cam5, targets[K]), p0,
+            lambda: wf.K1.launches)[1]
+        del p0
+    v0 = rd.init_params(tree)
+    etarget = 0.8 * rd.render_diff(v0, tree, cam5, W, H, packed=packed)
+
+    def esvo_step(p):
+        return rd.train_step(p, tree, cam5, etarget, W, H,
+                             lr=TRAIN_LR["esvo"], packed=packed)
+
+    vtrained, runs["esvo"] = train_steps("esvo", esvo_step, v0,
+                                         lambda: traverse.KE.launches)
+    launches = dict(K1_explicit=wf.K1.launches - wf.K1_CAMERA.launches,
+                    K1_camera=wf.K1_CAMERA.launches,
+                    K1_keys=wf.K1_KEYS.launches, KE=traverse.KE.launches,
+                    KE_binned=traverse.KE_BINNED.launches)
+    say(f"[train main path] launches {launches}")
+    n_steps = TRAIN_WARM + TRAIN_TIMED
+    per = [runs["wave K=2"]["launches_per_step"],
+           runs["wave K=3"]["launches_per_step"],
+           runs["esvo"]["launches_per_step"]]
+    if (per != [2, 3, 1] or launches["K1_camera"]
+            or launches["KE_binned"]
+            or launches["K1_explicit"] != (2 + 3) * (n_steps + 1)
+            or launches["KE"] != n_steps + 1):
+        raise AssertionError(f"the train path's launches: {launches}, per "
+                             f"step {per}")
+    # ---- the K = 3 chain as the step traces it: stages, backward, grads
+    p0 = wd.init_params(ws)
+    stats = []
+    chain = wd.khit_chain(ws, origins, dirs, 3, stats)
+    for k, s in enumerate(stats):
+        say(f"  [train chain] stage {k + 1}: rays {s['rays']} hits "
+            f"{s['hits']} ITER_CAP-retired {s['capped']} K1 launches "
+            f"{s['launches']}")
+    bg = shade.sky(dirs)
+
+    def grads_of(composite, ch, target):
+        return rd.loss_and_grads(lambda p: torch.mean(
+            (composite(p.albedo, p.density, ch, bg).reshape(H, W, 3)
+             - target) ** 2), p0)
+
+    with torch.no_grad():
+        col_c = wd.composite_khit(p0.albedo, p0.density, chain, bg)
+        col_r = wd.composite_khit_ref(p0.albedo, p0.density, chain, bg)
+    fwd_err = (col_c - col_r).abs().max().item()
+    loss_c, g_c = grads_of(wd.composite_khit, chain, targets[3])
+    loss_r, g_r = grads_of(wd.composite_khit_ref, chain, targets[3])
+    close = {f: torch.allclose(getattr(g_c, f), getattr(g_r, f), rtol=1e-4,
+                               atol=1e-6) for f in ("albedo", "density")}
+    bwd_err = max((getattr(g_c, f) - getattr(g_r, f)).abs().max().item()
+                  for f in close)
+    say(f"  [train compositor] K = 3 chain: forward max |custom - ref| "
+        f"{fwd_err:.3e}; backward max |custom - autograd| {bwd_err:.3e}, "
+        f"allclose(rtol 1e-4, atol 1e-6) {close}; loss {float(loss_c)!r} "
+        f"vs {float(loss_r)!r}")
+    if fwd_err > 1e-6 or not all(close.values()):
+        raise AssertionError("composite_khit's backward differs from "
+                             "autograd of composite_khit_ref")
+    del g_r
+    hit_ids = torch.unique(chain.aidx[chain.hitm > 0].long())
+    support = dict(wave=grad_support("wave K=3", g_c, hit_ids, n_wave, dev))
+    del g_c
+    # the compositor's device time (forward, loss, backward) per step
+    comp_ms = {}
+    for K in (2, 3):
+        ch = wd.HitChain(*(a[:K] for a in chain))
+        comp_ms[f"wave K={K}"] = device_ms(
+            lambda ch=ch, K=K: grads_of(wd.composite_khit, ch, targets[K]),
+            3)
+    say(f"  [train compositor] device ms (forward + loss + backward): "
+        f"{comp_ms}")
+    # ---- K1 on the stages' own rays: stages 2 and 3 start just past a
+    # hit cube, on this terrain mostly inside the solid voxel below it
+    d_stage = rd.d_unit(dirs)      # the chain traces unit rows of dirs
+    stage_checks = []
+    for k, s in enumerate(stats):
+        say(f"[train compare] K1 vs trace_plain on every ray of stage "
+            f"{k + 1} ({s['rays']} active)")
+        a = Agreement(ws, f"train stage {k + 1}", s["origins"].contiguous(),
+                      d_stage, s["active"])
+        at_start = (a.res_k.t[a.res_k.hit] == 0).float().mean().item()
+        say(f"    stage {k + 1}: hits at their start point (t = 0) "
+            f"{at_start:.4f} of hits")
+        stage_checks.append(a)
+    # ---- the ESVO step: KE on its frame, its gradients' support
+    say("[train compare] KE vs intersect_plain on render_diff's frame")
+    ke = hold_ke("train render_diff frame", packed, origins.contiguous(),
+                 dirs, torch.ones(W * H, dtype=torch.bool, device=dev),
+                 order=traverse.tile_order(W, H, dev))
+    _, vg = rd.loss_and_grads(lambda p: rd.pixel_loss(
+        p, tree, cam5, etarget, W, H, packed=packed), v0)
+    res = traverse.intersect_octree(tree, origins, dirs, packed=packed)
+    support["esvo"] = grad_support("esvo", vg, torch.unique(
+        res.node[res.hit].long()), tree.n_nodes, dev)
+    del vg, res
+    # ---- the two-wall step on the card against the CPU's
+    scene = brick_scene.brickify(build_np.build_octree_np(two_wall_voxels()))
+    w2, h2 = TWO_WALL_FRAME
+    two = []
+    for d in (dev, torch.device("cpu")):
+        ws2 = wf.prepare(scene, d)
+        step2 = wd.make_wave_train_step(ws2, w2, h2, K=2, lr=400.0)
+        two.append(step2(wd.init_params(ws2, 4.0),
+                         torch.from_numpy(two_wall_camera()).to(d),
+                         torch.zeros(h2, w2, 3, device=d)))
+    (pg, lg), (pc, lc) = two
+    two_err = max((getattr(pg, f).cpu() - getattr(pc, f)).abs().max().item()
+                  for f in ("albedo", "density"))
+    say(f"[train two walls] card vs CPU step (16x8, K = 2, lr 400): max "
+        f"|params difference| {two_err:.3e}; loss {float(lg)!r} vs "
+        f"{float(lc)!r}")
+    if two_err > 1e-5 or not np.isclose(float(lg), float(lc), rtol=1e-5,
+                                        atol=0):
+        raise AssertionError("the two-wall step on the card differs from "
+                             "the CPU's")
+    # ---- checkpoints written on the card and read back
+    path = str(kernel_build.BUILD_DIR / "train_checkpoint.npz")
+    ck = {}
+    for kind, p in (("voxel", vtrained), ("wave", pg)):
+        t1 = time.time()
+        checkpoint.save_params(p, path, step=n_steps)
+        back, step = checkpoint.load_params(path, dev, kind)
+        ck[kind] = dict(bytes=os.path.getsize(path), s=time.time() - t1,
+                        equal=bool(step == n_steps and all(
+                            torch.equal(a, b) for a, b in zip(back, p))))
+        os.remove(path)
+    say(f"[train checkpoint] written on the card and read back: {ck}")
+    if not all(c["equal"] for c in ck.values()):
+        raise AssertionError(f"a checkpoint did not read back equal: {ck}")
+    del vtrained, two, pg, pc
+    # ---- device time of each kind of step
+    prof = {}
+    for K in (2, 3):
+        prof[f"wave K={K}"] = profile_window(
+            f"train wave K={K}", lambda i, K=K: steps[K](p0, cam5,
+                                                         targets[K]),
+            {"K1": "wf_trace_kernel", "K1 keys": "ray_key",
+             "sort": "RadixSort"}, runs[f"wave K={K}"]["ms"])
+    prof["esvo"] = profile_window("train esvo", lambda i: esvo_step(v0),
+                                  {"KE": "esvo_trace_kernel"},
+                                  runs["esvo"]["ms"])
+    for label, c_ms in comp_ms.items():
+        say(f"  [train {label}] compositor {c_ms:.3f} ms, "
+            f"{c_ms / prof[label]['device_busy_ms']:.1%} of the step's "
+            f"device busy")
+    kernels = [
+        kernel_entry("K1 wavefront traversal (a) flat L0, K-hit chain of "
+                     "the train steps (K = 2 and 3) on the bench world",
+                     "svo_raytracer_torch/csrc/wavefront.cu",
+                     "svo_raytracer_tpu/ops/wavefront.py:891",
+                     launches["K1_explicit"], stage_checks, stage_checks),
+        dict(kernel_entry("KE per-ray ESVO traversal, render_diff train "
+                          "steps on the bench world octree",
+                          "svo_raytracer_torch/csrc/esvo.cu",
+                          "svo_raytracer_tpu/ops/traverse.py:382",
+                          launches["KE"], [ke], [ke]),
+             tpu_kernel="none: an XLA while_loop (traverse.py:415-423), no "
+                        "Pallas counterpart")]
+    summary = dict(
+        lr=TRAIN_LR, runs=runs, launches=launches, profile=prof,
+        compositor_ms=comp_ms, forward_err=fwd_err, backward_err=bwd_err,
+        stages=[{k: v for k, v in s.items() if k not in ("origins",
+                                                          "active")}
+                for s in stats],
+        stage_ms=[a.ms for a in stage_checks], ke_ms=ke.ms,
+        grad_support=support, two_wall_err=two_err, checkpoint=ck,
+        table_entries=dict(wave=n_wave, esvo=tree.n_nodes))
+    say(f"[train] phase took {time.time() - t0:.1f} s")
+    return (summary, kernels, launches["K1_keys"],
+            [a.keys for a in stage_checks])
 
 
 def sampled_rays(ws, cam5):
@@ -1800,8 +2124,13 @@ def main():
     # ---- bench.py's world first: its main path and its checks
     summary, kernels = {}, []
     (summary["bench_world"], bench_kernels, bench_key_launches,
-     bench_keys, bench_order_ms) = bench_world_phase(dev)
+     bench_keys, bench_order_ms, world) = bench_world_phase(dev)
     kernels += bench_kernels
+    # ---- the differentiable renderers' train steps on the same world
+    summary["train"], train_kernels, train_key_launches, train_keys = \
+        train_phase(dev, *world)
+    kernels += train_kernels
+    del world
 
     # ---- kernel vs plain on the test scenes (flat G = 2, G = 64, paged)
     say("[compare] K1 vs trace_plain on the card")
@@ -1824,8 +2153,9 @@ def main():
     k3_small = k3_small_checks(dev, small[:2])
 
     # ---- the main path on each world (WORLDS), through its part of K1
-    key_launches, key_timed = bench_key_launches, bench_keys[1:2]
-    key_all = bench_keys + [c.keys for c in checks.values()]
+    key_launches = bench_key_launches + train_key_launches
+    key_timed = bench_keys[1:2]
+    key_all = bench_keys + train_keys + [c.keys for c in checks.values()]
     order_ms = bench_order_ms
     for (size, n_range, bounces, n_timed, profiled, part, line,
          small_names, first) in WORLDS:

@@ -9,6 +9,9 @@ package so each function's counterpart is found under the same name:
   ops/     — brick scene tables, the wavefront traversal (kernel K1 in
              ``csrc/wavefront.cu``), hit decode, shading, frame rendering
   models/  — scene builders (the direct heightmap -> BrickScene path)
+  diff/    — differentiable rendering: the ESVO single-hit render and the
+             wavefront K-hit chain with its compositor, SGD train steps
+             and checkpoints
   csrc/    — hand-written CUDA C++ kernels, built with nvcc at first use
 
 The package imports ``torch`` and NumPy, and nothing of ``jax`` or of the

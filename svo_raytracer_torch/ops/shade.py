@@ -112,10 +112,13 @@ def pixel_dirs_rows(cam5, width, height, row0, nrows):
     p = (px+0.5)/size (svotrace.comp:662-664).  Row 0 = p.y~0 (the GL
     bottom row)."""
     l1, l2, r1, r2 = cam5[1], cam5[2], cam5[3], cam5[4]
-    pxs = (torch.arange(width, dtype=torch.float32, device=cam5.device)
-           + 0.5) / float(width)
-    pys = ((torch.arange(nrows, dtype=torch.float32, device=cam5.device)
-            + float(row0) + 0.5) / float(height))
+    # true divisions: on the card, a tensor divided by a Python scalar is
+    # multiplied by the scalar's reciprocal, which rounds differently
+    xs = torch.arange(width, dtype=torch.float32, device=cam5.device) + 0.5
+    ys = (torch.arange(nrows, dtype=torch.float32, device=cam5.device)
+          + float(row0) + 0.5)
+    pxs = xs / torch.full_like(xs, float(width))
+    pys = ys / torch.full_like(ys, float(height))
     left = l1[None, :] + (l2 - l1)[None, :] * pys[:, None]
     right = r1[None, :] + (r2 - r1)[None, :] * pys[:, None]
     dirs = left[:, None, :] + (right - left)[:, None, :] * pxs[None, :, None]

@@ -2,10 +2,11 @@
 schedule), KE (its plain and binned schedules, through a permutation),
 K2 (in ray order) and K3 (through a permutation), each with its
 wrapper launching the kernel alone, on a CUDA GPU against their plain
-PyTorch versions; the noise on the card against the CPU's, and the
-bench's small pipeline on the card.  Needs a card and nvcc; skipped
-elsewhere.  The file imports no
-jax, so on a GPU host without JAX it runs from the repository root with
+PyTorch versions; the noise on the card against the CPU's, the
+bench's small pipeline on the card, and the differentiable renderers'
+compositor and train steps on the card against the CPU's.  Needs a card
+and nvcc; skipped elsewhere.  The file imports no jax, so on a GPU host
+without JAX it runs from the repository root with
 ``python -m pytest --noconftest tests/test_torch_cuda.py``."""
 
 import os
@@ -546,3 +547,113 @@ def test_bench_small_on_gpu(monkeypatch):
     assert rows[-1]["n_left"] == dict(prim=0, gi1=0, gi2=0, gi3=0)
     assert rows[-1]["device"] == bench.card("cuda")
     assert rows[-1]["max_memory_allocated"] > 0
+
+
+def _random_chain(dev, K=3, B=4096, n=1000, seed=4):
+    """A float32 K-hit chain whose indices repeat within and across
+    stages (scatter collisions), its sky colour and random tables."""
+    from svo_raytracer_torch.diff import wave_diff as wd
+    rng = np.random.default_rng(seed)
+    t = {k: torch.from_numpy(a).to(dev) for k, a in dict(
+        aidx=rng.integers(0, n, (K, B)).astype(np.int32),
+        hitm=(rng.uniform(size=(K, B)) < 0.8).astype(np.float32),
+        ds=rng.uniform(1 / 1024, 1 / 32, (K, B)).astype(np.float32),
+        light=rng.uniform(0.3, 1.0, (K, B)).astype(np.float32),
+        bg=rng.uniform(0.2, 1.0, (B, 3)).astype(np.float32),
+        albedo=rng.uniform(0.1, 0.9, (n, 3)).astype(np.float32),
+        density=rng.uniform(-2.0, 40.0, n).astype(np.float32),
+        g=rng.normal(size=(B, 3)).astype(np.float32)).items()}
+    chain = wd.HitChain(t["aidx"], t["hitm"], t["ds"], t["light"])
+    return chain, t
+
+
+@pytest.mark.gpu
+def test_composite_backward_on_gpu_equals_cpu():
+    """composite_khit on the card: forward values equal the CPU's within
+    1e-6, its gradients (index_add_ adds in no fixed order there) within
+    atol 1e-5, and the hand-written backward equals autograd of
+    composite_khit_ref on the card (rtol 1e-4, atol 1e-6)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from svo_raytracer_torch.diff import wave_diff as wd
+
+    def run(dev, fn=wd.composite_khit):
+        chain, t = _random_chain(dev)
+        a = t["albedo"].requires_grad_()
+        d = t["density"].requires_grad_()
+        col = fn(a, d, chain, t["bg"])
+        return (col.detach(),) + torch.autograd.grad(
+            (col * t["g"]).sum(), (a, d))
+
+    cpu, gpu = run("cpu"), run("cuda")
+    ref = run("cuda", wd.composite_khit_ref)
+    assert (cpu[0] - gpu[0].cpu()).abs().max() <= 1e-6
+    for c, g in zip(cpu[1:], gpu[1:]):
+        assert (c - g.cpu()).abs().max() <= 1e-5
+        assert (c != 0).sum() > 500
+    for g, r in zip(gpu, ref):
+        assert torch.allclose(g, r, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_two_wall_train_step_on_gpu_equals_cpu():
+    """tests/test_wave_diff.py's two-wall step (16x8, K = 2, lr 400) on
+    the card gives the CPU's tables within atol 1e-5 and its loss within
+    rtol 1e-5, two steps running; K1 launches twice a step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from svo_raytracer_torch.core import build_np
+    from svo_raytracer_torch.diff import wave_diff as wd
+    from svo_raytracer_torch.ops import brick_scene
+    scene = brick_scene.brickify(build_np.build_octree_np(
+        chip_smoke.two_wall_voxels()))
+    W, H = chip_smoke.TWO_WALL_FRAME
+    out = []
+    for dev in ("cuda", "cpu"):
+        ws = wavefront.prepare(scene, dev)
+        step = wd.make_wave_train_step(ws, W, H, K=2, lr=400.0)
+        cam5 = torch.from_numpy(chip_smoke.two_wall_camera()).to(dev)
+        p, losses = wd.init_params(ws, 4.0), []
+        launches = wavefront.K1.launches
+        for _ in range(2):
+            p, loss = step(p, cam5, torch.zeros(H, W, 3, device=dev))
+            losses.append(float(loss))
+        if dev == "cuda":
+            assert wavefront.K1.launches - launches == 4
+        out.append((p, losses))
+    (pg, lg), (pc, lc) = out
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    for g, c in zip(pg, pc):
+        assert (g.cpu() - c).abs().max() <= 1e-5
+
+
+@pytest.mark.gpu
+def test_render_diff_step_on_gpu_equals_cpu():
+    """One render_diff SGD step on a 64^3 terrain octree: KE on the card
+    gives the CPU's image, and the step the CPU's tables within atol
+    1e-5 and loss within rtol 1e-5; KE launches once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from svo_raytracer_torch.core import build_np
+    from svo_raytracer_torch.diff import render_diff as rd
+    from svo_raytracer_torch.ops import traverse
+    from svo_raytracer_torch.utils.camera import Camera
+    host = build_np.build_octree_np(chip_smoke.terrain_voxels(64, 7))
+    cam = Camera(pos=np.array([1.13, 1.93, 1.17]))
+    cam.rotate(-0.6, 3.9)
+    out = []
+    for dev in ("cuda", "cpu"):
+        tree = host.to_device(dev)
+        cam5 = torch.tensor(cam.uniform(), dtype=torch.float32, device=dev)
+        p = rd.init_params(tree)
+        target = 0.8 * rd.render_diff(p, tree, cam5, 64, 40)
+        launches = traverse.KE.launches
+        q, loss = rd.train_step(p, tree, cam5, target, 64, 40, lr=300.0)
+        if dev == "cuda":
+            assert traverse.KE.launches - launches == 1
+        out.append((target, q, float(loss)))
+    (tg, qg, lg), (tc, qc, lc) = out
+    assert torch.equal(tg.cpu(), tc)
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    for g, c in zip(qg, qc):
+        assert (g.cpu() - c).abs().max() <= 1e-5

@@ -5,8 +5,10 @@ the CPU through the wavefront engine and through the v1 brick engine
 camera run, a wavefront mode-2 frame renders with camera-mode primaries,
 a 32^3 heightmap octree built by the port renders a mode-2 frame with a
 skip grid through chip_smoke's ESVO world helper, a 32^3 perlin world
-builds from 16^3 chunks through models/world.build_world, and the bench's
-small pipeline (64^3, one warm and one timed frame) runs on the CPU."""
+builds from 16^3 chunks through models/world.build_world, a wavefront
+K-hit train step (the two walls, K = 2) and a render_diff train step (on
+that octree) run, and the bench's small pipeline (64^3, one warm and one
+timed frame) runs on the CPU."""
 
 import os
 import subprocess
@@ -64,6 +66,22 @@ w32 = world.build_world(32, 16, lambda o: procgen.generate_chunk(
 assert w32.n_nodes > 8 + 8 * 8 and w32.child.device.type == "cpu", w32
 assert 0 < int(w32.child.max()) < w32.n_nodes
 bench.WARM_FRAMES = bench.TIMED_FRAMES = 1
+from svo_raytracer_torch.diff import checkpoint, render_diff, wave_diff
+ws2 = wavefront.prepare(brick_scene.brickify(build_np.build_octree_np(
+    chip_smoke.two_wall_voxels())), "cpu")
+W2, H2 = chip_smoke.TWO_WALL_FRAME
+step = wave_diff.make_wave_train_step(ws2, W2, H2, K=2, lr=400.0)
+p, loss = step(wave_diff.init_params(ws2, 4.0),
+               torch.from_numpy(chip_smoke.two_wall_camera()),
+               torch.zeros(H2, W2, 3))
+assert bool(torch.isfinite(loss)) and bool((p.density != 4.0).any()), loss
+v0 = render_diff.init_params(etree)
+target = 0.8 * render_diff.render_diff(v0, etree, cam5, 32, 24,
+                                      packed=packed)
+v, loss = render_diff.train_step(v0, etree, cam5, target, 32, 24, lr=300.0,
+                                 packed=packed)
+assert bool(torch.isfinite(loss)) and not torch.equal(v.albedo, v0.albedo)
+assert checkpoint.KINDS["wave"] is wave_diff.WaveParams
 rows = []
 bench.run(64, 64, 64, 40, "cpu", emit=rows.append)
 assert len(rows) == 2 and rows[1]["n_left"] == dict(prim=0, gi1=0, gi2=0,
