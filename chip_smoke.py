@@ -22,6 +22,19 @@ trace_plain on every stage's rays (stages 2 and 3 start inside solid),
 KE on render_diff's frame, a small train step on the card held to the
 CPU's, and checkpoints read back bit-equal.
 
+Then the viewer and its edit path on the same world (lines
+``[viewer ...]``): apps/worldgen writes bench.py's world to an .svo file
+at its defaults, and apps/viewer opens it and runs a scripted session at
+1920x1080 through the wavefront engine (K1) and then the ESVO engine
+(KE): mode 2, mode 0 accumulating over idle frames, a move, mode 2,
+put_sphere and subtract_sphere patched into the device tables in place,
+a screenshot, save and re-read.  Each command's frame is timed, each
+edit's stages and bytes printed beside a full rebuild's; the patched
+tables render the frames of a full re-prepare or a fresh upload on every
+pixel, and K1 and KE equal their plain versions on sampled rays and rays
+at each edit.  Those sessions' launches join the bench world's K1 and
+the 1024^3 KE lines of the kernels table.
+
 Then it drives the main path at full size on three seeded heightmap worlds
 (value noise, built directly as BrickScenes), each through its own part of
 kernel K1, with the camera placed by bench.py's downward-probe rule and
@@ -1330,8 +1343,7 @@ def prepare_world(dev, scene, **prepare_kw):
     t0 = time.time()
     ws = wf.prepare(scene, dev, **prepare_kw)
     torch.cuda.synchronize()
-    nbytes = sum(getattr(ws, f).numel() * getattr(ws, f).element_size()
-                 for f in wf.WaveScene.ARRAYS)
+    nbytes = ws.nbytes
     layout = (f"{'paged' if ws.pages else 'flat'} L0, attr_comb "
               f"{'2-D' if ws.attr_comb.dim() == 2 else 'flat'} "
               f"{tuple(ws.attr_comb.shape)} {ws.attr_comb.dtype}")
@@ -1459,8 +1471,7 @@ def bench_world_phase(dev):
     wf.K1.launches = wf.K1_CAMERA.launches = wf.K1_KEYS.launches = 0
     tree, ws, cam5, info = bench.setup(size, chunk, dev)
     setup_peak = torch.cuda.max_memory_allocated()
-    table_bytes = sum(getattr(ws, f).numel() * getattr(ws, f).element_size()
-                      for f in wf.WaveScene.ARRAYS)
+    table_bytes = ws.nbytes
     cam_y = float(cam5[0, 1])
     # the noise alone: one chunk's peak above what is already allocated
     torch.cuda.reset_peak_memory_stats()
@@ -1878,6 +1889,370 @@ def train_phase(dev, ws, tree, packed, cam5):
             [a.keys for a in stage_checks])
 
 
+# The viewer phase (viewer_phase) on the bench world at 1920x1080: the
+# scripted session of each engine (mode 2; mode 0 over two idle frames; a
+# move that resets it; mode 2; put_sphere; subtract_sphere; a screenshot;
+# save; re-read; quit) and the rays each edit's kernel check adds around
+# the edit.  The edits follow a mode-2 frame: the brush goes where the
+# crosshair's depth puts it, and a mode-0 frame's depth is its bounce
+# segment's hit distance (the reference's, shade.gi_update).
+VIEWER_SCRIPT = ("3", "1", "", "", "w", "3", "c", "x", "p", "0", "9", "Q")
+VIEWER_EDIT_RAYS = 4096
+
+
+def edit_rays(cam, target, radius, world_size, dev):
+    """VIEWER_EDIT_RAYS primaries from the camera toward random points
+    within 1.5 brush radii of an edit's centre (voxel coordinates)."""
+    import torch
+    gen = np.random.default_rng(SEED)
+    c = 1.0 + (np.asarray(target, np.float64) + 0.5) / world_size
+    p = c + gen.uniform(-1.5, 1.5, (VIEWER_EDIT_RAYS, 3)) * radius \
+        / world_size
+    d = p - cam.pos
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = np.broadcast_to(cam.pos, d.shape)
+    return (torch.from_numpy(o.astype(np.float32)).to(dev),
+            torch.from_numpy(d.astype(np.float32)).to(dev))
+
+
+def frames_equal(what, a, b):
+    """Gate: two (colour, depth, iters) frames equal on every pixel in
+    colour and depth (NaN equal to NaN); returns the pixels that hit."""
+    import torch
+    col = torch.equal(a[0].nan_to_num(-7.0), b[0].nan_to_num(-7.0))
+    dep = torch.equal(a[1], b[1])
+    if not (col and dep):
+        raise AssertionError(f"{what}: frames differ (colour equal {col}, "
+                             f"depth equal {dep})")
+    return int((a[1] > 0).sum())
+
+
+def hits_equal(what, a, b, fields=("hit", "value", "t", "normal",
+                                   "depth")):
+    """Gate: two HitResults equal in ``fields`` on every ray."""
+    import torch
+    bad = [f for f in fields if not torch.equal(
+        getattr(a, f).nan_to_num(-7.0) if getattr(a, f).is_floating_point()
+        else getattr(a, f), getattr(b, f).nan_to_num(-7.0)
+        if getattr(b, f).is_floating_point() else getattr(b, f))]
+    if bad:
+        raise AssertionError(f"{what}: rays differ in {bad}")
+
+
+def render_saved(v, saved, cam5):
+    """The viewer's current frame rendered from the tables held at a save
+    (``saved``: the WaveScene, or the DeviceOctree and its packed words)."""
+    from svo_raytracer_torch.ops import render_wave, shade
+    if v.engine == "wavefront":
+        return render_wave.render_frame_wavefront(
+            saved["scene"], cam5, W, H, render_mode=v.render_mode,
+            frame_number=v.frame_number)
+    return shade.render_image(saved["dev"], cam5, W, H,
+                              render_mode=v.render_mode,
+                              frame_number=v.frame_number,
+                              use_beam=v.use_beam, packed=saved["packed"])
+
+
+def viewer_session(dev, engine, path, world_size, out_dir, cam, edit_check,
+                   after_setup=None):
+    """One scripted session of apps.viewer.Viewer (VIEWER_SCRIPT) on the
+    .svo world at ``path`` at 1920x1080 from ``cam``, the launch counts
+    of K1 (explicit, camera mode, keys) and KE (and its binned entry) set
+    to 0 before and summed over the commands' frames alone.  Each
+    command's frame is timed on the host, ended by
+    torch.cuda.synchronize().  ``edit_check(v, before)`` gates each edit
+    after its frame (``before``: the mode-2 frame of the world just
+    before the edit); ``after_setup(v)`` gates the set-up.  Gates: the
+    screenshot decodes to the frame's pixels, and after re-reading, the
+    frame equals the saved world's.
+    Returns (viewer, per-command records, launches, the viewer's set-up
+    seconds)."""
+    import torch
+    from svo_raytracer_torch.apps import viewer as vw
+    from svo_raytracer_torch.core import svo_format
+    from svo_raytracer_torch.io import image
+    from svo_raytracer_torch.ops import traverse
+    from svo_raytracer_torch.ops import wavefront as wf
+
+    def counts():
+        return dict(K1=wf.K1.launches, K1_camera=wf.K1_CAMERA.launches,
+                    K1_keys=wf.K1_KEYS.launches, KE=traverse.KE.launches,
+                    KE_binned=traverse.KE_BINNED.launches)
+
+    t0 = time.perf_counter()
+    v = vw.Viewer(svo_format.read_svo_file(path, world_size=world_size), W, H,
+                  out_dir, commands=list(VIEWER_SCRIPT), engine=engine,
+                  device=dev)
+    v.cam = cam
+    read_s = time.perf_counter() - t0
+    pre_run, update, update_late = v.pre_run, v.update_early, v.update_late
+    setup = {}
+
+    def timed_pre_run():
+        t1 = time.perf_counter()
+        pre_run()
+        torch.cuda.synchronize()
+        setup["pre_run_s"] = time.perf_counter() - t1
+        if after_setup is not None:
+            after_setup(v)
+
+    records, saved = [], {}
+    total = {k: 0 for k in counts()}
+
+    def timed_update():
+        cmd = v.commands[0] if v.commands else None
+        n_edits = len(v.edits)
+        before = (v.render(v.cam5(), 1, 2) if cmd in ("c", "x") else None)
+        torch.cuda.synchronize()
+        c0 = counts()
+        t1 = time.perf_counter()
+        update()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        got = {k: n - c0[k] for k, n in counts().items()}
+        for k, n in got.items():
+            total[k] += n
+        rec = dict(cmd=cmd, ms=ms, mode=v.render_mode, frame=v.frame_number,
+                   accum=v._accum_n, launches=got)
+        records.append(rec)
+        say(f"  [viewer {engine}] command {cmd!r}: frame {v.frame_number} "
+            f"mode {v.render_mode} (accumulated {v._accum_n}) {ms:.3f} ms "
+            f"on the host; launches K1 {got['K1'] - got['K1_camera']} "
+            f"explicit + {got['K1_camera']} camera, keys {got['K1_keys']}, "
+            f"KE {got['KE']} (binned {got['KE_binned']})")
+        if len(v.edits) > n_edits:
+            rec["edit"] = edit_check(v, before)
+        if cmd == "0":
+            saved.update(scene=v.wave_scene, dev=v.device_tree.dev,
+                         packed=v.device_tree.packed,
+                         bytes=os.path.getsize(os.path.join(out_dir,
+                                                            "level1.svo")))
+        if cmd == "9":
+            # the re-read world's frame against the saved world's, rendered
+            # from the tables held at the save
+            cam5 = v.cam5()
+            n = frames_equal("re-read vs saved world",
+                             render_saved(v, saved, cam5), v.render(cam5))
+            rec["reread_hits"] = n
+            say(f"  [viewer {engine}] re-read world: its frame equals the "
+                f"saved world's on every pixel ({n} hit pixels); "
+                f"level1.svo {saved['bytes']} B")
+
+    def checked_update_late():
+        update_late()     # takes the screenshot
+        rec = records[-1]
+        if rec["cmd"] == "p":
+            shot = image.read_png(v.last_screenshot)
+            if not np.array_equal(shot, image.quantize(v.color)):
+                raise AssertionError("the screenshot does not decode to the "
+                                     "frame's pixels")
+            rec["screenshot"] = v.last_screenshot
+
+    v.pre_run, v.update_early, v.update_late = (timed_pre_run, timed_update,
+                                                checked_update_late)
+    wf.K1.launches = wf.K1_CAMERA.launches = wf.K1_KEYS.launches = 0
+    traverse.KE.launches = traverse.KE_BINNED.launches = 0
+    v.launch(max_frames=len(VIEWER_SCRIPT))
+    launches = dict(K1_explicit=total["K1"] - total["K1_camera"],
+                    K1_camera=total["K1_camera"], K1_keys=total["K1_keys"],
+                    KE=total["KE"], KE_binned=total["KE_binned"])
+    say(f"[viewer {engine}] session launches {launches}; set-up: read "
+        f"{read_s:.3f} s, pre_run {setup['pre_run_s']:.3f} s")
+    return v, records, launches, dict(read_s=read_s, **setup)
+
+
+def viewer_phase(dev, bench_ws):
+    """The viewer and its edit path at 1920x1080 on the bench world:
+    apps/worldgen writes the 1024^3 perlin world to an .svo file (its
+    defaults; gates: the node count, and the native codec's import
+    re-exports the same bytes); apps/viewer runs VIEWER_SCRIPT on it
+    through the wavefront engine (K1) from the bench's probe camera (gate:
+    its prepared WaveScene equals bench_world_phase's array for array),
+    then through the ESVO engine (KE).  Each edit prints its stages (the
+    brush, ranged_update, brickify_patch, apply_patch), the bytes it
+    copied to the card and n_mixed, beside a full brickify + prepare of
+    the edited tree (wavefront) or a full upload (ESVO).  Gates on each
+    edit: the tree changed (put_sphere adds nodes) and so did some
+    pixels; wavefront: the patched scene renders the frames of a full
+    re-prepare (mode 2 and mode 0 at the same frame number: colour and
+    depth on every pixel; the primaries' hit, value, t, normal and
+    depth; node ids differ, as the patch appends slots), K1 ==
+    trace_plain on sampled rays and rays at the edit; ESVO: the
+    DeviceTree's arrays and packed words equal a fresh padded upload and
+    make_packed_table, its frame equals a fresh DeviceOctree's, KE ==
+    intersect_plain on sampled rays and rays at the edit.  Returns
+    (summary, launches of each session, the K1 and KE checks)."""
+    import torch
+    from svo_raytracer_torch import bench
+    from svo_raytracer_torch.apps import worldgen
+    from svo_raytracer_torch.ops import (brick_scene, kernel_build,
+                                         render_wave, shade, traverse)
+    from svo_raytracer_torch.ops import wavefront as wf
+    from svo_raytracer_torch.runtime import native
+    t0 = time.time()
+    out_dir = kernel_build.BUILD_DIR / "viewer"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = str(out_dir / "bench_world.svo")
+    # ---- worldgen at its defaults: bench.py's world, to an .svo file
+    host, wt = worldgen.main(["--out", path])
+    n_nodes = host.n_nodes
+    del host
+    t1 = time.perf_counter()
+    with open(path, "rb") as f:
+        data = f.read()[4:]
+    size = bench_ws.world_size
+    tree = native.import_svo(data, world_size=size)
+    import_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    same = native.export_svo(tree) == data
+    reexport_s = time.perf_counter() - t1
+    say(f"[viewer worldgen] {n_nodes} nodes: build {wt['build_s']:.3f} s "
+        f"(noise {wt['noise']:.3f}, chunk builds {wt['build']:.3f}, "
+        f"splices {wt['splice']:.3f}), node table to the host "
+        f"{wt['to_host']:.3f} s, native export {wt['export']:.3f} s, file "
+        f"{wt['bytes'] / 1e6:.3f} MB ({wt['bytes']} B); native import "
+        f"{import_s:.3f} s, re-export {reexport_s:.3f} s, same bytes {same}")
+    if n_nodes != BENCH_WORLD["n_nodes"] or tree.n_nodes != n_nodes \
+            or not same:
+        raise AssertionError("worldgen's world differs from the bench "
+                             "world, or its file does not round-trip")
+    del tree, data
+    cam, _ = bench.probe_camera(bench_ws)
+    checks = {"K1": [], "KE": []}
+
+    # ---- the wavefront viewer
+    def wave_edit(v, before):
+        e = v.edits[-1]
+        cam5 = v.cam5()
+        t1 = time.perf_counter()
+        full = wf.prepare(brick_scene.brickify(v.tree_host), dev)
+        torch.cuda.synchronize()
+        full_s = time.perf_counter() - t1
+        after = v.render(cam5, 1, 2)
+        frames_equal("patched vs full re-prepare, mode 2", after,
+                     render_wave.render_frame_wavefront(
+                         full, cam5, W, H, render_mode=2, frame_number=1))
+        frames_equal("patched vs full re-prepare, mode 0", v.render(
+            cam5, v.frame_number, 0), render_wave.render_frame_wavefront(
+                full, cam5, W, H, render_mode=0,
+                frame_number=v.frame_number))
+        o, d, _, _ = render_wave._frame_rays(cam5, W, H)
+        hits_equal("patched vs full re-prepare, primaries",
+                   wf.intersect_wavefront(v.wave_scene, o, d),
+                   wf.intersect_wavefront(full, o, d))
+        del full, o, d
+        changed = int((after[0] != before[0]).any(-1).sum())
+        rays = [torch.cat(x) for x in zip(
+            sampled_rays(v.wave_scene, cam5),
+            edit_rays(v.cam, e["target"], e["radius"], size, dev))]
+        checks["K1"].append(Agreement(v.wave_scene, f"edit {len(v.edits)}",
+                                      *rays))
+        up = e["scene_upload"]
+        say(f"  [viewer wavefront edit {len(v.edits)}] value {e['value']} "
+            f"at {e['target']} radius {e['radius']}: nodes "
+            f"{e['n_nodes_before']} -> {e['n_nodes']}, ChangeBounds "
+            f"{e['bounds']}; brush {e['ms']['brush']:.3f} ms, ranged_update "
+            f"{e['ms']['ranged_update']:.3f} ms "
+            f"({e['tree_upload']['bytes']} B), brickify_patch "
+            f"{e['ms']['brickify_patch']:.3f} ms, apply_patch "
+            f"{e['ms']['apply_patch']:.3f} ms ({up['bytes']} B to the card, "
+            f"full {up['full']}); n_mixed {e['n_mixed_before']} -> "
+            f"{e['n_mixed']}; a full brickify + prepare of the edited tree "
+            f"{full_s:.3f} s ({v.wave_scene.nbytes} B of tables); "
+            f"{changed} pixels changed; patched == full re-prepare on every "
+            f"pixel (modes 2 and 0) and primary (node ids aside)")
+        if up["full"] or not changed or (e["value"] and e["n_nodes"]
+                                         <= e["n_nodes_before"]):
+            raise AssertionError("the edit did not patch incrementally, "
+                                 "grow the tree or change a pixel")
+        return dict(e, full_rebuild_s=full_s, pixels_changed=changed)
+
+    say(f"[viewer] wavefront session {VIEWER_SCRIPT} at {W}x{H}")
+    pre = {}
+
+    def compare_setup(v):
+        got = {f: torch.equal(getattr(v.wave_scene, f), getattr(bench_ws, f))
+               for f in wf.WaveScene.ARRAYS}
+        pre.update(got)
+        if not all(got.values()) or v.wave_scene.n_mixed != bench_ws.n_mixed:
+            raise AssertionError(f"the viewer's WaveScene differs from the "
+                                 f"bench world's: {got}")
+
+    wv, wrec, wl, wsetup = viewer_session(
+        dev, "wavefront", path, size, str(out_dir), cam, wave_edit,
+        after_setup=compare_setup)
+    say(f"[viewer wavefront] set-up WaveScene equals the bench world's "
+        f"array for array: {pre}")
+    del wv
+    torch.cuda.empty_cache()
+
+    # ---- the ESVO viewer
+    def esvo_edit(v, before):
+        e = v.edits[-1]
+        dt = v.device_tree
+        cam5 = v.cam5()
+        t1 = time.perf_counter()
+        fresh = v.tree_host.to_device(dev, pad_to=dt.capacity)
+        fpacked = traverse.make_packed_table(fresh)
+        torch.cuda.synchronize()
+        full_s = time.perf_counter() - t1
+        same = [torch.equal(a, b) for a, b in zip(dt.arrays(),
+                                                    fresh.arrays())]
+        same.append(torch.equal(dt.packed, fpacked))
+        del fresh, fpacked
+        if not all(same):
+            raise AssertionError(f"DeviceTree differs from a fresh upload: "
+                                 f"{same}")
+        plain = v.tree_host.to_device(dev)
+        after = v.render(cam5, 1, 2)
+        frames_equal("DeviceTree vs a fresh DeviceOctree, mode 2", after,
+                     shade.render_image(plain, cam5, W, H, render_mode=2,
+                                        frame_number=1))
+        del plain
+        changed = int((after[0] != before[0]).any(-1).sum())
+        o, d, alive = esvo_sampled_rays(dt.dev, dt.packed, cam5)
+        eo, ed = edit_rays(v.cam, e["target"], e["radius"], size, dev)
+        checks["KE"].append(hold_ke(
+            f"edit {len(v.edits)}", dt.packed, torch.cat([o, eo]),
+            torch.cat([d, ed]), torch.cat([alive, torch.ones_like(
+                eo[:, 0], dtype=torch.bool)])))
+        say(f"  [viewer esvo edit {len(v.edits)}] value {e['value']} at "
+            f"{e['target']}: nodes {e['n_nodes_before']} -> {e['n_nodes']}, "
+            f"ChangeBounds {e['bounds']}; brush {e['ms']['brush']:.3f} ms, "
+            f"ranged_update {e['ms']['ranged_update']:.3f} ms "
+            f"({e['tree_upload']['bytes']} B, full "
+            f"{e['tree_upload']['full']}, packed words rebuilt on the card) "
+            f"vs a full padded upload + pack {full_s * 1e3:.3f} ms "
+            f"({16 * dt.capacity} B); {changed} pixels changed; DeviceTree "
+            f"== fresh upload, frame == fresh DeviceOctree's")
+        if e["tree_upload"]["full"] or not changed or (
+                e["value"] and e["n_nodes"] <= e["n_nodes_before"]):
+            raise AssertionError("the edit did not update in place, grow "
+                                 "the tree or change a pixel")
+        return dict(e, full_upload_s=full_s, pixels_changed=changed)
+
+    say(f"[viewer] ESVO session {VIEWER_SCRIPT} at {W}x{H}")
+    ev, erec, el, esetup = viewer_session(dev, "esvo", path, size,
+                                          str(out_dir), cam, esvo_edit)
+    del ev
+    for name, launches in (("wavefront", wl), ("esvo", el)):
+        need = ("K1_explicit", "K1_camera", "K1_keys") \
+            if name == "wavefront" else ("KE",)
+        if min(launches[k] for k in need) < 1:
+            raise AssertionError(f"the {name} session missed a kernel: "
+                                 f"{launches}")
+    summary = dict(
+        worldgen=dict(n_nodes=n_nodes, import_s=import_s,
+                      reexport_s=reexport_s, **wt),
+        wavefront=dict(commands=wrec, launches=wl, setup=wsetup),
+        esvo=dict(commands=erec, launches=el, setup=esetup),
+        k1_edit_ms=[c.ms for c in checks["K1"]],
+        ke_edit_ms=[c.ms for c in checks["KE"]])
+    say(f"[viewer] {json.dumps(summary)}")
+    say(f"[viewer] phase took {time.time() - t0:.1f} s")
+    return summary, dict(wavefront=wl, esvo=el), checks
+
+
 def sampled_rays(ws, cam5):
     """16,384 rays of the world: 8,192 sampled primaries and 8,192 bounce
     rays from their hits (directions on the hemisphere of the normal)."""
@@ -2066,6 +2441,32 @@ def build_kernels():
     say(f"[build] all four in {time.time() - t0:.1f} s")
 
 
+def add_viewer_launches(kernels, launches, checks):
+    """The viewer sessions' launches into the kernels lines of the bench
+    world they ran on: the wavefront session's K1 explicit and camera
+    launches into the bench world's K1 (a) and (b) lines, the ESVO
+    session's KE launches into the 1024^3 KE lines (the plain schedule's
+    and the binned bounces'); each line keeps the added count as
+    ``viewer_launches`` and takes the edit checks' largest error."""
+    wl, el = launches["wavefront"], launches["esvo"]
+    adds = (("K1 wavefront traversal (a) flat L0, bench world",
+             wl["K1_explicit"], checks["K1"]),
+            ("K1 wavefront traversal (b) camera-mode primaries on (a) flat "
+             "L0, bench world", wl["K1_camera"], []),
+            ("KE per-ray ESVO traversal, 1024^3 octree, mode-2",
+             el["KE"] - el["KE_binned"], checks["KE"]),
+            ("KE per-ray ESVO traversal, 1024^3 octree, cone-traced",
+             el["KE_binned"], []))
+    for prefix, n, held in adds:
+        line = [k for k in kernels if k["name"].startswith(prefix)]
+        if len(line) != 1:
+            raise AssertionError(f"no single kernels line {prefix!r}")
+        line[0]["launches"] += n
+        line[0]["viewer_launches"] = n
+        line[0]["max_abs_err"] = max([line[0]["max_abs_err"]]
+                                     + [c.err for c in held])
+
+
 def print_ranking(kernels, order_ms):
     """Each kernels line's launches x (ms - bound_ms), ms the kernel's
     device time, and K1's total with its ray ordering: its traversal
@@ -2130,6 +2531,9 @@ def main():
     summary["train"], train_kernels, train_key_launches, train_keys = \
         train_phase(dev, *world)
     kernels += train_kernels
+    # ---- the viewer and its edit path on the same world
+    summary["viewer"], viewer_launches, viewer_checks = viewer_phase(
+        dev, world[0])
     del world
 
     # ---- kernel vs plain on the test scenes (flat G = 2, G = 64, paged)
@@ -2153,9 +2557,11 @@ def main():
     k3_small = k3_small_checks(dev, small[:2])
 
     # ---- the main path on each world (WORLDS), through its part of K1
-    key_launches = bench_key_launches + train_key_launches
+    key_launches = (bench_key_launches + train_key_launches
+                    + viewer_launches["wavefront"]["K1_keys"])
     key_timed = bench_keys[1:2]
-    key_all = bench_keys + train_keys + [c.keys for c in checks.values()]
+    key_all = (bench_keys + train_keys + [c.keys for c in checks.values()]
+               + [c.keys for c in viewer_checks["K1"]])
     order_ms = bench_order_ms
     for (size, n_range, bounces, n_timed, profiled, part, line,
          small_names, first) in WORLDS:
@@ -2227,6 +2633,7 @@ def main():
         "svo_raytracer_tpu/ops/wavefront.py:1920", key_launches, key_timed,
         key_all), tpu_kernel="none: _sort_stage's brick key (XLA glue), "
                              "with OCT_SORT's octant (wavefront.py:1032)"))
+    add_viewer_launches(kernels, viewer_launches, viewer_checks)
     print_ranking(kernels, order_ms)
     say(f"[summary] {json.dumps(summary)}")
     say(f"[run] {time.time() - t_start:.1f} s")

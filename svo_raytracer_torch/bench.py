@@ -92,10 +92,10 @@ def build_brick_scene(tree, device="cuda"):
     return ws, times
 
 
-def place_camera(ws):
+def probe_camera(ws):
     """bench.py's rule (bench.py:156-174): probe 25 columns straight down,
     take the deepest free fall, sit 0.05 above its surface, pitch -0.35,
-    yaw 0.4.  Returns (cam5 on the scene's device, surface y)."""
+    yaw 0.4.  Returns (Camera, surface y)."""
     from .ops import wavefront
     from .utils.camera import Camera
 
@@ -114,7 +114,15 @@ def place_camera(ws):
     cam = Camera(pos=np.array([probe_o[best, 0], min(surf_y + 0.05, 1.99),
                                probe_o[best, 2]]))
     cam.rotate(-0.35, 0.4)
-    return torch.tensor(cam.uniform(), dtype=torch.float32, device=dev), surf_y
+    return cam, surf_y
+
+
+def place_camera(ws):
+    """:func:`probe_camera`'s camera as (cam5 on the scene's device,
+    surface y)."""
+    cam, surf_y = probe_camera(ws)
+    return (torch.tensor(cam.uniform(), dtype=torch.float32,
+                         device=ws.device), surf_y)
 
 
 def frame_stats(ws, cam5, width, height, bounces):

@@ -1,5 +1,5 @@
-"""Sparse-voxel-octree node table (host NumPy; the fields of
-svo_raytracer_tpu/core/octree.py that the brick decomposition reads).
+"""Sparse-voxel-octree node table (host NumPy; port of
+svo_raytracer_tpu/core/octree.py).
 
   child[i]  : absolute node index of child 0 (0 == no children / leaf payload)
   mask[i]   : 16-bit leaf mask, 2 bits per child (tags in utils/constants)
@@ -10,7 +10,10 @@ A branch's 8 children occupy 8 contiguous slots, so child k of node p is
 ``child[p] + k``; its type is the 2-bit tag ``(mask[p] >> 2k) & 3``.
 
 :class:`DeviceOctree` is the same table as four int32 tensors on one
-device (``Octree.to_device``), the form the ESVO traversal reads.
+device (``Octree.to_device``), the form the ESVO traversal reads.  Its
+tensors may hold more slots than ``n_nodes`` (``to_device(pad_to=)``):
+the padding is zero, which the traversal never reaches, so an edit can
+append nodes without reallocating (runtime/renderer.DeviceTree).
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from ..utils import constants as C
 
 # Node slot 0 is always the root, so 0 doubles as the "no children" sentinel.
 ROOT = 0
@@ -35,15 +40,58 @@ class Octree:
     n_nodes: int
     world_size: int     # voxel resolution spanned by the root cube
 
-    def to_device(self, device) -> "DeviceOctree":
-        """The first ``n_nodes`` slots as int32 tensors on ``device``
-        (svo_raytracer_tpu Octree.to_device + arrays)."""
+    @property
+    def capacity(self) -> int:
+        return int(np.asarray(self.child).shape[0])
+
+    def child_tag(self, parent: int, k: int) -> int:
+        """2-bit type tag of child k (Octree.java:589-599)."""
+        return (int(self.mask[parent]) >> (2 * k)) & 3
+
+    def child_index(self, parent: int, k: int) -> int:
+        return int(self.child[parent]) + k
+
+    def node_counts(self) -> dict:
+        """Node-type census (Octree.printNodeCounts, Octree.java:1018-1026):
+        each child of a node with children counts under its tag in the
+        parent's mask; the root counts as interior."""
+        child = np.asarray(self.child[:self.n_nodes])
+        mask = np.asarray(self.mask[:self.n_nodes]).astype(np.int64)
+        m = mask[np.nonzero(child)[0]]
+        tags = ((m[:, None] >> (2 * np.arange(8))) & 3).reshape(-1)
+        n = np.bincount(tags, minlength=4)
+        return {"interior": 1 + int(n[C.TAG_BRANCH]),
+                "surface_leaf": int(n[C.TAG_SURFACE_LEAF]),
+                "non_surface_leaf": int(n[C.TAG_NON_SURFACE_LEAF]),
+                "subdividable_leaf": int(n[C.TAG_SUBDIV_LEAF])}
+
+    def arrays(self):
+        return self.child, self.mask, self.value, self.normal
+
+    def to_numpy(self) -> "Octree":
+        return self
+
+    def to_device(self, device, pad_to: int | None = None) -> "DeviceOctree":
+        """The table as int32 tensors on ``device``: the first ``n_nodes``
+        slots, zero-padded up to ``pad_to`` slots when that is larger (the
+        JAX package's ``to_device(pad_to=)``)."""
+        cap = self.n_nodes if pad_to is None else max(pad_to, self.n_nodes)
+
         def put(a):
-            return torch.from_numpy(
-                np.array(np.asarray(a)[:self.n_nodes], np.int32)).to(device)
+            out = np.zeros(cap, np.int32)
+            out[:self.n_nodes] = np.asarray(a)[:self.n_nodes]
+            return torch.from_numpy(out).to(device)
 
         return DeviceOctree(put(self.child), put(self.mask), put(self.value),
                             put(self.normal), self.n_nodes, self.world_size)
+
+
+def empty(capacity: int, world_size: int) -> Octree:
+    """A one-node octree: interior root with no children (value 1), as the
+    reference's dummy head (Octree.java:97-100)."""
+    z = [np.zeros(capacity, np.int32) for _ in range(4)]
+    z[2][ROOT] = 1
+    return Octree(*z, n_nodes=1, world_size=world_size)
 
 
 def from_reference(child, mask, value, normal, n_nodes: int,
@@ -63,7 +111,8 @@ def from_reference(child, mask, value, normal, n_nodes: int,
 
 @dataclasses.dataclass
 class DeviceOctree:
-    """The node table as (n_nodes,) int32 tensors on one device."""
+    """The node table as (capacity,) int32 tensors on one device: slots
+    past ``n_nodes`` are zero padding."""
 
     child: torch.Tensor
     mask: torch.Tensor
@@ -75,6 +124,10 @@ class DeviceOctree:
     @property
     def device(self) -> torch.device:
         return self.child.device
+
+    @property
+    def capacity(self) -> int:
+        return self.child.numel()
 
     def arrays(self):
         """(child, mask, value, normal), as the JAX package's arrays()."""

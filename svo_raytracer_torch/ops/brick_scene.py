@@ -13,7 +13,9 @@ Attribute word per voxel (i32): ``value | raw_normal << 8 | depth << 24``
 decodes as a normal; ``depth`` the leaf's depth below the root).
 
 Scene preprocessing is host NumPy, one-time per scene; the arrays equal
-the JAX package's exactly (tests/test_torch_scene.py).
+the JAX package's exactly (tests/test_torch_scene.py).  After an edit,
+:func:`brickify_patch` recomputes only the bricks the edit's box touches
+(tests/test_torch_patch.py).
 """
 
 from __future__ import annotations
@@ -258,3 +260,110 @@ def brickify(tree, brick: int = BRICK) -> BrickScene:
         occ_words=occ_words,
         attrs=attrs.reshape(nm, 256, 128),
     )
+
+
+@dataclasses.dataclass
+class ScenePatch:
+    """What an edit changed in a BrickScene (:func:`brickify_patch`)."""
+
+    cells: np.ndarray      # (m,) flat brick cells touched
+    cell_slot: np.ndarray  # (m,) new slot per cell (-1 = uniform)
+    cell_attr: np.ndarray  # (m,) new uniform attr per cell (0 if mixed)
+    upd_slots: np.ndarray  # (p,) slots whose payload rows changed
+    occ_rows: np.ndarray   # (p, 8, 128)
+    attr_rows: np.ndarray  # (p, 256, 128)
+    n_mixed: int           # mixed count after the patch
+
+
+def brickify_patch(tree, scene: BrickScene, vmin, vmax,
+                   brick: int = BRICK) -> ScenePatch:
+    """Recompute the bricks overlapping the voxel box [vmin, vmax] after an
+    edit, update the host ``scene`` in place and return what changed
+    (svo_raytracer_tpu brick_scene.brickify_patch; the incremental analog
+    of the reference's ranged SSBO update, Octree.java:676-698 +
+    Main.java:349-350).
+
+    A brick that turns mixed takes a new slot at the end of the arena; a
+    mixed brick that turns uniform orphans its slot (the arena only grows,
+    like the reference's tombstoned subtrees, Octree.java:954-956); a full
+    :func:`brickify` reclaims them."""
+    child = np.asarray(tree.child[:tree.n_nodes]).astype(np.int64)
+    mask = np.asarray(tree.mask[:tree.n_nodes]).astype(np.int64)
+    value = np.asarray(tree.value[:tree.n_nodes]).astype(np.int64)
+    normal = np.asarray(tree.normal[:tree.n_nodes]).astype(np.int64)
+    G = scene.grid_size
+    lo = np.clip(np.asarray(vmin) // brick, 0, G - 1)
+    hi = np.clip(np.asarray(vmax) // brick, 0, G - 1)
+    cx, cy, cz = (a.reshape(-1) for a in np.meshgrid(
+        *(np.arange(lo[i], hi[i] + 1) for i in range(3)), indexing="ij"))
+    m = len(cx)
+
+    # per-cell walk root -> brick level (octant addressing as in brickify)
+    node = np.zeros(m, np.int64)
+    tag = np.full(m, C.TAG_BRANCH, np.int64)
+    ox = np.zeros(m, np.int64)
+    oy = np.zeros(m, np.int64)
+    oz = np.zeros(m, np.int64)
+    fdepth = np.zeros(m, np.int64)
+    leafed = np.zeros(m, bool)
+    span, depth = G, 0
+    while span > 1:
+        is_branch = (tag == C.TAG_BRANCH) & (child[node] != 0)
+        newly = ~is_branch & ~leafed
+        fdepth[newly] = depth
+        leafed |= ~is_branch
+        half = span // 2
+        kx = ((cx - ox) >= half).astype(np.int64)
+        ky = ((cy - oy) >= half).astype(np.int64)
+        kz = ((cz - oz) >= half).astype(np.int64)
+        k = kx | (ky << 1) | (kz << 2)
+        new_tag = (mask[node] >> (2 * k)) & 3
+        node = np.where(is_branch, child[node] + k, node)
+        tag = np.where(is_branch, new_tag, tag)
+        span, depth = half, depth + 1
+        ox = ox + np.where(is_branch, kx * half, 0)
+        oy = oy + np.where(is_branch, ky * half, 0)
+        oz = oz + np.where(is_branch, kz * half, 0)
+    is_branch = (tag == C.TAG_BRANCH) & (child[node] != 0)
+    newly = ~is_branch & ~leafed
+    fdepth[newly] = depth
+    mixed = is_branch
+
+    flat = (cx * G + cy) * G + cz
+    uni_attr = np.zeros(m, np.int64)
+    if (~mixed).any():
+        uni_attr[~mixed] = _leaf_attr(value, normal, mask, node[~mixed],
+                                      tag[~mixed], fdepth[~mixed])
+
+    prev = scene.brick_slot[flat].astype(np.int64)
+    need_new = mixed & (prev < 0)
+    slot = np.where(mixed, prev, -1)
+    slot[need_new] = scene.n_mixed + np.arange(need_new.sum())
+    n_mixed2 = scene.n_mixed + int(need_new.sum())
+
+    attrs_m = _raster_subtrees(child, mask, value, normal, node[mixed],
+                               depth, brick)
+    occ_m = occupancy_words(attrs_m, brick)
+
+    # in-place host-scene update
+    scene.brick_slot[flat] = slot.astype(np.int32)
+    scene.brick_attr[flat] = np.where(mixed, 0, uni_attr).astype(np.int32)
+    grow = n_mixed2 - scene.occ_words.shape[0]
+    if grow > 0:
+        scene.occ_words = np.concatenate(
+            [scene.occ_words, np.zeros((grow, 8, 128), np.int32)])
+        scene.attrs = np.concatenate(
+            [scene.attrs, np.zeros((grow, 256, 128), np.int32)])
+    upd = slot[mixed]
+    scene.occ_words[upd] = occ_m
+    scene.attrs[upd] = attrs_m.reshape(-1, 256, 128)
+    scene.n_mixed = n_mixed2
+    l0_occ = (((scene.brick_attr & 0xFF) != 0) | (scene.brick_slot >= 0))
+    scene.l0_table = table_rows(pack_occupancy(l0_occ.reshape(G, G, G)))
+
+    return ScenePatch(cells=flat.astype(np.int32),
+                      cell_slot=slot.astype(np.int32),
+                      cell_attr=np.where(mixed, 0, uni_attr).astype(np.int32),
+                      upd_slots=upd.astype(np.int32), occ_rows=occ_m,
+                      attr_rows=attrs_m.reshape(-1, 256, 128),
+                      n_mixed=n_mixed2)

@@ -49,12 +49,21 @@ def nvcc_path() -> str:
     return found
 
 
+def host_compiler() -> str:
+    """The host C++ compiler: $CXX, g++ or c++ on PATH."""
+    for name in (os.environ.get("CXX"), "g++", "c++"):
+        found = name and shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler (g++ or c++) on PATH")
+
+
 def _digest(compiler: str, sources, flags) -> str:
     h = hashlib.sha256()
     h.update(compiler.encode())
     h.update("\0".join(flags).encode())
     for src in sorted(CSRC.iterdir()):
-        if src.suffix in (".cu", ".cuh", ".cpp", ".h"):
+        if src.suffix in (".cu", ".cuh", ".cpp", ".cc", ".h"):
             h.update(src.name.encode())
             h.update(src.read_bytes())
     for src in sources:

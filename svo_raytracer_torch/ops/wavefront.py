@@ -122,6 +122,12 @@ class WaveScene:
         return self.attr_comb.device
 
     @property
+    def nbytes(self) -> int:
+        """Bytes of the scene's tables on its device."""
+        return sum(getattr(self, f).numel() * getattr(self, f).element_size()
+                   for f in self.ARRAYS)
+
+    @property
     def pages(self) -> int:
         """Pages per edge of a paged world, 0 for a flat L0."""
         return self.grid_size // PAGE if self.grid_size > PAGE else 0
@@ -226,7 +232,7 @@ def _cr_split(vox):
     bout = np.zeros((n, rb * 128), np.uint32)
     bout[:, :nw_b] = bw
 
-    occ_c = c.any(axis=2).reshape(n, -1)     # (n, h^3) coarse any-bits
+    occ_c = c.any(axis=2).reshape(n, h * h * h)   # coarse any-bits
     nw_c = -(-h * h * h // 32)
     fl = np.zeros((n, nw_c * 32), bool)
     fl[:, :h * h * h] = occ_c
@@ -410,15 +416,22 @@ def _attr_table(scene, capacity, attr16, attr2d):
     return table
 
 
-def prepare(scene, device, attr16=False, attr2d=None) -> WaveScene:
+def prepare(scene, device, capacity=None, attr16=False,
+            attr2d=None) -> WaveScene:
     """Derive the wavefront tables from a host BrickScene (one-time) and
-    copy them to ``device``.  G > 64 worlds get the paged L0 tables;
-    ``attr16`` stores attributes as int16 half-words (_encode_attr16);
-    ``attr2d`` forces (or suppresses) the 2-D attribute storage chosen by
-    default for tables past 2^31 - 1 words.  The slot capacity is the JAX
-    package's default, so slots and node ids match it."""
+    copy them to ``device``.  ``capacity`` is the number of mixed-brick
+    slots (at least n_mixed; default the JAX package's n_mixed +
+    max(64, n_mixed // 8), so slots and node ids match it): the slots past
+    n_mixed take the bricks that edits turn mixed (:func:`apply_patch`).
+    G > 64 worlds get the paged L0 tables; ``attr16`` stores attributes as
+    int16 half-words (_encode_attr16); ``attr2d`` forces (or suppresses)
+    the 2-D attribute storage chosen by default for tables past 2^31 - 1
+    words."""
     G = scene.grid_size
-    capacity = scene.n_mixed + max(64, scene.n_mixed // 8)
+    if capacity is None:
+        capacity = scene.n_mixed + max(64, scene.n_mixed // 8)
+    if capacity < scene.n_mixed:
+        raise ValueError(f"capacity {capacity} < n_mixed {scene.n_mixed}")
     _check_layout(G, capacity)
     nm = scene.occ_words.shape[0]
     occ = np.zeros((capacity, 8, 128), np.int32)
@@ -436,9 +449,7 @@ def prepare(scene, device, attr16=False, attr2d=None) -> WaveScene:
         l0_mixed = tabs.reshape(-1, 128)
         l0_sc = np.zeros((1, 128), np.int32)
     else:
-        l0_occ = _l0_cr_tables(scene)
-        l0_mixed = _l0_mixed_table(scene)
-        l0_sc = _l0_super_words(scene)
+        l0_occ, l0_mixed, l0_sc = _flat_l0_tables(scene)
     tables = dict(
         l0_occ=l0_occ, l0_mixed=l0_mixed, brick_slot=brick_slot,
         occ_words=occ, attr_comb=_attr_table(scene, capacity, attr16, attr2d),
@@ -447,6 +458,67 @@ def prepare(scene, device, attr16=False, attr2d=None) -> WaveScene:
         tables, dict(world_size=scene.world_size, grid_size=G,
                      n_mixed=scene.n_mixed, capacity=capacity,
                      attr16=attr16), device)
+
+
+def _flat_l0_tables(scene):
+    """(l0_occ, l0_mixed, l0_sc) of a flat-L0 (G <= 64) scene."""
+    return (_l0_cr_tables(scene), _l0_mixed_table(scene),
+            _l0_super_words(scene))
+
+
+def apply_patch(ws: WaveScene, scene, patch, stats=None) -> WaveScene:
+    """Apply a brick_scene.ScenePatch (``scene``, the host BrickScene, is
+    already updated) to the WaveScene: writes only the changed rows of
+    its tables on the device, in place, and rebuilds the three small L0
+    tables from the host scene — the analog of the reference's two ranged
+    SSBO uploads after an edit (Main.java:349-350; svo_raytracer_tpu
+    wavefront.apply_patch).  Where the JAX package prepares in full, so
+    does this: when the patch outgrows the slot capacity, and for paged,
+    attr16 and 2-D scenes.
+
+    The JAX package scatters each touched cell into ``slot_cell`` at its
+    new slot, -1 for a cell that turned uniform; JAX normalises that -1
+    to the last slot, so the reference writes the cell id into
+    ``slot_cell[capacity - 1]``.  Here those entries are dropped.
+
+    ``stats`` (a dict) receives ``bytes``, the bytes copied to the
+    device, and ``full``, whether the scene was prepared in full."""
+    if (patch.n_mixed > ws.capacity or ws.grid_size > PAGE or ws.attr16
+            or ws.attr_comb.ndim == 2):
+        out = prepare(scene, ws.device,
+                      capacity=max(ws.capacity, patch.n_mixed
+                                   + max(64, patch.n_mixed // 8)),
+                      attr16=ws.attr16)
+        if stats is not None:
+            stats.update(full=True, bytes=out.nbytes)
+        return out
+    p = len(patch.upd_slots)
+    occ_cr, sc_cr = _brick_cr(np.asarray(patch.occ_rows).reshape(p, 8, 128))
+    live = patch.cell_slot >= 0
+    l0 = _flat_l0_tables(scene)
+    host = dict(upd=patch.upd_slots,
+                attr=patch.attr_rows.reshape(p, BRICK_WORDS),
+                occ=occ_cr, sc=sc_cr, cells=patch.cells,
+                cell_attr=patch.cell_attr, cell_slot=patch.cell_slot,
+                live_slot=patch.cell_slot[live], live_cell=patch.cells[live])
+    dev = {k: torch.from_numpy(np.ascontiguousarray(v, np.int32)).to(
+        ws.device) for k, v in host.items()}
+    upd, cells = dev["upd"].long(), dev["cells"].long()
+    head = ws.capacity * BRICK_WORDS
+    ws.attr_comb[:head].view(ws.capacity, BRICK_WORDS).index_copy_(
+        0, upd, dev["attr"])
+    ws.attr_comb[head:].index_copy_(0, cells, dev["cell_attr"])
+    ws.occ_words.index_copy_(0, upd, dev["occ"])
+    ws.sc_words.index_copy_(0, upd, dev["sc"])
+    ws.brick_slot.index_copy_(0, cells, dev["cell_slot"])
+    ws.slot_cell.index_copy_(0, dev["live_slot"].long(), dev["live_cell"])
+    if stats is not None:
+        stats.update(full=False, bytes=sum(v.nbytes for v in host.values())
+                     + sum(a.nbytes for a in l0))
+    return dataclasses.replace(
+        ws, n_mixed=patch.n_mixed,
+        **{name: torch.from_numpy(a).to(ws.device)
+           for name, a in zip(("l0_occ", "l0_mixed", "l0_sc"), l0)})
 
 
 # ------------------------------------------------------- plain (lock-step)

@@ -1,5 +1,5 @@
 """Camera — position plus (pitch, yaw), giving the renderer's cam5 uniform
-(port of svo_raytracer_tpu/utils/camera.py, the parts the renderer reads).
+(port of svo_raytracer_tpu/utils/camera.py).
 
 The frustum is four corner direction vectors (l1, l2, r1, r2; x spread
 ±1.6, y spread ±0.9, ``Camera.java:13-18``), a pure function of
@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 
 from . import constants as C
+from . import mathutil
 
 
 def _ry(a):
@@ -33,6 +34,7 @@ class Camera:
         default_factory=lambda: np.array([1.5, 1.5, 2.0], np.float64))
     pitch: float = 0.0
     yaw: float = 0.0
+    speed: float = 0.005  # Camera.java:28
 
     _BASE = np.array([
         [-C.CAMERA_SCALE_Y, -C.CAMERA_SCALE_X, -1.0],  # l1
@@ -47,11 +49,38 @@ class Camera:
                                    C.CAMERA_LOWER_LIMIT, C.CAMERA_UPPER_LIMIT))
         self.yaw = float((self.yaw + dyaw) % (2 * np.pi))
 
+    @property
+    def rotation(self) -> np.ndarray:
+        return _ry(self.yaw) @ _rx(self.pitch)
+
+    @property
+    def forward(self) -> np.ndarray:
+        """-z view direction (the corner average direction)."""
+        return self.rotation @ np.array([0.0, 0.0, -1.0])
+
+    @property
+    def right(self) -> np.ndarray:
+        return self.rotation @ np.array([1.0, 0.0, 0.0])
+
+    def strafe(self, forward: float, side: float) -> None:
+        """Move in the view plane (Camera.strafe, Camera.java:46-50)."""
+        self.pos = (self.pos + self.forward * (self.speed * forward)
+                    + self.right * (self.speed * side))
+
+    def move_vertical(self, up: float) -> None:
+        self.pos = self.pos + np.array([0.0, 1.0, 0.0]) * (self.speed * up)
+
     def corners(self) -> np.ndarray:
         """(4,3) [l1, l2, r1, r2] corner direction vectors."""
-        return ((_ry(self.yaw) @ _rx(self.pitch)) @ self._BASE.T).T
+        return (self.rotation @ self._BASE.T).T
 
     def uniform(self) -> np.ndarray:
         """(5,3): position then 4 corners (cam[5] uniform, svotrace.comp:5-9)."""
         return np.concatenate([np.asarray(self.pos, np.float64)[None, :],
                                self.corners()], axis=0)
+
+    def ray_pick_location(self, depth: float, world_size: int = C.WORLD_SIZE):
+        """Un-project the crosshair depth to voxel coords
+        (Camera.getRayPickLocation, Camera.java:31-34)."""
+        return mathutil.to_voxel_space(self.pos + self.forward * depth,
+                                       world_size)

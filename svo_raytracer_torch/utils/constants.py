@@ -23,6 +23,11 @@ SQRT3 = 1.73205080757
 #: for 8192 = 8 chunks of 1024; the functional value is kept).
 WORLD_SIZE = 8192
 CHUNK_SIZE = 1024
+#: Tombstone value written over deleted subtrees (Constants.java:16).
+DELETE_VALUE = 127
+MAX_MATERIALS = 256
+#: SDF march skips shorter than this step one voxel (Octree.java:748).
+MARCH_DISTANCE_MIN_CUTOFF = 5
 
 #: Child octant order (Constants.java:18-27): bit0 = +x, bit1 = +y, bit2 = +z.
 CHILD_OFFSETS = (

@@ -4,7 +4,9 @@ K2 (in ray order) and K3 (through a permutation), each with its
 wrapper launching the kernel alone, on a CUDA GPU against their plain
 PyTorch versions; the noise on the card against the CPU's, the
 bench's small pipeline on the card, and the differentiable renderers'
-compositor and train steps on the card against the CPU's.  Needs a card
+compositor and train steps on the card against the CPU's; the edit path
+(apply_patch, DeviceTree) and a viewer session on the card against the
+CPU's.  Needs a card
 and nvcc; skipped elsewhere.  The file imports no jax, so on a GPU host
 without JAX it runs from the repository root with
 ``python -m pytest --noconftest tests/test_torch_cuda.py``."""
@@ -657,3 +659,106 @@ def test_render_diff_step_on_gpu_equals_cpu():
     np.testing.assert_allclose(lg, lc, rtol=1e-5)
     for g, c in zip(qg, qc):
         assert (g.cpu() - c).abs().max() <= 1e-5
+
+
+@pytest.mark.gpu
+def test_apply_patch_on_gpu_equals_cpu():
+    """brickify_patch + apply_patch of two edits on a 64^3 terrain: the
+    WaveScene written in place on the card equals the CPU's, table for
+    table, and neither prepares in full."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    import copy
+    from svo_raytracer_torch.core import build_np, sdf
+    from svo_raytracer_torch.ops import brick_scene
+    tree = build_np.build_octree_np(chip_smoke.terrain_voxels(64, 9))
+    scene = brick_scene.brickify(tree)
+    scenes = {d: copy.deepcopy(scene) for d in ("cuda", "cpu")}
+    ws = {d: wavefront.prepare(s, d) for d, s in scenes.items()}
+    for center, radius, value in (((32, 36, 32), 9, 1),
+                                  ((30, 20, 34), 12, 0)):
+        ball = sdf.Sphere(np.asarray(center), radius)
+        tree, _ = sdf.use_sdf_brush(tree, ball, value)
+        for d in ws:
+            p = brick_scene.brickify_patch(tree, scenes[d], ball.min,
+                                           ball.max)
+            stats = {}
+            ws[d] = wavefront.apply_patch(ws[d], scenes[d], p, stats=stats)
+            assert not stats["full"]
+    for f in wavefront.WaveScene.ARRAYS:
+        assert torch.equal(getattr(ws["cuda"], f).cpu(),
+                           getattr(ws["cpu"], f)), f
+
+
+@pytest.mark.gpu
+def test_device_tree_on_gpu_equals_fresh_upload():
+    """DeviceTree's ranged update on the card (and its growth) equals a
+    fresh padded upload, and its packed words a fresh make_packed_table."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from svo_raytracer_torch.core import build_np, sdf
+    from svo_raytracer_torch.ops import traverse
+    from svo_raytracer_torch.runtime.renderer import DeviceTree
+    tree = build_np.build_octree_np(chip_smoke.terrain_voxels(64, 9))
+    dt = DeviceTree(tree, "cuda", min_capacity=tree.n_nodes + 1024,
+                    slack=1.0)
+    grew = []
+    for center, radius, value in (((32, 36, 32), 9, 1),
+                                  ((30, 20, 34), 12, 0),
+                                  ((20, 30, 20), 20, 2)):
+        tree, cb = sdf.use_sdf_brush(tree, sdf.Sphere(center, radius), value)
+        dt.ranged_update(tree, cb)
+        grew.append(dt.last_upload["full"])
+        fresh = tree.to_device("cuda", pad_to=dt.capacity)
+        for a, b in zip(dt.arrays(), fresh.arrays()):
+            assert torch.equal(a, b)
+        assert torch.equal(dt.packed, traverse.make_packed_table(fresh))
+    # 31,120 nodes + 448, + 6,488 (past the capacity: doubled), + 17,928
+    assert grew == [False, True, False]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["wavefront", "esvo"])
+def test_viewer_session_on_gpu_equals_cpu(engine, tmp_path):
+    """chip_smoke's viewer script on the 64^3 sphere demo at 64x40: the
+    same edits on the card as on the CPU and the same world at the end.
+    Mode-2 frames: the CPU's hit mask on every pixel; wavefront depth
+    equal, colour within 1e-5; ESVO depth and colour within 1e-5 (an ulp
+    apart on the card: 2.4e-7 and 1.2e-7 at most on an H100)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from svo_raytracer_torch.apps import viewer
+    out = {}
+    for dev in ("cuda", "cpu"):
+        v = viewer.Viewer(viewer._demo_tree("sphere", 64), 64, 40,
+                          str(tmp_path / dev),
+                          commands=list(chip_smoke.VIEWER_SCRIPT),
+                          engine=engine, device=dev)
+        (tmp_path / dev).mkdir()
+        frames, render = [], v.render
+
+        def rec(cam5, *a, v=v, render=render, frames=frames):
+            res = render(cam5, *a)
+            if v.render_mode == 2 and not a:
+                frames.append(tuple(x.cpu() for x in res[:2]))
+            return res
+
+        v.render = rec
+        v.launch(max_frames=len(chip_smoke.VIEWER_SCRIPT))
+        out[dev] = (v, frames)
+    (vg, fg), (vc, fc) = out["cuda"], out["cpu"]
+    assert [e["target"] for e in vg.edits] == [e["target"]
+                                               for e in vc.edits]
+    assert len(fg) == len(fc) > 4
+    for (cg, dg), (cc, dc) in zip(fg, fc):
+        dcol = (cg.nan_to_num(-1) - cc.nan_to_num(-1)).abs().max(-1).values
+        ddep = (dg - dc).abs()
+        same_hit = ((dg > 0) == (dc > 0)).float().mean().item()
+        print(f"{engine}: hit mask equal on {same_hit:.4f}; max |d "
+              f"colour| {dcol.max().item():.3g}, max |d depth| "
+              f"{ddep.max().item():.3g}")
+        assert same_hit == 1.0 and dcol.max() <= 1e-5
+        assert torch.equal(dg, dc) if engine == "wavefront" else \
+            ddep.max() <= 1e-5
+    for a, b in zip(vg.tree_host.arrays(), vc.tree_host.arrays()):
+        np.testing.assert_array_equal(a, b)

@@ -7,8 +7,10 @@ a 32^3 heightmap octree built by the port renders a mode-2 frame with a
 skip grid through chip_smoke's ESVO world helper, a 32^3 perlin world
 builds from 16^3 chunks through models/world.build_world, a wavefront
 K-hit train step (the two walls, K = 2) and a render_diff train step (on
-that octree) run, and the bench's small pipeline (64^3, one warm and one
-timed frame) runs on the CPU."""
+that octree) run, the bench's small pipeline (64^3, one warm and one
+timed frame) runs on the CPU, and apps/worldgen writes a 32^3 world that
+apps/viewer opens and edits through each engine (two edits, a
+screenshot, save and re-read)."""
 
 import os
 import subprocess
@@ -21,7 +23,7 @@ import sys
 for blocked in ("jax", "svo_raytracer_tpu"):
     sys.modules[blocked] = None    # importing it now raises ImportError
 sys.path.insert(0, sys.argv[1])
-import pkgutil, importlib, torch
+import os, pkgutil, importlib, torch
 import svo_raytracer_torch
 for m in pkgutil.walk_packages(svo_raytracer_torch.__path__,
                                "svo_raytracer_torch."):
@@ -86,6 +88,19 @@ rows = []
 bench.run(64, 64, 64, 40, "cpu", emit=rows.append)
 assert len(rows) == 2 and rows[1]["n_left"] == dict(prim=0, gi1=0, gi2=0,
                                                      gi3=0), rows
+import tempfile
+from svo_raytracer_torch.apps import viewer, worldgen
+from svo_raytracer_torch.core import svo_format
+d = tempfile.mkdtemp()
+w, _ = worldgen.main(["--size", "32", "--chunk", "16", "--cpu", "--out",
+                      d + "/w.svo"])
+assert svo_format.read_svo_file(d + "/w.svo", 32).n_nodes == w.n_nodes
+for engine in ("wavefront", "esvo"):
+    v = viewer.main(["--svo", d + "/w.svo", "--world-size", "32", "--cpu",
+                     "--width", "32", "--height", "24", "--out", d,
+                     "--engine", engine, "--script", "3 c x p 0 9 Q"])
+    assert len(v.edits) == 2 and os.path.exists(d + "/level1.svo")
+    assert v.tree_host.n_nodes >= w.n_nodes, v.edits
 assert not any(k.split(".")[0] in ("jax", "svo_raytracer_tpu")
                for k, v in sys.modules.items() if v is not None)
 print("ok")
