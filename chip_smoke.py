@@ -35,6 +35,20 @@ pixel, and K1 and KE equal their plain versions on sampled rays and rays
 at each edit.  Those sessions' launches join the bench world's K1 and
 the 1024^3 KE lines of the kernels table.
 
+Then the rest of the single-card API on the same world (lines
+``[entry]``, ``[staged ...]``, ``[progressive]``, ``[bricks]``), each
+path driven with the launch counts set to 0 just before it and read
+just after: the entry point's analog (svo_raytracer_torch/entry.py) on
+the card, its KE segments held to intersect_plain, and its forward at
+1920x1080 on the bench world's octree; shade.render_frame_staged in
+modes 2, 0 gi-1 and 3 and with the G = 32 skip grid (KE in row blocks,
+K2), each frame equal to render_image's, KE and K2 held on the beam and
+one row block; render_progressive (threefry, spp 4) with the card's
+threefry bits equal to the CPU's; and brick_trace.intersect_bricks, the
+plain-PyTorch brick reference engine, held against K1 on sampled
+primaries and bounce rays.  Their KE and K2 launches form three kernels
+lines of their own; their K1 launches join the bench world's.
+
 Then it drives the main path at full size on three seeded heightmap worlds
 (value noise, built directly as BrickScenes), each through its own part of
 kernel K1, with the camera placed by bench.py's downward-probe rule and
@@ -167,6 +181,9 @@ BENCH_CAMERA_TOL = 1e-3
 # BENCH_HIT_AGREEMENT of the pixels.
 BENCH_HIT_RANGE = (0.05, 0.99)
 BENCH_HIT_AGREEMENT = 0.999
+# rays of the [bricks] oracle phase: half sampled 1080p primaries, half
+# sampled rays of a gi-1 bounce segment
+BRICK_ORACLE_RAYS = 1 << 17
 
 # The train phase (train_phase) on the bench world at 1920x1080: warm
 # and timed SGD steps of each kind, the learning rates and the entries
@@ -369,6 +386,27 @@ def timed(fn, reps=1, warm=True):
     return out, start.elapsed_time(end) / reps
 
 
+def frame_ms(render, warm, timed_n):
+    """(median, all) host ms of ``timed_n`` frames ``render(i)`` after
+    ``warm``, each ended by a synchronize."""
+    import torch
+    times = []
+    for i in range(warm + timed_n):
+        t0 = time.perf_counter()
+        render(i)
+        torch.cuda.synchronize()
+        if i >= warm:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), times
+
+
+def same(a, b):
+    """Elementwise equality, NaN equal to NaN."""
+    if a.is_floating_point():
+        return (a == b) | (a.isnan() & b.isnan())
+    return a == b
+
+
 # the name (a substring) of a kernel's device records in a profiler trace
 KERNEL_NAMES = {"K2": "dda_kernel", "K3": "round_kernel"}
 
@@ -509,13 +547,9 @@ def unequal(rec_a, rec_b):
     diff, err = {}, 0.0
     for f, a in rec_a.items():
         b = rec_b[f]
-        if a.is_floating_point():
-            same = (a == b) | (a.isnan() & b.isnan())
-            if a.numel():
-                err = max(err, (a - b).abs().nan_to_num().max().item())
-        else:
-            same = a == b
-        diff[f] = int((~same).sum())
+        if a.is_floating_point() and a.numel():
+            err = max(err, (a - b).abs().nan_to_num().max().item())
+        diff[f] = int((~same(a, b)).sum())
     return diff, err
 
 
@@ -932,14 +966,8 @@ def esvo_frames(tree, packed, tabs, cam5):
         col, depth, _ = render(1, stats)
         torch.cuda.synchronize()
         ke, k2 = traverse.KE.launches - ke0, brick_dda.K2.launches - k20
-        times = []
-        for i in range(ESVO_WARM_FRAMES + ESVO_TIMED_FRAMES):
-            t0 = time.perf_counter()
-            render(i + 2)
-            torch.cuda.synchronize()
-            if i >= ESVO_WARM_FRAMES:
-                times.append((time.perf_counter() - t0) * 1e3)
-        ms = float(np.median(times))
+        ms, times = frame_ms(lambda i: render(i + 2), ESVO_WARM_FRAMES,
+                             ESVO_TIMED_FRAMES)
         rays = sum(s["rays"] for s in stats)
         # mode 2: depth 0 on a primary miss; mode 0: -1
         hit = depth > 0 if kw["render_mode"] == 2 else depth != -1.0
@@ -2253,6 +2281,368 @@ def viewer_phase(dev, bench_ws):
     return summary, dict(wavefront=wl, esvo=el), checks
 
 
+# ------------------------------------------- the rest of the single-card API
+def reset_counts():
+    """Every kernel's launch count set to 0 (before a path is driven)."""
+    from svo_raytracer_torch.ops import brick_dda, brick_pallas, traverse
+    from svo_raytracer_torch.ops import wavefront as wf
+    for k in (wf.K1, wf.K1_CAMERA, wf.K1_KEYS, traverse.KE,
+              traverse.KE_BINNED, brick_dda.K2, brick_pallas.K3):
+        k.launches = 0
+
+
+def read_counts():
+    """The launch counts of the path just driven, by kernels line."""
+    from svo_raytracer_torch.ops import brick_dda, brick_pallas, traverse
+    from svo_raytracer_torch.ops import wavefront as wf
+    return dict(K1_explicit=wf.K1.launches - wf.K1_CAMERA.launches,
+                K1_camera=wf.K1_CAMERA.launches, K1_keys=wf.K1_KEYS.launches,
+                KE=traverse.KE.launches - traverse.KE_BINNED.launches,
+                KE_binned=traverse.KE_BINNED.launches,
+                K2=brick_dda.K2.launches, K3=brick_pallas.K3.launches)
+
+
+def entry_phase(dev, tree, packed, cam5):
+    """[entry]: the entry point's analog (svo_raytracer_torch/entry.py) on
+    the card: entry() builds its 64^3 scene, forward renders the
+    256x144 mode-2 frame (KE through shade.render_image), timed; its KE
+    segments held to traverse.intersect_plain in every field; then the
+    same forward at 1920x1080 on the bench world's octree.  Gates: shape
+    and dtype, finite colour, KE launched on every segment.  Returns
+    (summary, launches, KE checks)."""
+    import torch
+    from svo_raytracer_torch import entry
+    from svo_raytracer_torch.ops import shade, traverse
+    t0 = time.time()
+    fn, args = entry.entry()
+    reset_counts()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    if (tuple(out.shape) != (entry.HEIGHT, entry.WIDTH, 3)
+            or out.dtype != torch.float32 or out.device.type != dev.type
+            or not bool(torch.isfinite(out).all()) or launches["KE"] < 2):
+        raise AssertionError(f"entry forward: {tuple(out.shape)} "
+                             f"{out.dtype} {out.device}, launches {launches}")
+    ms, _ = frame_ms(lambda i: fn(*args), 3, 10)
+    with capture(traverse, "trace") as calls:
+        fn(*args)
+    held = [hold_ke(f"entry {n} segment", *a, **k)
+            for n, (a, k) in zip(("primary", "shadow"), calls)]
+
+    def forward_1080(i):
+        return shade.render_image(tree, cam5, W, H, render_mode=2,
+                                  packed=packed)[0]
+
+    reset_counts()
+    big = forward_1080(0)
+    torch.cuda.synchronize()
+    for k, v in read_counts().items():
+        launches[k] += v
+    big_ms, _ = frame_ms(forward_1080, 3, 10)
+    finite = torch.isfinite(big).all(-1).float().mean().item()
+    say(f"[entry] entry(): {args[0].n_nodes}-node 64^3 scene, forward {tuple(out.shape)} {out.dtype}: median "
+        f"{ms:.3f} ms of 10 (host, synchronized); the forward at {W}x{H} "
+        f"on the bench world's {tree.n_nodes}-node octree {big_ms:.3f} ms, "
+        f"finite colour {finite:.6f}; launches {launches}")
+    if finite < 0.999:
+        raise AssertionError(f"finite colour on {finite} of pixels")
+    say(f"[entry] phase took {time.time() - t0:.1f} s")
+    return (dict(ms=ms, ms_1080=big_ms, finite_1080=finite,
+                 ke_ms=[h.ms for h in held]), launches, held)
+
+
+def staged_phase(dev, tree, packed, cam5):
+    """[staged]: shade.render_frame_staged, the JAX package's production
+    ESVO frame (row blocks of (1 << 18) // W rows, the beam prepass on,
+    per-block shading) at 1920x1080 on the bench world's octree: modes
+    2, 0 gi-1 and 3, and mode 2 with the G = 32 skip grid (K2).  Each
+    frame once with its per-segment stats and launch counts, then
+    ESVO_WARM_FRAMES + ESVO_TIMED_FRAMES timed.  Gates: each frame equals
+    render_image with the same settings in colour, depth and iters on
+    every pixel (the skip frame on every pixel whose beam distance the
+    two paths share: the staged beam, as JAX's, traces its coarse rays
+    through the skip grid, which restarts them; the rest are printed);
+    finite colour; KE in every segment, K2 in the skip frame; KE
+    (the beam in the binned schedule, the block's segments in its 8x4
+    tile order) and K2 (ray order) == their plain versions on the beam
+    and the first row block's segments of the skip frame.  Returns
+    (summary, launches, KE checks, KE binned checks, K2 checks)."""
+    import torch
+    from svo_raytracer_torch.ops import (brick_dda, brick_scene, shade,
+                                         skip_grid, traverse)
+    t0 = time.time()
+    tab = torch.from_numpy(brick_scene.table_rows(
+        skip_grid.build_skip_grid(tree, SKIP_G))).to(dev)
+    configs = {"mode-2": dict(render_mode=2),
+               "mode-0 gi-1": dict(render_mode=0, gi_bounces=1),
+               "mode-3": dict(render_mode=3),
+               f"mode-2 skip G={SKIP_G}": dict(render_mode=2, skip_tab=tab,
+                                               skip_grid_size=SKIP_G)}
+    launches = {k: 0 for k in read_counts()}
+    out = {}
+    for label, kw in configs.items():
+        stats = []
+        reset_counts()
+        col, depth, iters = shade.render_frame_staged(
+            tree, cam5, W, H, packed=packed, stats=stats, **kw)
+        torch.cuda.synchronize()
+        n = read_counts()
+        for k, v in n.items():
+            launches[k] += v
+        ms, times = frame_ms(lambda i: shade.render_frame_staged(
+            tree, cam5, W, H, packed=packed, frame_number=i + 2, **kw),
+            ESVO_WARM_FRAMES, ESVO_TIMED_FRAMES)
+        ref = shade.render_image(tree, cam5, W, H, packed=packed,
+                                 use_beam=True, **kw)
+        eq = [same(a, b).reshape(H, W, -1).all(-1)
+              for a, b in zip((col, depth, iters), ref)]
+        where = torch.ones((H, W), dtype=torch.bool, device=dev)
+        if "skip_tab" in kw:
+            bd = shade._beam_dirs(cam5, W, H, 4)
+            isect = skip_grid.make_skipping_isect(
+                lambda o, d, **k: traverse.intersect_octree_staged(
+                    tree, o, d, packed=packed, **k), kw["skip_tab"],
+                grid_size=SKIP_G)
+            staged_bt = shade._beam_image(
+                isect(cam5[0].expand_as(bd), bd, cone_trace=True), W, H, 4)
+            image_bt = shade.beam_prepass(tree, cam5, W, H, 4,
+                                          packed=packed)
+            where = (shade._beam_rows(staged_bt, 0, H, W, 4)
+                     == shade._beam_rows(image_bt, 0, H, W, 4)).reshape(H, W)
+        unequal = {f: int((~e & where).sum()) for f, e in
+                   zip(("colour", "depth", "iters"), eq)}
+        moved = int((~where).sum())
+        rest = {f: int((~e & ~where).sum()) for f, e in
+                zip(("colour", "depth", "iters"), eq)}
+        hit = depth > 0 if kw["render_mode"] != 0 else depth != -1.0
+        finite = torch.isfinite(col).all(-1).float().mean().item()
+        nblocks = H // shade.staged_row_block(W, H)
+        out[label] = dict(ms=ms, times=times, launches=n,
+                          segments=len(stats), row_blocks=nblocks,
+                          hitfrac=hit.float().mean().item(),
+                          unequal=unequal, beam_moved_pixels=moved,
+                          unequal_under_moved_beam=rest)
+        say(f"[staged {label}] {W}x{H} in {nblocks} row blocks of "
+            f"{H // nblocks}: median {ms:.3f} ms/frame of "
+            f"{ESVO_TIMED_FRAMES} (min {min(times):.3f}, max "
+            f"{max(times):.3f}); segments {len(stats)}, KE launches "
+            f"{n['KE'] + n['KE_binned']} ({n['KE_binned']} binned), K2 "
+            f"{n['K2']} per frame; hit fraction "
+            f"{out[label]['hitfrac']:.4f}; finite colour {finite:.6f}; vs "
+            f"render_image: unequal pixels {unequal}"
+            + (f"; pixels under a beam cell the skip grid moved {moved}, "
+               f"unequal there {rest}" if "skip_tab" in kw else ""))
+        if (any(unequal.values()) or finite < 0.999
+                or any(s["launches"] < 1 for s in stats)
+                or ("skip_tab" in kw and n["K2"] < 1)):
+            raise AssertionError(f"staged {label}: {out[label]}")
+    # ---- KE and K2 vs their plain versions on the skip frame's beam and
+    # first row block
+    kw = configs[f"mode-2 skip G={SKIP_G}"]
+    with capture(traverse, "trace") as ke_calls, \
+            capture(brick_dda, "coarse_dda") as k2_calls:
+        shade.render_frame_staged(tree, cam5, W, H, packed=packed, **kw)
+    tiles = traverse.tile_order(W, shade.staged_row_block(W, H), dev)
+    if not (ke_calls[0][1].get("order") is None
+            and all(k["order"] is tiles for _, k in ke_calls[1:])
+            and all("order" not in k for _, k in k2_calls)):
+        raise AssertionError("the staged frame's block segments did not "
+                             "take the block's tile order, or K2 did")
+    names = ("beam", "block 0 primary", "block 0 shadow")
+    ke = [hold_ke(f"staged {n}", *a, **k)
+          for n, (a, k) in zip(names, ke_calls[:3])]
+    k2 = [hold_k2(f"staged {n}", occ, k["grid_size"], o, d, k["active"])
+          for n, ((occ, o, d), k) in zip(names, k2_calls[:3])]
+    say(f"[staged] phase took {time.time() - t0:.1f} s")
+    return out, launches, ke[1:], ke[:1], k2
+
+
+def progressive_phase(dev, tree, cam5):
+    """[progressive]: shade.render_progressive, spp 4 gi-1 at 1920x1080 on
+    the bench world's octree (threefry mode-0 samples, KE), timed per
+    sample.  Gates: threefry bits on the card equal the CPU's for the
+    same key on every pixel; finite colour; an spp-4 image is closer to
+    another key's spp-4 image than an spp-1 image is.  Returns (summary,
+    launches)."""
+    import torch
+    from svo_raytracer_torch.ops import rng, shade
+    t0 = time.time()
+    key, other = rng.prng_key(7), rng.prng_key(8)
+    n = W * H
+    gpu = rng.threefry_uniform(key, torch.arange(n, device=dev), 1, 0, 1)
+    cpu = rng.threefry_uniform(key, torch.arange(n), 1, 0, 1)
+    bits_equal = bool(torch.equal(gpu.cpu().view(torch.int32),
+                                  cpu.view(torch.int32)))
+    reset_counts()
+    four, depth = shade.render_progressive(tree, cam5, W, H, spp=4,
+                                           gi_bounces=1, rng_key=key)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    ms, times = frame_ms(lambda i: shade.render_progressive(
+        tree, cam5, W, H, spp=4, gi_bounces=1, rng_key=key), 1, 5)
+    one, _ = shade.render_progressive(tree, cam5, W, H, spp=1, rng_key=key)
+    four_b, _ = shade.render_progressive(tree, cam5, W, H, spp=4,
+                                         rng_key=other)
+    d1 = (one - four_b).abs().mean().item()
+    d4 = (four - four_b).abs().mean().item()
+    finite = torch.isfinite(four).all(-1).float().mean().item()
+    say(f"[progressive] spp 4 gi-1 {W}x{H}: median {ms:.3f} ms per call "
+        f"of 5, {ms / 4:.3f} ms per sample; launches {launches}; threefry "
+        f"bits on the card equal the CPU's on {n} pixels: {bits_equal}; "
+        f"finite colour {finite:.6f}; mean |spp1 - spp4'| {d1:.5f}, "
+        f"|spp4 - spp4'| {d4:.5f}")
+    if not bits_equal or finite < 0.999 or not d4 < d1 or \
+            launches["KE"] < 4 or launches["KE_binned"] < 4:
+        raise AssertionError("progressive: bits, finite colour, variance "
+                             "or launches")
+    say(f"[progressive] phase took {time.time() - t0:.1f} s")
+    return (dict(ms=ms, times=times, ms_per_sample=ms / 4,
+                 bits_equal=bits_equal, d1=d1, d4=d4), launches)
+
+
+def bricks_phase(dev, ws, tree, cam5):
+    """[bricks]: the XLA brick reference engine (brick_trace.intersect_bricks,
+    plain PyTorch, sharing no code with K1) on the bench world's
+    BrickScene on the card, over BRICK_ORACLE_RAYS rays: half sampled
+    1080p primaries, half sampled rays of the gi-1 bounce segment (the
+    glsl random of frame 1), held against K1 (wavefront.intersect_wavefront
+    on the same rays).  Gates: hit agreement >= BENCH_HIT_AGREEMENT;
+    where both hit, value equal on every ray, and voxel_pos (NaN equal to
+    NaN) on >= BENCH_HIT_AGREEMENT of them but the t = 0 hits of rays
+    that start on a voxel face inside solid, which either voxel beside
+    the face answers (K1 takes the one the ray enters, the oracle the one
+    the origin floors to; counted and printed).  The two float DDAs also
+    part on a few other rays that start on a voxel face (the probe
+    camera sits at x = z = 1.5) or graze a surface, meeting two voxels
+    at nearly the same t.  Returns (summary, K1 launches)."""
+    import torch
+    from svo_raytracer_torch.ops import (brick_scene, brick_trace,
+                                         render_wave, rng, shade)
+    from svo_raytracer_torch.ops import wavefront as wf
+    t0 = time.time()
+    scene = brick_scene.brickify(tree.to_numpy()).to_device(dev)
+    setup_s = time.time() - t0
+    gen = np.random.default_rng(SEED)
+    origins, dirs, px, py = render_wave._frame_rays(cam5, W, H)
+    B = dirs.shape[0]
+    prim = wf.intersect_wavefront(ws, origins, dirs)
+    accum = torch.zeros((B, 3), device=dev)
+    mask = torch.ones((B, 3), device=dev)
+    depth = torch.full((B,), -1.0, device=dev)
+    iters = torch.zeros(B, dtype=torch.int32, device=dev)
+    _, _, _, _, active, bo, bd = shade.gi_update(
+        True, (), accum, mask, depth, iters,
+        torch.ones(B, dtype=torch.bool, device=dev), origins, dirs,
+        rng.pixel_rand(px, py, 1), prim)
+    half = BRICK_ORACLE_RAYS // 2
+    pick = torch.from_numpy(gen.choice(B, half, replace=False)).to(dev)
+    live = torch.nonzero(active).flatten()
+    bpick = live[torch.from_numpy(gen.choice(live.numel(), half,
+                                             replace=False)).to(dev)]
+    o = torch.cat([origins[pick], bo[bpick]]).contiguous()
+    d = torch.cat([dirs[pick], bd[bpick]]).contiguous()
+    reset_counts()
+    k1 = wf.intersect_wavefront(ws, o, d)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ref = brick_trace.intersect_bricks(scene, o, d)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t1) * 1e3
+    both = k1.hit & ref.hit
+    agree = (k1.hit == ref.hit).float().mean().item()
+    value_ne = k1.value != ref.value
+    voxel_ne = ~same(k1.voxel_pos, ref.voxel_pos).all(-1)
+    # bounce rays leave from a hit voxel's corner plus a normal offset, so
+    # many start on a voxel face; those inside solid hit at t = 0
+    ov = (o - 1.0) * float(ws.world_size)
+    face = (ov == ov.floor()).any(-1)
+    tie0 = both & face & (k1.t == 0) & (ref.t == 0)
+    rest = both & ~tie0
+    voxel_agree = 1.0 - voxel_ne[rest].float().mean().item()
+    t_err = (k1.t - ref.t)[both].abs().max().item()
+    out = dict(rays=o.shape[0], hits=int(ref.hit.sum()), ms=ms,
+               setup_s=setup_s, hit_agreement=agree,
+               primary_agreement=(k1.hit == ref.hit)[:half].float().mean()
+               .item(),
+               bounce_agreement=(k1.hit == ref.hit)[half:].float().mean()
+               .item(),
+               both_hit=int(both.sum()), value_unequal=int(value_ne[both]
+                                                           .sum()),
+               face_t0_hits=int(tie0.sum()),
+               face_t0_voxel_unequal=int(voxel_ne[tie0].sum()),
+               voxel_agreement=voxel_agree,
+               voxel_unequal=int(voxel_ne[rest].sum()), max_abs_dt=t_err)
+    say(f"[bricks] brick_trace.intersect_bricks on the bench world's "
+        f"BrickScene (brickify + to_device {setup_s:.1f} s), {o.shape[0]} "
+        f"rays ({half} sampled primaries, {half} of the gi-1 bounce): "
+        f"{ms:.1f} ms (host, synchronized); hits {out['hits']}; vs K1: hit "
+        f"agreement {agree:.6f} (primaries {out['primary_agreement']:.6f}, "
+        f"bounce {out['bounce_agreement']:.6f}); where both hit "
+        f"({out['both_hit']} rays): value unequal {out['value_unequal']}; "
+        f"t = 0 hits of rays from a voxel face {out['face_t0_hits']}, "
+        f"voxel_pos unequal on {out['face_t0_voxel_unequal']} of them; the "
+        f"others' voxel_pos equal on {voxel_agree:.6f} (unequal "
+        f"{out['voxel_unequal']}); max |dt| {t_err:.3e}; K1 launches "
+        f"{launches}")
+    for i in torch.nonzero(rest & voxel_ne).flatten()[:4].tolist():
+        say(f"    voxel_pos differs: ray {i} o {o[i].tolist()} d "
+            f"{d[i].tolist()}: K1 t {k1.t[i].item():.9g} voxel_pos "
+            f"{k1.voxel_pos[i].tolist()}; oracle t {ref.t[i].item():.9g} "
+            f"voxel_pos {ref.voxel_pos[i].tolist()}")
+    if (agree < BENCH_HIT_AGREEMENT or out["value_unequal"]
+            or voxel_agree < BENCH_HIT_AGREEMENT):
+        raise AssertionError(f"intersect_bricks vs K1: {out}")
+    del scene
+    torch.cuda.empty_cache()
+    say(f"[bricks] phase took {time.time() - t0:.1f} s")
+    return out, launches
+
+
+def api_phases(dev, ws, tree, packed, cam5):
+    """The rest of the single-card API on the bench world, each path
+    driven with the launch counts set to 0 just before it and read just
+    after: [entry], [staged], [progressive], [bricks].  Returns (summary,
+    new kernels lines (KE on the bench world's octree, plain and binned
+    schedules; K2 at G = 32 on it), the K1 launches to add to the bench
+    world's K1 (a) line, and the K1 key launches)."""
+    summary = {}
+    summary["entry"], e_n, e_ke = entry_phase(dev, tree, packed, cam5)
+    summary["staged"], s_n, s_ke, s_binned, s_k2 = staged_phase(
+        dev, tree, packed, cam5)
+    summary["progressive"], p_n = progressive_phase(dev, tree, cam5)
+    summary["bricks"], b_n = bricks_phase(dev, ws, tree, cam5)
+    n = {k: e_n[k] + s_n[k] + p_n[k] + b_n[k] for k in e_n}
+    summary["launches"] = dict(entry=e_n, staged=s_n, progressive=p_n,
+                               bricks=b_n)
+    tpu_kernel = ("none: an XLA while_loop (traverse.py:415-423), no "
+                  "Pallas counterpart")
+    kernels = [
+        dict(kernel_entry(
+            "KE per-ray ESVO traversal, bench world 1024^3 octree: staged "
+            "frames, progressive samples and the entry (plain schedule)",
+            "svo_raytracer_torch/csrc/esvo.cu",
+            "svo_raytracer_tpu/ops/traverse.py:382", n["KE"], s_ke,
+            s_ke + e_ke), tpu_kernel=tpu_kernel),
+        dict(kernel_entry(
+            "KE per-ray ESVO traversal, bench world 1024^3 octree: beams and "
+            "cone-traced bounces (binned schedule)",
+            "svo_raytracer_torch/csrc/esvo.cu",
+            "svo_raytracer_tpu/ops/traverse.py:382", n["KE_binned"],
+            s_binned, s_binned), tpu_kernel=tpu_kernel),
+        kernel_entry(f"K2 skip-grid coarse DDA, G={SKIP_G} staged frames, "
+                     f"bench world", "svo_raytracer_torch/csrc/brick_dda.cu",
+                     "svo_raytracer_tpu/ops/brick_dda.py:85", n["K2"], s_k2,
+                     s_k2)]
+    say(f"[api] launches of the four paths: {n}")
+    for k in ("KE", "KE_binned", "K2", "K1_explicit", "K1_keys"):
+        if n[k] < 1:
+            raise AssertionError(f"the API paths missed {k}: {n}")
+    return summary, kernels, n["K1_explicit"], n["K1_keys"]
+
+
 def sampled_rays(ws, cam5):
     """16,384 rays of the world: 8,192 sampled primaries and 8,192 bounce
     rays from their hits (directions on the hemisphere of the normal)."""
@@ -2446,23 +2836,30 @@ def add_viewer_launches(kernels, launches, checks):
     world they ran on: the wavefront session's K1 explicit and camera
     launches into the bench world's K1 (a) and (b) lines, the ESVO
     session's KE launches into the 1024^3 KE lines (the plain schedule's
-    and the binned bounces'); each line keeps the added count as
-    ``viewer_launches`` and takes the edit checks' largest error."""
+    and the binned bounces'), with the edit checks' largest error."""
     wl, el = launches["wavefront"], launches["esvo"]
-    adds = (("K1 wavefront traversal (a) flat L0, bench world",
-             wl["K1_explicit"], checks["K1"]),
-            ("K1 wavefront traversal (b) camera-mode primaries on (a) flat "
-             "L0, bench world", wl["K1_camera"], []),
-            ("KE per-ray ESVO traversal, 1024^3 octree, mode-2",
-             el["KE"] - el["KE_binned"], checks["KE"]),
-            ("KE per-ray ESVO traversal, 1024^3 octree, cone-traced",
-             el["KE_binned"], []))
+    add_launches(kernels, "viewer", (
+        ("K1 wavefront traversal (a) flat L0, bench world",
+         wl["K1_explicit"], checks["K1"]),
+        ("K1 wavefront traversal (b) camera-mode primaries on (a) flat "
+         "L0, bench world", wl["K1_camera"], []),
+        ("KE per-ray ESVO traversal, 1024^3 octree, mode-2",
+         el["KE"] - el["KE_binned"], checks["KE"]),
+        ("KE per-ray ESVO traversal, 1024^3 octree, cone-traced",
+         el["KE_binned"], [])))
+
+
+def add_launches(kernels, tag, adds):
+    """For each (name prefix, launches, checks) of ``adds``: the launches
+    into the one kernels line of that prefix, kept there as
+    ``<tag>_launches``, and the checks' largest error into its
+    max_abs_err."""
     for prefix, n, held in adds:
         line = [k for k in kernels if k["name"].startswith(prefix)]
         if len(line) != 1:
             raise AssertionError(f"no single kernels line {prefix!r}")
         line[0]["launches"] += n
-        line[0]["viewer_launches"] = n
+        line[0][f"{tag}_launches"] = n
         line[0]["max_abs_err"] = max([line[0]["max_abs_err"]]
                                      + [c.err for c in held])
 
@@ -2534,6 +2931,11 @@ def main():
     # ---- the viewer and its edit path on the same world
     summary["viewer"], viewer_launches, viewer_checks = viewer_phase(
         dev, world[0])
+    # ---- the rest of the single-card API on the same world
+    summary["api"], api_kernels, api_k1, api_keys = api_phases(dev, *world)
+    kernels += api_kernels
+    add_launches(kernels, "api", (
+        ("K1 wavefront traversal (a) flat L0, bench world", api_k1, []),))
     del world
 
     # ---- kernel vs plain on the test scenes (flat G = 2, G = 64, paged)
@@ -2558,7 +2960,7 @@ def main():
 
     # ---- the main path on each world (WORLDS), through its part of K1
     key_launches = (bench_key_launches + train_key_launches
-                    + viewer_launches["wavefront"]["K1_keys"])
+                    + viewer_launches["wavefront"]["K1_keys"] + api_keys)
     key_timed = bench_keys[1:2]
     key_all = (bench_keys + train_keys + [c.keys for c in checks.values()]
                + [c.keys for c in viewer_checks["K1"]])

@@ -120,6 +120,8 @@ class DeviceOctree:
     normal: torch.Tensor
     n_nodes: int
     world_size: int
+    _packed: torch.Tensor | None = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -136,3 +138,30 @@ class DeviceOctree:
     def to_numpy(self) -> Octree:
         return Octree(*(a.cpu().numpy() for a in self.arrays()),
                       n_nodes=self.n_nodes, world_size=self.world_size)
+
+    def packed_table(self) -> torch.Tensor:
+        """The traversal's word table (ops/traverse.make_packed_table),
+        built at the first call and cached: pass it to render and
+        intersect calls as ``packed=``.  Writes to the tensors in place
+        leave the cache stale."""
+        if self._packed is None:
+            from ..ops.traverse import make_packed_table
+
+            self._packed = make_packed_table(self)
+        return self._packed
+
+
+def effective_normal_raw(tag, child_base, mask, normal):
+    """The raw 16-bit field the shader decodes as a hit node's normal
+    (svotrace.comp:88-130): a surface leaf's packed normal, 0 for a
+    non-surface leaf, else (branches, subdividable leaves) the node's
+    mask, stale for promoted leaves.  Elementwise over NumPy arrays or
+    tensors; ``child_base`` is unused, as in the JAX package."""
+    if isinstance(tag, torch.Tensor):
+        zero = torch.zeros_like(mask)
+        return torch.where(tag == C.TAG_SURFACE_LEAF, normal,
+                           torch.where(tag == C.TAG_NON_SURFACE_LEAF, zero,
+                                       mask))
+    tag = np.asarray(tag)
+    return np.where(tag == C.TAG_SURFACE_LEAF, normal,
+                    np.where(tag == C.TAG_NON_SURFACE_LEAF, 0, mask))

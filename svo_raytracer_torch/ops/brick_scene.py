@@ -24,6 +24,7 @@ import dataclasses
 
 import numpy as np
 
+from ..core.octree import effective_normal_raw
 from ..utils import constants as C
 
 BRICK = 32  # voxels per brick edge
@@ -93,8 +94,7 @@ def _attr_word(value, raw_normal, depth):
 
 def _leaf_attr(value, normal, mask, nodes, tags, depth):
     """Attribute word(s) of leaf nodes (module docstring encoding)."""
-    raw = np.where(tags == C.TAG_SURFACE_LEAF, normal[nodes],
-                   np.where(tags == C.TAG_NON_SURFACE_LEAF, 0, mask[nodes]))
+    raw = effective_normal_raw(tags, None, mask[nodes], normal[nodes])
     return _attr_word(value[nodes], raw,
                       np.asarray(depth, np.int64) * np.ones(len(nodes),
                                                             np.int64)

@@ -82,6 +82,22 @@ def _unblock(a, width, height):
     return x.reshape(nby * BLK, width, *a.shape[1:])[:height]
 
 
+def make_isect(wscene):
+    """An ``intersect_octree``-shaped callable over a WaveScene (the JAX
+    package's make_isect): ``isect(origins, dirs, max_depth=...,
+    cone_trace=..., max_iterations=..., active=None)`` traces through
+    wavefront.intersect_wavefront.  The brick engine always resolves the
+    finest leaf and retires rays at ITER_CAP, so ``max_depth``,
+    ``cone_trace`` and ``max_iterations`` are accepted and ignored, as
+    in the JAX package."""
+    def isect(origins, dirs, max_depth=None, cone_trace=False,
+              max_iterations=None, active=None):
+        return wavefront.intersect_wavefront(wscene, origins, dirs,
+                                             active=active)
+
+    return isect
+
+
 def _segment(wscene, o, d, active, stats, camera=None):
     """One traversal segment; ``stats`` (a list or None) gets its
     intersect_wavefront profile.  ``camera`` (cam5, W, H) traces the
@@ -131,7 +147,7 @@ def _render_gi(wscene, cam5, width, height, gi_bounces, mirror_values,
 
 def render_frame_wavefront(wscene, cam5, width, height, render_mode=0,
                            frame_number=1, gi_bounces=1, mirror_values=(),
-                           stats=None):
+                           stats=None, rng_mode="glsl"):
     """Render one frame through the wavefront engine.
 
     ``cam5`` is the (5,3) camera uniform (position, then the l1, l2, r1,
@@ -139,8 +155,13 @@ def render_frame_wavefront(wscene, cam5, width, height, render_mode=0,
     Returns (color (H,W,3), depth (H,W), iters (H,W)); row 0 is the GL
     bottom scanline.  Modes: 0 pathtraced GI (glsl random), 1 iteration
     heatmap, 2 direct light with a shadow ray toward the sun, 3 normals.
-    ``stats`` (a list) collects one dict per traversal segment.
+    ``stats`` (a list) collects one dict per traversal segment.  As in
+    the JAX package, mode 0 takes only ``rng_mode="glsl"``: threefry
+    frames render through shade.render_progressive.
     """
+    if render_mode == 0 and rng_mode != "glsl":
+        raise NotImplementedError("wavefront GI supports glsl rng; use "
+                                  "shade.render_progressive for threefry")
     cam5 = cam5.to(torch.float32)
     camera = (cam5, width, height)
     if render_mode == 0:

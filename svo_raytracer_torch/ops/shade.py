@@ -12,10 +12,14 @@ Each segment (primary ray, shadow ray, GI bounce) is one batched
 traversal followed by elementwise shading.  :func:`render_image` renders
 a frame through the ESVO octree traversal (ops/traverse.py, kernel KE on
 the GPU), optionally seeded by the skip grid (ops/skip_grid.py, kernel
-K2) or the beam prepass; ops/render_wave.py renders through the brick
-wavefront and shares the shading here.  Constants keep the reference's
-float32 values as written (e.g. ``2.0 * 3.14159265359``); only the
-reference's sin-hash random (``rng_mode="glsl"``) is ported.
+K2) or the beam prepass; :func:`render_frame_staged` is the JAX
+package's production ESVO frame (row blocks, the beam prepass on) over
+the same kernels, and :func:`render_progressive` averages threefry
+mode-0 samples.  ops/render_wave.py renders through the brick wavefront
+and shares the shading here.  Constants keep the reference's float32
+values as written (e.g. ``2.0 * 3.14159265359``).  Mode 0 draws its
+random from the reference's sin hash (``rng_mode="glsl"``) or from
+threefry (``"threefry"``, ops/rng.py).
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import numpy as np
 import torch
 
 from ..utils import constants as C
-from . import rng, skip_grid, traverse
+from . import fp, rng, skip_grid, traverse
 
 #: shading palette keyed by voxel value (svotrace.comp:514-522):
 #: 1 = stone, 2 = scree, 3 = grass
@@ -76,7 +80,8 @@ def sky(dirs):
 
 
 def _normalize(v):
-    return v / torch.sqrt((v * v).sum(dim=-1, keepdim=True))
+    """(B,3) rows over their length, correctly rounded (ops/fp.py)."""
+    return fp.unit_rows(v)
 
 
 def _cross(a, b):
@@ -230,11 +235,20 @@ def _isect(tree, intersect_fn):
 
 def shade_gi(tree, origins, dirs, px, py, frame_number, gi_bounces=1,
              max_depth=C.MAX_DEPTH, max_iterations=C.MAX_RAYCAST_ITERATIONS,
-             mirror_values=(), intersect_fn=None):
-    """Render mode 0: primary + ``gi_bounces`` segments, with the
-    per-pixel sin-hash random of pixel (px, py).  ``intersect_fn``
-    replaces the traversal (signature of traverse.intersect_octree minus
-    the tree).  Returns (col, depth, iters)."""
+             rng_mode="glsl", rng_key=None, mirror_values=(),
+             intersect_fn=None):
+    """Render mode 0: primary + ``gi_bounces`` segments.  ``rng_mode``
+    "glsl" takes the per-pixel sin-hash random of pixel (px, py), the
+    same in every segment; "threefry" draws ray i's random anew after
+    each segment's traversal, as element i of
+    rng.threefry_uniform(rng_key, arange(B), frame_number, segment, 1).
+    ``intersect_fn`` replaces the traversal (signature of
+    traverse.intersect_octree minus the tree).  Returns (col, depth,
+    iters)."""
+    if rng_mode not in ("glsl", "threefry"):
+        raise ValueError(f"unknown rng_mode {rng_mode!r}")
+    if rng_mode == "threefry" and rng_key is None:
+        raise ValueError("rng_mode='threefry' needs an rng_key")
     isect = _isect(tree, intersect_fn)
     B, dev = origins.shape[0], origins.device
     accum = torch.zeros((B, 3), dtype=torch.float32, device=dev)
@@ -242,12 +256,17 @@ def shade_gi(tree, origins, dirs, px, py, frame_number, gi_bounces=1,
     depth = torch.full((B,), -1.0, dtype=torch.float32, device=dev)
     iters_out = torch.zeros(B, dtype=torch.int32, device=dev)
     active = torch.ones(B, dtype=torch.bool, device=dev)
-    r = rng.pixel_rand(px.float(), py.float(), frame_number)
+    if rng_mode == "glsl":
+        r = rng.pixel_rand(px.float(), py.float(), frame_number)
     o, d = origins, dirs
     for seg in range(gi_bounces + 1):
         # dead rays leave the traversal batch ("dead rays culled")
         res = isect(o, d, max_depth=max_depth, cone_trace=seg > 0,
                     max_iterations=max_iterations, active=active)
+        if rng_mode == "threefry":
+            r = rng.threefry_uniform(
+                rng_key, torch.arange(B, device=dev), int(frame_number),
+                seg, 1)[:, 0]
         accum, mask, depth, iters_out, active, o, d = gi_update(
             seg == 0, tuple(mirror_values), accum, mask, depth, iters_out,
             active, o, d, r, res)
@@ -282,6 +301,43 @@ def shade_normals(tree, origins, dirs, max_depth=C.MAX_DEPTH,
         origins, dirs, max_depth=max_depth, max_iterations=max_iterations))
 
 
+def _beam_dirs(cam5, width, height, beam_tile):
+    """The beam prepass's (bh * bw, 3) coarse directions: the
+    unnormalized corner mix at each tile's corner pixel."""
+    bw, bh = width // beam_tile, height // beam_tile
+    l1, l2, r1, r2 = cam5[1], cam5[2], cam5[3], cam5[4]
+    ar = dict(dtype=torch.float32, device=cam5.device)
+    xs = torch.arange(bw, **ar) * float(beam_tile) + 0.5
+    ys = torch.arange(bh, **ar) * float(beam_tile) + 0.5
+    # true divisions, as in pixel_dirs_rows
+    pxs = xs / torch.full_like(xs, float(width))
+    pys = ys / torch.full_like(ys, float(height))
+    left = l1[None, :] + (l2 - l1)[None, :] * pys[:, None]
+    right = r1[None, :] + (r2 - r1)[None, :] * pys[:, None]
+    return (left[:, None, :]
+            + (right - left)[:, None, :] * pxs[None, :, None]).reshape(-1, 3)
+
+
+def _beam_image(res, width, height, beam_tile):
+    """The (H // tile, W // tile) beam image of the coarse rays' record:
+    t on a hit, 0 on a miss."""
+    return torch.where(res.hit, res.t, torch.zeros_like(res.t)).reshape(
+        height // beam_tile, width // beam_tile)
+
+
+def _beam_rows(bt, row0, nrows, width, beam_tile):
+    """The beam distance of each pixel of rows [row0, row0 + nrows),
+    row-major: pixel (x, y) reads beam cell (x // tile, y // tile)
+    (svotrace.comp:656-658), clamped at a ragged edge as XLA clamps the
+    JAX package's gather."""
+    dev = bt.device
+    by = (torch.arange(row0, row0 + nrows, device=dev)
+          // beam_tile).clamp_max(bt.shape[0] - 1)
+    bx = (torch.arange(width, device=dev) // beam_tile).clamp_max(
+        bt.shape[1] - 1)
+    return bt[by[:, None], bx[None, :]].reshape(-1)
+
+
 def beam_prepass(tree, cam5, width, height, beam_tile=4,
                  max_depth=C.MAX_DEPTH,
                  max_iterations=C.MAX_RAYCAST_ITERATIONS, packed=None):
@@ -292,40 +348,78 @@ def beam_prepass(tree, cam5, width, height, beam_tile=4,
     Reference quirks kept: the coarse direction is the unnormalized corner
     mix (so its t undershoots along the fine unit direction), and the
     coarse pixel is the tile's corner, not its centre."""
-    bw, bh = width // beam_tile, height // beam_tile
-    l1, l2, r1, r2 = cam5[1], cam5[2], cam5[3], cam5[4]
-    ar = dict(dtype=torch.float32, device=cam5.device)
-    pxs = (torch.arange(bw, **ar) * beam_tile + 0.5) / float(width)
-    pys = (torch.arange(bh, **ar) * beam_tile + 0.5) / float(height)
-    left = l1[None, :] + (l2 - l1)[None, :] * pys[:, None]
-    right = r1[None, :] + (r2 - r1)[None, :] * pys[:, None]
-    dirs = (left[:, None, :]
-            + (right - left)[:, None, :] * pxs[None, :, None]).reshape(-1, 3)
+    dirs = _beam_dirs(cam5, width, height, beam_tile)
     res = traverse.intersect_octree(tree, cam5[0].expand_as(dirs), dirs,
                                     max_depth=max_depth, cone_trace=True,
                                     max_iterations=max_iterations,
                                     packed=packed)
-    return torch.where(res.hit, res.t, torch.zeros_like(res.t)).reshape(
-        bh, bw)
+    return _beam_image(res, width, height, beam_tile)
+
+
+def _profiled(isect, stats):
+    """``isect`` appending each call's intersect_octree profile to
+    ``stats`` (a list), or ``isect`` itself when ``stats`` is None."""
+    if stats is None:
+        return isect
+
+    def wrapped(o, d, **kw):
+        prof = {}
+        res = isect(o, d, profile=prof, **kw)
+        stats.append(prof)
+        return res
+
+    return wrapped
+
+
+def _shade_rows(isect, render_mode, origins, dirs, beam, width, row0,
+                frame_number, gi_bounces, max_depth, max_iterations,
+                rng_mode, rng_key, mirror_values):
+    """Render mode ``render_mode`` of the row-major pixel rays (origins,
+    unit dirs) of whole rows from ``row0`` on, through ``isect``;
+    ``beam`` the pixels' beam distances (None: no beam).  Returns flat
+    (col, depth, iters)."""
+    kw = dict(max_depth=max_depth, max_iterations=max_iterations,
+              intersect_fn=isect)
+    if render_mode == 0:
+        dev = origins.device
+        nrows = origins.shape[0] // width
+        px = torch.arange(width, dtype=torch.float32, device=dev).repeat(
+            nrows)
+        py = (torch.arange(nrows, dtype=torch.float32, device=dev)
+              + float(row0)).repeat_interleave(width)
+        return shade_gi(None, origins, dirs, px, py, frame_number,
+                        gi_bounces, rng_mode=rng_mode, rng_key=rng_key,
+                        mirror_values=mirror_values, **kw)
+    if render_mode == 1:
+        return shade_heatmap(None, origins, dirs, **kw)
+    if render_mode == 2:
+        return shade_direct(None, origins, dirs, beam, **kw)
+    return shade_normals(None, origins, dirs, **kw)
+
+
+def _check_mode(render_mode):
+    if render_mode not in (0, 1, 2, 3):
+        raise ValueError(f"unknown render mode {render_mode}")
 
 
 def render_image(tree, cam5, width, height, render_mode=2, frame_number=1,
                  gi_bounces=1, use_beam=False, beam_tile=4,
                  max_depth=C.MAX_DEPTH,
-                 max_iterations=C.MAX_RAYCAST_ITERATIONS, mirror_values=(),
-                 packed=None, skip_tab=None, skip_grid_size=32, stats=None):
+                 max_iterations=C.MAX_RAYCAST_ITERATIONS, rng_mode="glsl",
+                 rng_key=None, mirror_values=(), packed=None, skip_tab=None,
+                 skip_grid_size=32, stats=None):
     """Render one frame through the ESVO traversal of a DeviceOctree.
 
     ``cam5`` is the (5,3) camera uniform (position, then the l1, l2, r1,
     r2 corner directions) on the tree's device.  ``packed`` is the cached
     traverse.make_packed_table; ``skip_tab`` the (rows, 128) int32 skip
     grid (brick_scene.table_rows of skip_grid.build_skip_grid) of
-    ``skip_grid_size`` cells per edge.  ``stats`` (a list) collects one
-    intersect_octree profile per traversal segment (the beam prepass
-    aside).  Returns (color (H,W,3), depth (H,W), iters (H,W)); row 0 is
-    the GL bottom scanline."""
-    if render_mode not in (0, 1, 2, 3):
-        raise ValueError(f"unknown render mode {render_mode}")
+    ``skip_grid_size`` cells per edge.  Mode 0 takes ``rng_mode`` "glsl"
+    or "threefry" with ``rng_key`` (rng.prng_key), as shade_gi.
+    ``stats`` (a list) collects one intersect_octree profile per
+    traversal segment (the beam prepass aside).  Returns (color (H,W,3),
+    depth (H,W), iters (H,W)); row 0 is the GL bottom scanline."""
+    _check_mode(render_mode)
     cam5 = cam5.to(torch.float32)
     if packed is None:
         packed = traverse.make_packed_table(tree)
@@ -334,16 +428,9 @@ def render_image(tree, cam5, width, height, render_mode=2, frame_number=1,
 
     # KE traces every segment's W*H pixel rays in 8x4 pixel tiles (K2,
     # bound by the rays' bytes, is faster in ray order)
-    tiles = traverse.tile_order(width, height, cam5.device)
-
-    def isect(o, d, **kw):
-        prof = None if stats is None else {}
-        res = traverse.intersect_octree(tree, o, d, packed=packed,
-                                        profile=prof, order=tiles, **kw)
-        if stats is not None:
-            stats.append(prof)
-        return res
-
+    isect = _profiled(functools.partial(
+        traverse.intersect_octree, tree, packed=packed,
+        order=traverse.tile_order(width, height, cam5.device)), stats)
     if skip_tab is not None:
         isect = skip_grid.make_skipping_isect(isect, skip_tab,
                                               grid_size=skip_grid_size)
@@ -351,31 +438,103 @@ def render_image(tree, cam5, width, height, render_mode=2, frame_number=1,
     if use_beam:
         bt = beam_prepass(tree, cam5, width, height, beam_tile, max_depth,
                           max_iterations, packed=packed)
-        # fine pixel (x, y) reads beam cell (x // tile, y // tile)
-        # (svotrace.comp:656-658), clamped at a ragged edge
-        dev = cam5.device
-        by = (torch.arange(height, device=dev) // beam_tile).clamp_max(
-            bt.shape[0] - 1)
-        bx = (torch.arange(width, device=dev) // beam_tile).clamp_max(
-            bt.shape[1] - 1)
-        beam = bt[by[:, None], bx[None, :]].reshape(-1)
+        beam = _beam_rows(bt, 0, height, width, beam_tile)
         origins = origins + dirs * beam[:, None]
-
-    kw = dict(max_depth=max_depth, max_iterations=max_iterations,
-              intersect_fn=isect)
-    if render_mode == 0:
-        px = torch.arange(width, dtype=torch.float32,
-                          device=cam5.device).repeat(height)
-        py = torch.arange(height, dtype=torch.float32,
-                          device=cam5.device).repeat_interleave(width)
-        col, depth, iters = shade_gi(tree, origins, dirs, px, py,
-                                     frame_number, gi_bounces,
-                                     mirror_values=mirror_values, **kw)
-    elif render_mode == 1:
-        col, depth, iters = shade_heatmap(tree, origins, dirs, **kw)
-    elif render_mode == 2:
-        col, depth, iters = shade_direct(tree, origins, dirs, beam, **kw)
-    else:
-        col, depth, iters = shade_normals(tree, origins, dirs, **kw)
+    col, depth, iters = _shade_rows(
+        isect, render_mode, origins, dirs, beam, width, 0, frame_number,
+        gi_bounces, max_depth, max_iterations, rng_mode, rng_key,
+        mirror_values)
     return (col.reshape(height, width, 3), depth.reshape(height, width),
             iters.reshape(height, width))
+
+
+def staged_row_block(width, height, row_block=None):
+    """render_frame_staged's rows per block: ``row_block``, by default
+    (1 << 18) // width rows (at most ``height``), lowered until it
+    divides ``height`` (1920x1080: 135 rows, 8 blocks)."""
+    if row_block is None:
+        row_block = max(1, min(height, (1 << 18) // width))
+    while height % row_block:
+        row_block -= 1
+    return row_block
+
+
+def render_frame_staged(tree, cam5, width, height, render_mode=2,
+                        frame_number=1, gi_bounces=1, use_beam=True,
+                        beam_tile=4, max_depth=C.MAX_DEPTH,
+                        max_iterations=C.MAX_RAYCAST_ITERATIONS,
+                        packed=None, row_block=None, skip_tab=None,
+                        skip_grid_size=32, stats=None):
+    """The JAX package's production ESVO frame path (shade.py
+    render_frame_staged): the frame in blocks of ``row_block`` rows, each
+    traced through traverse.intersect_octree_staged (kernel KE, the
+    block's rays in 8x4 pixel tiles) and shaded on its own, mode 0 with
+    the sin-hash random of the block's own pixels; the beam prepass on by
+    default, its coarse rays traced through the same traversal (and the
+    skip grid, K2, when ``skip_tab`` is given).  ``row_block`` goes
+    through :func:`staged_row_block`.
+    ``stats`` (a list) collects one intersect_octree profile per
+    traversal segment, the beam's first.  Every pixel equals
+    :func:`render_image`'s with the same settings where the skip grid does
+    not move a coarse beam ray.  Returns (color (H,W,3), depth (H,W),
+    iters (H,W))."""
+    _check_mode(render_mode)
+    cam5 = cam5.to(torch.float32)
+    if packed is None:
+        packed = traverse.make_packed_table(tree)
+    isect = _profiled(functools.partial(traverse.intersect_octree_staged,
+                                        tree, packed=packed,
+                                        max_iterations=max_iterations),
+                      stats)
+    if skip_tab is not None:
+        isect = skip_grid.make_skipping_isect(isect, skip_tab,
+                                              grid_size=skip_grid_size)
+    row_block = staged_row_block(width, height, row_block)
+    bt = None
+    if use_beam:
+        bdirs = _beam_dirs(cam5, width, height, beam_tile)
+        bt = _beam_image(isect(cam5[0].expand_as(bdirs), bdirs,
+                               max_depth=max_depth, cone_trace=True),
+                         width, height, beam_tile)
+    tiles = traverse.tile_order(width, row_block, cam5.device)
+    cols, depths, iters = [], [], []
+    for r0 in range(0, height, row_block):
+        dirs = _normalize(pixel_dirs_rows(cam5, width, height, r0,
+                                          row_block))
+        origins = cam5[0].expand_as(dirs)
+        beam = None
+        if bt is not None:
+            beam = _beam_rows(bt, r0, row_block, width, beam_tile)
+            origins = origins + dirs * beam[:, None]
+        c, d, it = _shade_rows(
+            functools.partial(isect, order=tiles), render_mode, origins,
+            dirs, beam, width, r0, frame_number, gi_bounces, max_depth,
+            max_iterations, "glsl", None, ())
+        cols.append(c.reshape(row_block, width, 3))
+        depths.append(d.reshape(row_block, width))
+        iters.append(it.reshape(row_block, width))
+    return torch.cat(cols), torch.cat(depths), torch.cat(iters)
+
+
+def render_progressive(tree, cam5, width, height, spp=4, gi_bounces=1,
+                       rng_key=None, mirror_values=(), max_depth=C.MAX_DEPTH,
+                       max_iterations=C.MAX_RAYCAST_ITERATIONS):
+    """Progressive pathtrace accumulation (shade.py render_progressive):
+    ``spp`` mode-0 samples of :func:`render_image` with threefry random
+    under ``rng_key`` (default rng.prng_key(0)), frame numbers 1..spp,
+    averaged, all on the tree's cached packed table.  Returns (mean
+    colour (H,W,3), the last sample's depth)."""
+    if rng_key is None:
+        rng_key = rng.prng_key(0)
+    packed = tree.packed_table()
+    accum = None
+    for s in range(spp):
+        col, depth, _ = render_image(
+            tree, cam5, width, height, render_mode=0, frame_number=s + 1,
+            gi_bounces=gi_bounces, max_depth=max_depth,
+            max_iterations=max_iterations, rng_mode="threefry",
+            rng_key=rng_key, mirror_values=mirror_values, packed=packed)
+        accum = col if accum is None else accum + col
+    # a true division: on the card, a tensor over a Python scalar is
+    # multiplied by its reciprocal
+    return accum / torch.full_like(accum, float(spp)), depth

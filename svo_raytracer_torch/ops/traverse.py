@@ -30,8 +30,9 @@ import functools
 import numpy as np
 import torch
 
+from ..core import octree
 from ..utils import constants as C
-from . import kernel_build
+from . import fp, kernel_build
 from .hit import HitResult
 
 MAX_SCALE = C.MAX_SCALE
@@ -380,17 +381,14 @@ def _decode(tree, rec, o, d, alive) -> HitResult:
     tag = (mask_t[parent] >> (2 * cs)) & 3
     cil = ci.long()
     zero = torch.zeros_like(ci)
-    # the tag-dependent raw normal field (octree.effective_normal_raw)
-    raw = torch.where(tag == C.TAG_SURFACE_LEAF, normal_t[cil],
-                      torch.where(tag == C.TAG_NON_SURFACE_LEAF, zero,
-                                  mask_t[cil]))
+    raw = octree.effective_normal_raw(tag, None, mask_t[cil], normal_t[cil])
     # non-negative 16-bit fields: floor and truncating % and // agree
     nx = ((raw % 10) - 5).float()
     ny = (torch.div((raw % 100) - (raw % 10), 10, rounding_mode="floor")
           - 5).float()
     nz = (torch.div(raw - (raw % 100), 100, rounding_mode="floor")
           - 5).float()
-    nlen = torch.sqrt(nx * nx + ny * ny + nz * nz)
+    nlen = fp.sqrt(nx * nx + ny * ny + nz * nz)
     has = raw != 0
     fz = torch.zeros_like(nx)
     normal = torch.stack([torch.where(has, nx / nlen, fz),
@@ -461,3 +459,13 @@ def intersect_octree(tree, origin, direction, max_depth=C.MAX_DEPTH,
             capped=int((traced & (rec["done"] == 0)).sum()),
             launches=KE.launches - launches)
     return res
+
+
+# The JAX package's intersect_octree_staged (traverse.py:508) drives its
+# lock-step XLA walk in host rounds, compacting the rays still active and
+# reading one active count per round, because every lane of a TPU batch
+# steps until the slowest ray finishes; its results do not depend on its
+# round, compaction and pipelining knobs.  KE retires each ray on its
+# own, so the staged traversal is intersect_octree itself: KE over the
+# whole batch, in the caller's ``order``.
+intersect_octree_staged = intersect_octree

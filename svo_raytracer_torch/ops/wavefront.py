@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from . import brick_trace, kernel_build
+from .fp import unit_rows
 from .brick_scene import pack_occupancy, table_rows
 from .hit import HitResult
 
@@ -1111,16 +1112,6 @@ def cam16(cam5):
     mode: pos, l1, l2, r1, r2 (Camera.uniform order), then one pad."""
     c = cam5.to(torch.float32).reshape(-1)
     return torch.cat([c, c.new_zeros(1)])
-
-
-def unit_rows(v):
-    """(B,3) rows divided by sqrt(x*x + y*y + z*z), summed in that order
-    and rooted with correct rounding, as the kernel's sqrtf: torch's
-    float32 sqrt on the CPU may be one ulp off, and a float32 square root
-    taken in float64 and rounded back is exact."""
-    x, y, z = v.unbind(1)
-    nrm = torch.sqrt((x * x + y * y + z * z).double()).float()
-    return v / nrm[:, None]
 
 
 def camera_rays(ws: WaveScene, cam, n, W, H, nbx):

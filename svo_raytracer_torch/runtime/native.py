@@ -39,6 +39,16 @@ def _load():
     return _lib
 
 
+def available() -> bool:
+    """Whether the native codec builds and loads (the port has no
+    fallback: without it, import_svo and export_svo raise)."""
+    try:
+        _load()
+    except (OSError, RuntimeError):
+        return False
+    return True
+
+
 def _i32ptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
 

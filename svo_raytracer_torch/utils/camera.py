@@ -84,3 +84,17 @@ class Camera:
         (Camera.getRayPickLocation, Camera.java:31-34)."""
         return mathutil.to_voxel_space(self.pos + self.forward * depth,
                                        world_size)
+
+
+def pixel_directions(corners: np.ndarray, width: int, height: int):
+    """Per-pixel *unnormalized* ray directions, (H, W, 3) float32, in
+    NumPy: dir = mix(mix(l1, l2, p.y), mix(r1, r2, p.y), p.x) with
+    p = (px + 0.5) / size (svotrace.comp:662-664).  Row 0 is p.y ~ 0 (the
+    bottom scanline in GL image coordinates)."""
+    l1, l2, r1, r2 = (np.asarray(corners[i], np.float32) for i in range(4))
+    px = (np.arange(width, dtype=np.float32) + 0.5) / width
+    py = (np.arange(height, dtype=np.float32) + 0.5) / height
+    left = l1[None, :] + (l2 - l1)[None, :] * py[:, None]
+    right = r1[None, :] + (r2 - r1)[None, :] * py[:, None]
+    dirs = left[:, None, :] + (right - left)[:, None, :] * px[None, :, None]
+    return dirs.astype(np.float32)

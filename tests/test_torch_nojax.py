@@ -10,7 +10,11 @@ K-hit train step (the two walls, K = 2) and a render_diff train step (on
 that octree) run, the bench's small pipeline (64^3, one warm and one
 timed frame) runs on the CPU, and apps/worldgen writes a 32^3 world that
 apps/viewer opens and edits through each engine (two edits, a
-screenshot, save and re-read)."""
+screenshot, save and re-read); then the entry's analog renders its
+frame, a staged ESVO frame with a skip grid equals render_image's, a
+threefry progressive frame renders, and the XLA brick engine
+(brick_trace.intersect_bricks) traces rays as the wavefront engine
+does."""
 
 import os
 import subprocess
@@ -101,6 +105,29 @@ for engine in ("wavefront", "esvo"):
                      "--engine", engine, "--script", "3 c x p 0 9 Q"])
     assert len(v.edits) == 2 and os.path.exists(d + "/level1.svo")
     assert v.tree_host.n_nodes >= w.n_nodes, v.edits
+from svo_raytracer_torch import entry
+from svo_raytracer_torch.ops import brick_trace, rng
+fn, args = entry.entry("cpu")
+out = fn(*args)
+assert tuple(out.shape) == (144, 256, 3) and bool(torch.isfinite(out).all())
+col, depth, _ = shade.render_frame_staged(etree, cam5, 32, 24,
+                                          render_mode=2, packed=packed,
+                                          row_block=8, use_beam=False,
+                                          skip_tab=tabs[32])
+assert col.shape == (24, 32, 3) and bool(torch.isfinite(col).all())
+assert torch.equal(col, shade.render_image(
+    etree, cam5, 32, 24, render_mode=2, packed=packed,
+    skip_tab=tabs[32])[0])
+col, depth = shade.render_progressive(etree, cam5, 16, 12, spp=2,
+                                      rng_key=rng.prng_key(1))
+assert col.shape == (12, 16, 3) and bool(torch.isfinite(col).all())
+bo = torch.tensor([[1.5, 1.9, 1.5], [1.1, 1.9, 1.7]])
+bd = torch.tensor([[0.0, -1.0, 0.0], [0.3, -1.0, 0.1]])
+bd = bd / bd.norm(dim=1, keepdim=True)
+res = brick_trace.intersect_bricks(scene64.to_device("cpu"), bo, bd)
+assert res.hit.all() and torch.equal(
+    res.value, wavefront.intersect_wavefront(wavefront.prepare(
+        scene64, "cpu"), bo, bd).value), res
 assert not any(k.split(".")[0] in ("jax", "svo_raytracer_tpu")
                for k, v in sys.modules.items() if v is not None)
 print("ok")
