@@ -139,12 +139,13 @@ class DeviceOctree:
         return Octree(*(a.cpu().numpy() for a in self.arrays()),
                       n_nodes=self.n_nodes, world_size=self.world_size)
 
-    def packed_table(self) -> torch.Tensor:
+    def packed_table(self, refresh: bool = False) -> torch.Tensor:
         """The traversal's word table (ops/traverse.make_packed_table),
         built at the first call and cached: pass it to render and
-        intersect calls as ``packed=``.  Writes to the tensors in place
-        leave the cache stale."""
-        if self._packed is None:
+        intersect calls as ``packed=``.  Whoever writes to the tensors in
+        place rebuilds the cache with ``refresh=True``
+        (runtime/renderer.DeviceTree does after every upload)."""
+        if self._packed is None or refresh:
             from ..ops.traverse import make_packed_table
 
             self._packed = make_packed_table(self)

@@ -13,10 +13,11 @@ traversal followed by elementwise shading.  :func:`render_image` renders
 a frame through the ESVO octree traversal (ops/traverse.py, kernel KE on
 the GPU), optionally seeded by the skip grid (ops/skip_grid.py, kernel
 K2) or the beam prepass; :func:`render_frame_staged` is the JAX
-package's production ESVO frame (row blocks, the beam prepass on) over
-the same kernels, and :func:`render_progressive` averages threefry
-mode-0 samples.  ops/render_wave.py renders through the brick wavefront
-and shares the shading here.  Constants keep the reference's float32
+package's production ESVO frame (the beam prepass on, its coarse rays
+through the skip grid) over the same kernels, and
+:func:`render_progressive` averages threefry mode-0 samples.
+ops/render_wave.py renders through the brick wavefront and shares the
+shading here.  Constants keep the reference's float32
 values as written (e.g. ``2.0 * 3.14159265359``).  Mode 0 draws its
 random from the reference's sin hash (``rng_mode="glsl"``) or from
 threefry (``"threefry"``, ops/rng.py).
@@ -325,13 +326,12 @@ def _beam_image(res, width, height, beam_tile):
         height // beam_tile, width // beam_tile)
 
 
-def _beam_rows(bt, row0, nrows, width, beam_tile):
-    """The beam distance of each pixel of rows [row0, row0 + nrows),
-    row-major: pixel (x, y) reads beam cell (x // tile, y // tile)
-    (svotrace.comp:656-658), clamped at a ragged edge as XLA clamps the
-    JAX package's gather."""
+def _beam_rows(bt, width, height, beam_tile):
+    """The beam distance of each pixel, row-major: pixel (x, y) reads beam
+    cell (x // tile, y // tile) (svotrace.comp:656-658), clamped at a
+    ragged edge as XLA clamps the JAX package's gather."""
     dev = bt.device
-    by = (torch.arange(row0, row0 + nrows, device=dev)
+    by = (torch.arange(height, device=dev)
           // beam_tile).clamp_max(bt.shape[0] - 1)
     bx = (torch.arange(width, device=dev) // beam_tile).clamp_max(
         bt.shape[1] - 1)
@@ -371,35 +371,47 @@ def _profiled(isect, stats):
     return wrapped
 
 
-def _shade_rows(isect, render_mode, origins, dirs, beam, width, row0,
-                frame_number, gi_bounces, max_depth, max_iterations,
-                rng_mode, rng_key, mirror_values):
-    """Render mode ``render_mode`` of the row-major pixel rays (origins,
-    unit dirs) of whole rows from ``row0`` on, through ``isect``;
-    ``beam`` the pixels' beam distances (None: no beam).  Returns flat
-    (col, depth, iters)."""
-    kw = dict(max_depth=max_depth, max_iterations=max_iterations,
-              intersect_fn=isect)
-    if render_mode == 0:
-        dev = origins.device
-        nrows = origins.shape[0] // width
-        px = torch.arange(width, dtype=torch.float32, device=dev).repeat(
-            nrows)
-        py = (torch.arange(nrows, dtype=torch.float32, device=dev)
-              + float(row0)).repeat_interleave(width)
-        return shade_gi(None, origins, dirs, px, py, frame_number,
-                        gi_bounces, rng_mode=rng_mode, rng_key=rng_key,
-                        mirror_values=mirror_values, **kw)
-    if render_mode == 1:
-        return shade_heatmap(None, origins, dirs, **kw)
-    if render_mode == 2:
-        return shade_direct(None, origins, dirs, beam, **kw)
-    return shade_normals(None, origins, dirs, **kw)
-
-
 def _check_mode(render_mode):
     if render_mode not in (0, 1, 2, 3):
         raise ValueError(f"unknown render mode {render_mode}")
+
+
+def _frame(isect, cam5, width, height, render_mode, bt, beam_tile,
+           frame_number, gi_bounces, max_depth, max_iterations, rng_mode,
+           rng_key, mirror_values):
+    """One full-frame pass: the W*H unit pixel rays, started at the beam
+    image ``bt``'s distances (None: no beam), shaded in mode
+    ``render_mode`` through ``isect`` (KE in 8x4 pixel tiles).  Returns
+    (color (H,W,3), depth (H,W), iters (H,W))."""
+    dev = cam5.device
+    dirs = _normalize(pixel_dirs_device(cam5, width, height))
+    origins = cam5[0].expand_as(dirs)
+    beam = None
+    if bt is not None:
+        beam = _beam_rows(bt, width, height, beam_tile)
+        origins = origins + dirs * beam[:, None]
+    # KE traces every segment's W*H pixel rays in 8x4 pixel tiles (K2,
+    # bound by the rays' bytes, is faster in ray order)
+    kw = dict(max_depth=max_depth, max_iterations=max_iterations,
+              intersect_fn=functools.partial(
+                  isect, order=traverse.tile_order(width, height, dev)))
+    if render_mode == 0:
+        px = torch.arange(width, dtype=torch.float32, device=dev).repeat(
+            height)
+        py = torch.arange(height, dtype=torch.float32,
+                          device=dev).repeat_interleave(width)
+        col, depth, iters = shade_gi(
+            None, origins, dirs, px, py, frame_number, gi_bounces,
+            rng_mode=rng_mode, rng_key=rng_key, mirror_values=mirror_values,
+            **kw)
+    elif render_mode == 1:
+        col, depth, iters = shade_heatmap(None, origins, dirs, **kw)
+    elif render_mode == 2:
+        col, depth, iters = shade_direct(None, origins, dirs, beam, **kw)
+    else:
+        col, depth, iters = shade_normals(None, origins, dirs, **kw)
+    return (col.reshape(height, width, 3), depth.reshape(height, width),
+            iters.reshape(height, width))
 
 
 def render_image(tree, cam5, width, height, render_mode=2, frame_number=1,
@@ -423,61 +435,39 @@ def render_image(tree, cam5, width, height, render_mode=2, frame_number=1,
     cam5 = cam5.to(torch.float32)
     if packed is None:
         packed = traverse.make_packed_table(tree)
-    dirs = _normalize(pixel_dirs_device(cam5, width, height))
-    origins = cam5[0].expand_as(dirs)
-
-    # KE traces every segment's W*H pixel rays in 8x4 pixel tiles (K2,
-    # bound by the rays' bytes, is faster in ray order)
-    isect = _profiled(functools.partial(
-        traverse.intersect_octree, tree, packed=packed,
-        order=traverse.tile_order(width, height, cam5.device)), stats)
+    isect = _profiled(functools.partial(traverse.intersect_octree, tree,
+                                        packed=packed), stats)
     if skip_tab is not None:
         isect = skip_grid.make_skipping_isect(isect, skip_tab,
                                               grid_size=skip_grid_size)
-    beam = None
+    bt = None
     if use_beam:
         bt = beam_prepass(tree, cam5, width, height, beam_tile, max_depth,
                           max_iterations, packed=packed)
-        beam = _beam_rows(bt, 0, height, width, beam_tile)
-        origins = origins + dirs * beam[:, None]
-    col, depth, iters = _shade_rows(
-        isect, render_mode, origins, dirs, beam, width, 0, frame_number,
-        gi_bounces, max_depth, max_iterations, rng_mode, rng_key,
-        mirror_values)
-    return (col.reshape(height, width, 3), depth.reshape(height, width),
-            iters.reshape(height, width))
-
-
-def staged_row_block(width, height, row_block=None):
-    """render_frame_staged's rows per block: ``row_block``, by default
-    (1 << 18) // width rows (at most ``height``), lowered until it
-    divides ``height`` (1920x1080: 135 rows, 8 blocks)."""
-    if row_block is None:
-        row_block = max(1, min(height, (1 << 18) // width))
-    while height % row_block:
-        row_block -= 1
-    return row_block
+    return _frame(isect, cam5, width, height, render_mode, bt, beam_tile,
+                  frame_number, gi_bounces, max_depth, max_iterations,
+                  rng_mode, rng_key, mirror_values)
 
 
 def render_frame_staged(tree, cam5, width, height, render_mode=2,
                         frame_number=1, gi_bounces=1, use_beam=True,
                         beam_tile=4, max_depth=C.MAX_DEPTH,
                         max_iterations=C.MAX_RAYCAST_ITERATIONS,
-                        packed=None, row_block=None, skip_tab=None,
-                        skip_grid_size=32, stats=None):
+                        packed=None, skip_tab=None, skip_grid_size=32,
+                        stats=None):
     """The JAX package's production ESVO frame path (shade.py
-    render_frame_staged): the frame in blocks of ``row_block`` rows, each
-    traced through traverse.intersect_octree_staged (kernel KE, the
-    block's rays in 8x4 pixel tiles) and shaded on its own, mode 0 with
-    the sin-hash random of the block's own pixels; the beam prepass on by
-    default, its coarse rays traced through the same traversal (and the
-    skip grid, K2, when ``skip_tab`` is given).  ``row_block`` goes
-    through :func:`staged_row_block`.
+    render_frame_staged): the beam prepass on by default, its coarse rays
+    traced through traverse.intersect_octree_staged (kernel KE) and the
+    skip grid (K2) when ``skip_tab`` is given, then one full-frame pass
+    of :func:`render_image`'s shading through the same traversal; mode 0
+    takes the sin-hash random.  JAX's ``row_block`` is not ported: its
+    row blocks keep XLA:TPU gathers under ~0.5 M indices, and a block's
+    pixels equal the full frame's (ROADMAP.md, "Do not port").
     ``stats`` (a list) collects one intersect_octree profile per
     traversal segment, the beam's first.  Every pixel equals
-    :func:`render_image`'s with the same settings where the skip grid does
-    not move a coarse beam ray.  Returns (color (H,W,3), depth (H,W),
-    iters (H,W))."""
+    :func:`render_image`'s with the same settings, but where the skip
+    grid restarts a coarse beam ray, which moves its t by a few ulps.
+    Returns (color (H,W,3), depth (H,W), iters (H,W))."""
     _check_mode(render_mode)
     cam5 = cam5.to(torch.float32)
     if packed is None:
@@ -489,31 +479,15 @@ def render_frame_staged(tree, cam5, width, height, render_mode=2,
     if skip_tab is not None:
         isect = skip_grid.make_skipping_isect(isect, skip_tab,
                                               grid_size=skip_grid_size)
-    row_block = staged_row_block(width, height, row_block)
     bt = None
     if use_beam:
         bdirs = _beam_dirs(cam5, width, height, beam_tile)
         bt = _beam_image(isect(cam5[0].expand_as(bdirs), bdirs,
                                max_depth=max_depth, cone_trace=True),
                          width, height, beam_tile)
-    tiles = traverse.tile_order(width, row_block, cam5.device)
-    cols, depths, iters = [], [], []
-    for r0 in range(0, height, row_block):
-        dirs = _normalize(pixel_dirs_rows(cam5, width, height, r0,
-                                          row_block))
-        origins = cam5[0].expand_as(dirs)
-        beam = None
-        if bt is not None:
-            beam = _beam_rows(bt, r0, row_block, width, beam_tile)
-            origins = origins + dirs * beam[:, None]
-        c, d, it = _shade_rows(
-            functools.partial(isect, order=tiles), render_mode, origins,
-            dirs, beam, width, r0, frame_number, gi_bounces, max_depth,
-            max_iterations, "glsl", None, ())
-        cols.append(c.reshape(row_block, width, 3))
-        depths.append(d.reshape(row_block, width))
-        iters.append(it.reshape(row_block, width))
-    return torch.cat(cols), torch.cat(depths), torch.cat(iters)
+    return _frame(isect, cam5, width, height, render_mode, bt, beam_tile,
+                  frame_number, gi_bounces, max_depth, max_iterations,
+                  "glsl", None, ())
 
 
 def render_progressive(tree, cam5, width, height, spp=4, gi_bounces=1,
@@ -522,8 +496,10 @@ def render_progressive(tree, cam5, width, height, spp=4, gi_bounces=1,
     """Progressive pathtrace accumulation (shade.py render_progressive):
     ``spp`` mode-0 samples of :func:`render_image` with threefry random
     under ``rng_key`` (default rng.prng_key(0)), frame numbers 1..spp,
-    averaged, all on the tree's cached packed table.  Returns (mean
-    colour (H,W,3), the last sample's depth)."""
+    averaged, all on the tree's cached packed table
+    (DeviceOctree.packed_table; runtime/renderer.DeviceTree rebuilds it
+    after every upload).  Returns (mean colour (H,W,3), the last sample's
+    depth)."""
     if rng_key is None:
         rng_key = rng.prng_key(0)
     packed = tree.packed_table()

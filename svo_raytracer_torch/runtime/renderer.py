@@ -6,8 +6,8 @@ ranged update of the node SSBO (``Renderer.java:43-150``).  Here the
 buffer is the DeviceOctree's four int32 tensors, padded to a capacity so
 an edit that appends nodes writes into them in place, and a ranged
 update copies only the edit's two dirty slot windows.  The ESVO engine
-also reads the packed node words (ops/traverse.make_packed_table); they
-are rebuilt on the device after every upload, so a frame never packs.
+also reads the packed node words (DeviceOctree.packed_table); the cache
+is rebuilt on the device after every upload, so a frame never packs.
 """
 
 from __future__ import annotations
@@ -17,7 +17,6 @@ import torch
 
 from ..core.octree import Octree
 from ..core.sdf import ChangeBounds
-from ..ops import traverse
 
 
 class DeviceTree:
@@ -43,8 +42,14 @@ class DeviceTree:
     def arrays(self):
         return self.dev.arrays()
 
+    @property
+    def packed(self) -> torch.Tensor:
+        """The device octree's cached packed words (one cache, so every
+        renderer of ``self.dev`` reads the uploaded table)."""
+        return self.dev.packed_table()
+
     def _repack(self):
-        self.packed = traverse.make_packed_table(self.dev)
+        self.dev.packed_table(refresh=True)
 
     def full_upload(self, tree: Octree, capacity: int | None = None) -> None:
         """Whole-buffer upload (addSSBO/updateSSBO full variants,

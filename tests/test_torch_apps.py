@@ -53,7 +53,7 @@ from svo_raytracer_torch.apps import app, input as input_mod, matgen
 from svo_raytracer_torch.apps import viewer, worldgen
 from svo_raytracer_torch.core import build_np, sdf, svo_format
 from svo_raytracer_torch.io import image
-from svo_raytracer_torch.ops import brick_scene, traverse, wavefront
+from svo_raytracer_torch.ops import brick_scene, shade, traverse, wavefront
 from svo_raytracer_torch.runtime.renderer import DeviceTree
 from svo_raytracer_torch.utils.camera import Camera
 from test_torch_patch import assert_wave_equal
@@ -152,6 +152,30 @@ def test_device_tree_equals_jax(case):
     if case == "ranged":
         assert dt.last_upload["bytes"] == 16 * (cb.end0 - cb.start0
                                                 + cb.end1 - cb.start1)
+
+
+@pytest.mark.parametrize("case", ["ranged", "grows"])
+def test_progressive_after_edit_reads_the_upload(case):
+    """DeviceTree keeps the one packed cache of its DeviceOctree: a
+    progressive frame rendered before an edit and again after it equals
+    the frame of a fresh upload of the edited tree, bit for bit."""
+    from conftest import make_sphere_voxels
+    tree = build_np.build_octree_np(make_sphere_voxels(16, radius=5))
+    cap = tree.n_nodes + (64 if case == "ranged" else 0)
+    dt = DeviceTree(tree, "cpu", min_capacity=cap)
+    cam = Camera(pos=np.array([1.5, 1.55, 1.05]))
+    cam.rotate(0.0, 3.14159)   # facing the sphere and the edit
+    cam5 = torch.from_numpy(cam.uniform().astype(np.float32))
+    before, _ = shade.render_progressive(dt.dev, cam5, 16, 12, spp=2)
+    ball = ((8, 8, 5), 2) if case == "ranged" else ((8, 8, 8), 6)
+    new, cb = sdf.use_sdf_brush(tree, sdf.Sphere(*ball), 2, max_lod=4)
+    dt.ranged_update(new, cb)
+    assert dt.last_upload["full"] == (case == "grows")
+    got, got_depth = shade.render_progressive(dt.dev, cam5, 16, 12, spp=2)
+    ref, ref_depth = shade.render_progressive(
+        new.to_device("cpu", pad_to=dt.capacity), cam5, 16, 12, spp=2)
+    assert torch.equal(got, ref) and torch.equal(got_depth, ref_depth)
+    assert not torch.equal(before, got)
 
 
 def _session(engine, out_dir, monkeypatch):

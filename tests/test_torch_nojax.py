@@ -112,7 +112,7 @@ out = fn(*args)
 assert tuple(out.shape) == (144, 256, 3) and bool(torch.isfinite(out).all())
 col, depth, _ = shade.render_frame_staged(etree, cam5, 32, 24,
                                           render_mode=2, packed=packed,
-                                          row_block=8, use_beam=False,
+                                          use_beam=False,
                                           skip_tab=tabs[32])
 assert col.shape == (24, 32, 3) and bool(torch.isfinite(col).all())
 assert torch.equal(col, shade.render_image(

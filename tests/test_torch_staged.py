@@ -1,7 +1,9 @@
 """The staged ESVO drivers in the port: traverse.intersect_octree_staged
 and shade.render_frame_staged, against the port's intersect_octree and
 render_image and against the JAX package's staged drivers, on the 32^3
-terrain of tests/conftest.py.
+terrain of tests/conftest.py.  The port's staged frame is one full-frame
+pass; JAX's is rendered in row blocks (8 rows here, and 2 and 24 in one
+test), whose pixels equal the full frame's.
 
 The port's staged traversal is KE over the whole batch (the JAX driver's
 rounds and compaction serve TPU lock-step batches), so it equals the
@@ -126,7 +128,7 @@ def _frames(world, mode, beam, skip, width=W, height=H, row_block=8):
         world["cam5"]), width, height, row_block=row_block, round_steps=32,
         **jkw)
     got = shade.render_frame_staged(world["tree"], torch.from_numpy(
-        world["cam5"]), width, height, row_block=row_block, **kw)
+        world["cam5"]), width, height, **kw)
     return [np.asarray(r) for r in ref], [g.numpy() for g in got]
 
 
@@ -145,6 +147,20 @@ def test_render_frame_staged_matches_jax(world, monkeypatch, mode, beam,
     assert 0.1 < (got[1] != miss).mean() < 0.95
 
 
+@pytest.mark.parametrize("row_block", [2, 24])
+@pytest.mark.parametrize("mode", [0, 2])
+def test_one_pass_matches_jax_row_blocks(world, monkeypatch, mode,
+                                         row_block):
+    """The port renders the frame in one pass; JAX's row blocks of 2 and
+    of 24 rows (the whole frame) give the same frame, to the same bar."""
+    monkeypatch.setattr(rng, "pixel_rand", _jax_rand)
+    ref, got = _frames(world, mode, True, False, row_block=row_block)
+    for a, b, name in zip(ref, got, ("color", "depth")):
+        np.testing.assert_allclose(b, a, rtol=FRAME_TOL, atol=FRAME_TOL,
+                                   err_msg=f"mode={mode} {name}")
+    assert np.abs(got[2].astype(np.int64) - ref[2]).max() <= ITERS_DRIFT
+
+
 def test_render_frame_staged_ragged_beam_matches_jax(world):
     """Height 26 is no multiple of the beam tile: the last rows read the
     last beam row, as XLA clamps JAX's gather."""
@@ -154,26 +170,6 @@ def test_render_frame_staged_ragged_beam_matches_jax(world):
         np.testing.assert_allclose(b, a, rtol=FRAME_TOL, atol=FRAME_TOL,
                                    err_msg=name)
     assert np.abs(got[2].astype(np.int64) - ref[2]).max() <= ITERS_DRIFT
-
-
-@pytest.mark.parametrize("mode", [0, 2])
-def test_row_blocks_change_nothing(world, mode):
-    c5 = torch.from_numpy(world["cam5"])
-    a = shade.render_frame_staged(world["tree"], c5, W, H, render_mode=mode,
-                                  row_block=2)
-    b = shade.render_frame_staged(world["tree"], c5, W, H, render_mode=mode,
-                                  row_block=24)
-    for x, y in zip(a, b):
-        assert torch.equal(x, y)
-
-
-def test_default_row_block_divides_the_height(world):
-    stats = []
-    shade.render_frame_staged(world["tree"], torch.from_numpy(
-        world["cam5"]), 1920 // 40, 1080 // 40, render_mode=3,
-        use_beam=False, stats=stats)
-    # (1 << 18) // 48 = 5461 rows, cut to the height: one block
-    assert len(stats) == 1 and stats[0]["rays"] == 48 * 27
 
 
 @pytest.mark.parametrize("skip", [False, True])
@@ -186,11 +182,11 @@ def test_staged_equals_render_image(world, mode, beam, skip):
                   skip_grid_size=SKIP_G)
     c5 = torch.from_numpy(world["cam5"])
     stats = []
-    a = shade.render_frame_staged(world["tree"], c5, W, H, row_block=8,
-                                  stats=stats, **kw)
+    a = shade.render_frame_staged(world["tree"], c5, W, H, stats=stats,
+                                  **kw)
     b = shade.render_image(world["tree"], c5, W, H, **kw)
     segs = (2 if mode == 0 else 1) * (2 if mode == 2 else 1)
-    assert len(stats) == (1 if beam else 0) + 3 * segs
+    assert len(stats) == (1 if beam else 0) + segs
     if not (skip and beam):
         for x, y in zip(a, b):
             assert torch.equal(x, y)
