@@ -51,6 +51,19 @@ deciding every ray where the two part.  Their KE and K2 launches form
 three kernels lines of their own; their K1 launches join the bench
 world's.
 
+Then the multi-device layer on the same world (lines ``[multi ...]``):
+four ranks share the card over gloo (svo_raytracer_torch/parallel,
+spawned processes handed the world in one file) and run
+build_world_sharded over a 4-rank tile mesh, equal to the serial world;
+wavefront tile renders (mode 0 gi-1, mode 2, interleaved rows), ESVO
+tile renders (modes 1-3) and brick renders on a 2x2 (tiles, bricks) grid
+(mode 2, mode 0 gi-1), each held to the single-card frame; and sharded
+train steps (ESVO, wavefront K = 2, bricks) with falling losses, the
+first held to the single-card step; then K1, its keys and KE are held to
+their plain versions on each rank's own rays, and one rank renders the
+same frames over nccl.  The ranks' launches join the bench world's K1,
+key and KE lines.
+
 Then it drives the main path at full size on three seeded heightmap worlds
 (value noise, built directly as BrickScenes), each through its own part of
 kernel K1, with the camera placed by bench.py's downward-probe rule and
@@ -64,8 +77,9 @@ mode (each thread derives its ray from its id and the camera):
     same world prepared with half-word (attr16) attributes.
 
 Every world's K1 records are held equal to its plain PyTorch version,
-trace_plain, on the card, as are those of the small test scenes (G = 2,
-G = 64 and a sparse paged 4096^3 scene) first.  K1 traces explicit rays
+trace_plain, on the card (the 4096^3 world's segments through bounce 1),
+as are those of the small test scenes (G = 2, G = 64 and a sparse paged
+4096^3 scene) first.  K1 traces explicit rays
 in the order of their sort keys (wavefront.ray_order: K1's key kernel,
 held equal to ray_keys_plain on every set, then torch.sort); each check
 prints the key-and-sort time apart from K1's own, and on bounce segment
@@ -209,6 +223,36 @@ BRICK_DT_VOX = 0.0105
 TRAIN_WARM, TRAIN_TIMED = 2, 5
 TRAIN_LR = {"wave": 1e6, "esvo": 1e6}
 TRAIN_GRAD_SAMPLE = 1 << 20
+
+# The [multi] phase (multi_phase) on the bench world: MULTI_RANKS ranks
+# sharing the card over gloo, the (tiles, bricks) grid of the brick paths,
+# warm and timed frames per path, train steps per kind (the first held to
+# the single card's), rays sampled per segment for the kernel checks; the
+# bars: wavefront frames within MULTI_FRAME_TOL of the single card's on
+# MULTI_FRAME_SHARE of the pixels (tests/test_wave_sharded.py's), ESVO
+# frames within ESVO_TOL on every pixel (tests/test_parallel.py's)
+MULTI_RANKS = 4
+MULTI_GRID = (2, 2)
+MULTI_WARM, MULTI_TIMED = 1, 3
+MULTI_STEPS = 4
+MULTI_SAMPLE = 4096
+MULTI_FRAME_TOL, MULTI_FRAME_SHARE = 1e-5, 0.999
+ESVO_TOL = 2e-5
+# each kind's first sharded step against the single card's: loss within
+# rtol 1e-5, parameters within STEP_ATOL (tests/test_parallel.py's bars).
+# The brick step's single-card step traces every brick on one card
+# (intersect_bricks_local); against the monolith's step it is only
+# reported: a brick ray's origin rounds once at + 1.0, which moves the
+# hits of grazing rays, and at lr 1e6 each moved hit moves its node's
+# parameters (1,254 albedo entries past STEP_ATOL on the bench world at
+# 1080p; NVIDIA H100 80GB HBM3, 700 W)
+STEP_ATOL = 1e-5
+
+# K1 vs trace_plain on every segment of a frame stops at bounce 1 on the
+# paged 4096^3 world (its gi-3 bounces 2 and 3 take 38 s of plain version,
+# run twice, on an NVIDIA H100 80GB HBM3 host); the 1024^3 and 2048^3
+# worlds check all
+PAGED_COMPARE_BOUNCES = 1
 
 # The worlds of the main path, each through its part of kernel K1 (every
 # primary segment in camera mode, sub-slice (b)): (size, n_mixed class,
@@ -2751,13 +2795,15 @@ def api_phases(dev, ws, tree, packed, cam5):
     kernels = [
         dict(kernel_entry(
             "KE per-ray ESVO traversal, bench world 1024^3 octree: staged "
-            "frames, progressive samples and the entry (plain schedule)",
+            "frames, progressive samples, the entry and the multi-rank "
+            "paths (plain schedule)",
             "svo_raytracer_torch/csrc/esvo.cu",
             "svo_raytracer_tpu/ops/traverse.py:382", n["KE"], s_ke,
             s_ke + e_ke), tpu_kernel=tpu_kernel),
         dict(kernel_entry(
             "KE per-ray ESVO traversal, bench world 1024^3 octree: beams and "
-            "cone-traced bounces (binned schedule)",
+            "cone-traced bounces, the multi-rank brick bounces too (binned "
+            "schedule)",
             "svo_raytracer_torch/csrc/esvo.cu",
             "svo_raytracer_tpu/ops/traverse.py:382", n["KE_binned"],
             s_binned, s_binned), tpu_kernel=tpu_kernel),
@@ -2770,6 +2816,498 @@ def api_phases(dev, ws, tree, packed, cam5):
         if n[k] < 1:
             raise AssertionError(f"the API paths missed {k}: {n}")
     return summary, kernels, n["K1_explicit"], n["K1_keys"]
+
+
+# ------------------------------------------------ the multi-device layer
+def _multi_world(d, dev):
+    """The bench world as the parent handed it to the ranks (multi_phase)."""
+    import torch
+    return torch.load(os.path.join(d, "world.pt"), map_location=dev,
+                      weights_only=False)
+
+
+def _multi_digest(t):
+    """Two int64 sums over a float32 tensor's bit patterns, plain and
+    position-weighted: equal digests on every rank stand for equal
+    tensors."""
+    import torch
+    bits = t.detach().reshape(-1).view(torch.int32)
+    plain = int(bits.sum(dtype=torch.int64))
+    weighted = 0
+    for i, c in enumerate(bits.split(1 << 24)):
+        w = torch.arange(c.numel(), device=c.device) % 65521 + 1 + i
+        weighted += int((c.long() * w).sum())
+    return [plain, weighted]
+
+
+def _frame_share(a, b, tol):
+    """(share of pixels within ``tol`` in every channel, share exactly
+    equal, max |a - b|) of two images."""
+    diff = (a - b).abs().amax(-1)
+    return (float((diff <= tol).float().mean()),
+            float((a == b).all(-1).float().mean()),
+            float(diff.max()))
+
+
+def _multi_kernel_checks(ws, tree, packed, bricks, wave_segments,
+                         esvo_rays):
+    """On MULTI_SAMPLE sampled rays of each of this rank's segments: K1
+    (in key order) == trace_plain and its keys == ray_keys_plain on the
+    wavefront mode-0 frame's primary and bounce segments; KE ==
+    intersect_plain on the ESVO band's primaries and on the brick rays
+    of this rank's first brick.  Returns {kernel: max |err|} and raises
+    where a field differs."""
+    import torch
+    from svo_raytracer_torch.ops import traverse
+    from svo_raytracer_torch.ops import wavefront as wf
+    from svo_raytracer_torch.utils.constants import MAX_DEPTH
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    errs = {"K1": 0.0, "K1 keys": 0.0, "KE": 0.0}
+
+    def pick(n):
+        return torch.randperm(n, generator=gen)[:MULTI_SAMPLE]
+
+    for seg, s in enumerate(wave_segments):
+        live = torch.nonzero(s["active"] if s["active"] is not None
+                             else torch.ones_like(s["dirs"][:, 0],
+                                                  dtype=torch.bool))
+        idx = live.flatten()[pick(live.numel()).to(live.device)]
+        o, d, alive = wf._rays(ws, s["origins"][idx], s["dirs"][idx])
+        k = dict(zip(("status", "t", "cell", "widx", "iters"),
+                     wf.trace_kernel(ws, o, d, alive,
+                                     wf.ray_order(ws, o, d, alive))))
+        p = dict(zip(k, wf.trace_plain(ws, o, d, alive)))
+        keys = unequal(dict(key=wf.ray_keys_kernel(ws, o, d, alive)),
+                       dict(key=wf.ray_keys_plain(ws, o, d, alive)))
+        for name, (diff, err) in (("K1", unequal(k, p)), ("K1 keys", keys)):
+            if any(diff.values()):
+                raise AssertionError(f"{name} segment {seg}: {diff}")
+            errs[name] = max(errs[name], err)
+    o_band, d_band = esvo_rays
+    corner = bricks.corners[0]
+    for name, pk, o, d in (
+            ("band", packed, o_band, d_band),
+            (f"brick {bricks.ids[0]}", bricks.packed[0],
+             (o_band - corner[None]) * 2.0 + 1.0, d_band)):
+        idx = pick(o.shape[0]).to(o.device)
+        oo, dd = o[idx].contiguous(), d[idx].contiguous()
+        alive = torch.ones(oo.shape[0], dtype=torch.bool, device=oo.device)
+        kw = dict(max_depth=MAX_DEPTH - (0 if name == "band" else 1))
+        diff, err = unequal(traverse.intersect_kernel(pk, oo, dd, alive, **kw),
+                            traverse.intersect_plain(pk, oo, dd, alive, **kw))
+        if any(diff.values()):
+            raise AssertionError(f"KE {name}: {diff}")
+        errs["KE"] = max(errs["KE"], err)
+    return errs
+
+
+def _local_brick_step(bs, dev, tree, cam5, target):
+    """The brick train step on one card: every brick of ``bs`` traced
+    there (intersect_bricks_local), make_brick_train_step's loss and
+    update, from untrained parameters.  Returns (params, loss)."""
+    import torch
+    from svo_raytracer_torch.diff import render_diff as rd
+    from svo_raytracer_torch.ops import traverse
+    from svo_raytracer_torch.parallel import bricks as B
+    from svo_raytracer_torch.parallel import render_sharded as rs
+    local = bs.to_device(dev)
+    origins, dirs = rs.band_rays(cam5, W, H, 0, H, rd.d_unit)
+    res = B.intersect_bricks_local(local, origins, dirs,
+                                   order=traverse.tile_order(W, H, dev))
+    del local
+
+    def loss_sum(p):
+        col = rd.shade_hits(p, res, dirs).reshape(H, W, 3)
+        return torch.sum((col - target) ** 2)
+
+    p = rd.init_params(tree)
+    loss, grads = rd.loss_and_grads(loss_sum, p)
+    return (rs.sgd_sum(p, grads, TRAIN_LR["esvo"], H * W * 3),
+            loss / float(H * W * 3))
+
+
+def multi_rank(d, device_type):
+    """One of MULTI_RANKS ranks sharing the card over gloo ([multi]): on
+    the bench world that multi_phase wrote to ``d``, build_world_sharded
+    over tile_mesh(4); then, with the launch counts set to 0 just before
+    and read just after, the sharded paths: wavefront tile renders (mode
+    0 gi-1 and mode 2, interleaved rows), ESVO tile renders (modes 1-3),
+    brick renders on grid_mesh(2, 2) (mode 2, mode 0 gi-1), each
+    MULTI_WARM + MULTI_TIMED frames, and MULTI_STEPS sharded train steps
+    of each kind (ESVO, wavefront K = 2, bricks).  After the window: the
+    kernels against their plain versions on this rank's segments, and
+    on rank 0 every image and each kind's first step against the
+    single-card one.  Writes rank<r>.json (and rank 0 its images, for
+    the nccl run) to ``d``."""
+    import torch
+    import torch.distributed as dist
+    from svo_raytracer_torch.diff import render_diff as rd
+    from svo_raytracer_torch.diff import wave_diff as wd
+    from svo_raytracer_torch.models import procgen
+    from svo_raytracer_torch.models import world as world_mod
+    from svo_raytracer_torch.ops import shade
+    from svo_raytracer_torch.parallel import bricks as B
+    from svo_raytracer_torch.parallel import distributed
+    from svo_raytracer_torch.parallel import mesh as mesh_mod
+    from svo_raytracer_torch.parallel import render_sharded as rs
+    from svo_raytracer_torch.parallel import render_wave_sharded as rws
+    rank = dist.get_rank()
+    dev = distributed.rank_device(dist.get_backend(), device_type)
+    blob = _multi_world(d, dev)
+    ws, tree, cam5, bs = (blob["ws"], blob["tree"], blob["cam5"],
+                          blob["bricks"])
+    packed = tree.packed_table()
+    m = mesh_mod.tile_mesh(MULTI_RANKS, device_type)
+    grid = mesh_mod.grid_mesh(*MULTI_GRID, device_type)
+    out = dict(rank=rank, device=str(dev))
+
+    # ---- build_world_sharded: the bench world's chunks over the ranks
+    t0 = time.perf_counter()
+    size = ws.world_size
+    w = world_mod.build_world_sharded(
+        size, size // 2, lambda o: procgen.generate_chunk(o, size // 2,
+                                                          device=dev),
+        m, world_offset=(0, -size // 2, 0))
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    out["build_equal"] = (w.n_nodes == tree.n_nodes and all(
+        torch.equal(a, b) for a, b in zip(w.arrays(), tree.arrays())))
+    out["build_nodes"] = w.n_nodes
+    del w
+    torch.cuda.empty_cache()
+
+    dbs = bs.to_device(dev, grid)
+    # targets of the train steps, 0.8 x the untrained images (before the
+    # counts are set to 0)
+    p_esvo = rd.init_params(tree)
+    t_esvo = 0.8 * rd.render_diff(p_esvo, tree, cam5, W, H, packed=packed)
+    dirs = rd.d_unit(shade.pixel_dirs_device(cam5, W, H))
+    t_wave = 0.8 * wd.render_wave_diff(wd.init_params(ws), ws,
+                                       cam5[0].expand_as(dirs), dirs,
+                                       2).reshape(H, W, 3)
+    del dirs
+    dist.barrier()
+
+    # ---- the main path, the counts set to 0 just before
+    reset_counts()
+    images, ms, stats = {}, {}, []
+    wave = {mode: rws.make_wave_sharded_render(m, ws, W, H, render_mode=mode,
+                                               gi_bounces=1)
+            for mode in (0, 2)}
+    for mode, render in wave.items():
+        def frame(i, render=render, mode=mode):
+            images[f"wave mode {mode}"], n_left = render(
+                ws, cam5, 1, stats=stats if (mode == 0 and i == 0) else None)
+            out.setdefault("n_left", {})[f"wave mode {mode}"] = n_left
+        ms[f"wave mode {mode}"] = frame_ms(frame, MULTI_WARM, MULTI_TIMED)
+    for mode in (1, 2, 3):
+        render = rs.make_sharded_render(m, W, H, render_mode=mode)
+
+        def frame(i, render=render, mode=mode):
+            images[f"esvo mode {mode}"] = render(tree, cam5, packed)
+        ms[f"esvo mode {mode}"] = frame_ms(frame, MULTI_WARM, MULTI_TIMED)
+    for mode in (2, 0):
+        render = B.make_brick_render(grid, bs, W, H, render_mode=mode,
+                                     frame_number=1, gi_bounces=1)
+
+        def frame(i, render=render, mode=mode):
+            images[f"bricks mode {mode}"] = render(dbs, cam5)
+        ms[f"bricks mode {mode}"] = frame_ms(frame, MULTI_WARM, MULTI_TIMED)
+    steps = dict(
+        esvo=(rs.make_sharded_train_step(m, W, H, lr=TRAIN_LR["esvo"]),
+              lambda p: steps["esvo"][0](p, tree, cam5, t_esvo, packed),
+              p_esvo),
+        wave=(wd.make_wave_sharded_train_step(m, ws, W, H, K=2,
+                                              lr=TRAIN_LR["wave"]),
+              lambda p: steps["wave"][0](p, cam5, t_wave),
+              wd.init_params(ws)),
+        bricks=(B.make_brick_train_step(grid, bs, W, H,
+                                        lr=TRAIN_LR["esvo"]),
+                lambda p: steps["bricks"][0](p, dbs, cam5, t_esvo),
+                rd.init_params(tree)))
+    first, trained = {}, {}
+    for kind, (_, step, p) in steps.items():
+        losses, times = [], []
+        for i in range(MULTI_STEPS):
+            t1 = time.perf_counter()
+            p, loss = step(p)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+            losses.append(float(loss))
+            if i == 0 and rank == 0:
+                first[kind] = p
+        ms[f"train {kind}"] = (float(np.median(times[1:])), times)
+        out.setdefault("losses", {})[kind] = losses
+        trained[kind] = [_multi_digest(t) for t in p]
+        del p
+    torch.cuda.synchronize()
+    out["launches"] = read_counts()
+    out["ms"] = {k: v[0] for k, v in ms.items()}
+    out["times"] = {k: v[1] for k, v in ms.items()}
+    out["image_digest"] = {k: _multi_digest(v) for k, v in images.items()}
+    out["param_digest"] = trained
+
+    # ---- where a rank's time goes: the collectives alone, host clock
+    # around each (synchronized), on tensors of the paths' shapes
+    def coll_ms(fn, reps):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        return float(np.median(times))
+
+    band = torch.zeros((H // MULTI_RANKS, W, 3), device=dev)
+    out["collective_ms"] = {
+        "image all_gather": coll_ms(lambda: m.all_gather(band, "tiles"),
+                                    MULTI_TIMED)}
+    del band
+    for kind, (alb, den) in (("esvo", rd.init_params(tree)),
+                             ("wave", wd.init_params(ws))):
+        out["collective_ms"][f"{kind} gradient psum"] = coll_ms(
+            lambda alb=alb, den=den: (m.psum(alb, "tiles", inplace=True),
+                                      m.psum(den, "tiles", inplace=True)), 1)
+    del alb, den
+
+    # ---- the kernels against their plain versions on this rank's rays
+    row0, rows = rs.row_band(m, H)
+    esvo_rays = rs.band_rays(cam5, W, H, row0, rows, shade._normalize)
+    out["kernel_err"] = _multi_kernel_checks(
+        ws, tree, packed, dbs, [dict(s) for s in stats[:2]], esvo_rays)
+    del stats
+
+    # ---- rank 0: images and first steps against the single card
+    if rank == 0:
+        refs = blob["refs"]
+        cmp = {}
+        for k in ("wave mode 0", "wave mode 2"):
+            cmp[k] = _frame_share(images[k], refs[k], MULTI_FRAME_TOL)
+        for k in ("esvo mode 1", "esvo mode 2", "esvo mode 3"):
+            cmp[k] = _frame_share(images[k], refs[k], ESVO_TOL)
+        a, b = images["bricks mode 2"], refs["esvo mode 2"]
+        close = torch.isclose(a, b, rtol=1e-4, atol=2e-4).all(-1)
+        cmp["bricks mode 2"] = (float(close.float().mean()),
+                                float((a == b).all(-1).float().mean()),
+                                float((a - b).abs().max()))
+        a, b = images["bricks mode 0"], refs["esvo mode 0"]
+        close = torch.isclose(a, b, rtol=1e-3, atol=1e-3).all(-1)
+        cmp["bricks mode 0"] = (float(close.float().mean()),
+                                float((a == b).all(-1).float().mean()),
+                                float((a - b).abs().max()))
+        out["vs_single"] = cmp
+        torch.save({k: images[k].cpu() for k in images
+                    if not k.startswith("bricks")},
+                   os.path.join(d, "gloo_images.pt"))
+        del images
+        refs_step = dict(
+            esvo=lambda: rd.train_step(rd.init_params(tree), tree, cam5,
+                                       t_esvo, W, H, lr=TRAIN_LR["esvo"],
+                                       packed=packed),
+            wave=lambda: wd.make_wave_train_step(
+                ws, W, H, K=2, lr=TRAIN_LR["wave"])(wd.init_params(ws), cam5,
+                                                     t_wave),
+            bricks=lambda: _local_brick_step(bs, dev, tree, cam5, t_esvo),
+            monolith=lambda: rd.train_step(rd.init_params(tree), tree, cam5,
+                                           t_esvo, W, H, lr=TRAIN_LR["esvo"],
+                                           packed=packed))
+        first["monolith"] = first["bricks"]
+        out["losses"]["monolith"] = out["losses"]["bricks"]
+        out["step_vs_single"] = {}
+        for kind, ref in refs_step.items():
+            q, loss = ref()
+            rec = dict(loss=float(loss), sharded_loss=out["losses"][kind][0])
+            for f, a, b in zip(q._fields, first[kind], q):
+                diff = (a - b).abs()
+                at = int(diff.argmax())
+                rec[f] = dict(max_abs_diff=float(diff.max()),
+                              over_atol=int((diff > STEP_ATOL).sum()),
+                              worst=[at, float(a.reshape(-1)[at]),
+                                     float(b.reshape(-1)[at])])
+            out["step_vs_single"][kind] = rec
+            del q
+        del out["losses"]["monolith"], first
+    with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+
+
+def multi_nccl(d, device_type):
+    """The [multi] renders once more at world size 1 over nccl (the
+    backend of one card per rank): wavefront modes 0 gi-1 and 2, ESVO
+    modes 1-3, each against the single-card image and the 4-rank gloo
+    image, counts set to 0 before and read after.  Writes nccl.json."""
+    import torch
+    import torch.distributed as dist
+    from svo_raytracer_torch.parallel import distributed
+    from svo_raytracer_torch.parallel import mesh as mesh_mod
+    from svo_raytracer_torch.parallel import render_sharded as rs
+    from svo_raytracer_torch.parallel import render_wave_sharded as rws
+    dev = distributed.rank_device(dist.get_backend(), device_type)
+    blob = _multi_world(d, dev)
+    ws, tree, cam5, refs = (blob["ws"], blob["tree"], blob["cam5"],
+                            blob["refs"])
+    packed = tree.packed_table()
+    gloo = torch.load(os.path.join(d, "gloo_images.pt"), map_location=dev)
+    m = mesh_mod.tile_mesh(1, device_type)
+    out = dict(backend=dist.get_backend(), world_size=dist.get_world_size())
+    reset_counts()
+    images = {}
+    for mode in (0, 2):
+        images[f"wave mode {mode}"], n_left = rws.make_wave_sharded_render(
+            m, ws, W, H, render_mode=mode, gi_bounces=1)(ws, cam5, 1)
+        out.setdefault("n_left", {})[f"wave mode {mode}"] = n_left
+    for mode in (1, 2, 3):
+        images[f"esvo mode {mode}"] = rs.make_sharded_render(
+            m, W, H, render_mode=mode)(tree, cam5, packed)
+    torch.cuda.synchronize()
+    out["launches"] = read_counts()
+    out["vs_single"] = {k: _frame_share(v, refs[k], MULTI_FRAME_TOL
+                                        if k.startswith("wave") else ESVO_TOL)
+                        for k, v in images.items()}
+    out["equal_gloo"] = {k: bool(torch.equal(v, gloo[k]))
+                         for k, v in images.items()}
+    with open(os.path.join(d, "nccl.json"), "w") as f:
+        json.dump(out, f)
+
+
+def multi_phase(dev, ws, tree, packed, cam5):
+    """[multi]: the multi-device layer (svo_raytracer_torch/parallel,
+    models/world.build_world_sharded, wave_diff.make_wave_sharded_train_
+    step) on the bench world at 1920x1080, as MULTI_RANKS ranks sharing
+    the card over gloo (torch.multiprocessing spawn, a FileStore), then
+    one rank over nccl.  The parent renders the single-card references
+    (render_frame_wavefront modes 0 gi-1 and 2, render_image modes 0
+    gi-1 and 1-3), splits the octree into 8 bricks (split_bricks level
+    1) and hands the world to the ranks in one file under
+    svo_raytracer_torch/_build/multi/, so no rank rebuilds it
+    (multi_rank, multi_nccl).  Gates: the sharded build equal to the
+    serial world in every array on every rank; n_left 0; wavefront
+    frames within MULTI_FRAME_TOL of the single card's on >=
+    MULTI_FRAME_SHARE of pixels; ESVO frames within ESVO_TOL everywhere;
+    brick frames at the JAX package's bars against the monolith (mode 2
+    close at rtol 1e-4 / atol 2e-4 on > 0.99 and within 0.35; mode 0
+    close at 1e-3 on > 0.98); every rank the same images and parameters;
+    falling losses; each kind's first step against the single card's
+    (loss rtol 1e-5, parameters atol 1e-5; the brick step's traces every
+    brick on one card, and the monolith's step is reported beside it);
+    K1, its keys and KE equal to
+    their plain versions on every rank; every path's kernels launched;
+    the nccl frames equal to the gloo ones (and the single card's ESVO
+    frames).  Returns (summary, launches summed over the ranks and the
+    nccl run, the largest kernel errors)."""
+    import torch
+    from svo_raytracer_torch.ops import kernel_build, render_wave, shade
+    from svo_raytracer_torch.parallel import bricks as B
+    from svo_raytracer_torch.parallel import distributed
+    t0 = time.time()
+    d = kernel_build.BUILD_DIR / "multi"
+    d.mkdir(parents=True, exist_ok=True)
+    refs = {}
+    for mode in (0, 2):
+        refs[f"wave mode {mode}"] = render_wave.render_frame_wavefront(
+            ws, cam5, W, H, render_mode=mode, frame_number=1,
+            gi_bounces=1)[0]
+    for mode in (0, 1, 2, 3):
+        refs[f"esvo mode {mode}"] = shade.render_image(
+            tree, cam5, W, H, render_mode=mode, frame_number=1,
+            gi_bounces=1, packed=packed)[0]
+    t1 = time.time()
+    bs = B.split_bricks(tree, level=1)
+    split_s = time.time() - t1
+    t1 = time.time()
+    torch.save(dict(ws=ws, tree=tree, cam5=cam5, bricks=bs, refs=refs),
+               d / "world.pt")
+    write_s = time.time() - t1
+    say(f"[multi] single-card references rendered; split_bricks(level=1) "
+        f"{split_s:.1f} s on the host (8 bricks of {bs.capacity} slots, "
+        f"{int(bs.n_nodes.sum())} nodes); world file "
+        f"{(d / 'world.pt').stat().st_size / 2**20:.0f} MiB in "
+        f"{write_s:.1f} s")
+    del refs, bs
+    torch.cuda.empty_cache()
+    t1 = time.time()
+    distributed.spawn(multi_rank, MULTI_RANKS, "gloo", dev.type,
+                      (str(d), dev.type))
+    gloo_s = time.time() - t1
+    ranks = []
+    for r in range(MULTI_RANKS):
+        with open(d / f"rank{r}.json") as f:
+            ranks.append(json.load(f))
+    t1 = time.time()
+    distributed.spawn(multi_nccl, 1, "nccl", dev.type, (str(d), dev.type))
+    nccl_s = time.time() - t1
+    with open(d / "nccl.json") as f:
+        nccl = json.load(f)
+    (d / "world.pt").unlink()
+
+    r0 = ranks[0]
+    say(f"[multi] {MULTI_RANKS} ranks share one card over gloo "
+        f"({gloo_s:.1f} s with spawning), then 1 rank over nccl "
+        f"({nccl_s:.1f} s); build_world_sharded over tile_mesh(4): "
+        f"{r0['build_nodes']} nodes, equal to the serial world on ranks "
+        f"{[r['rank'] for r in ranks if r['build_equal']]}, "
+        f"{[round(r['build_s'], 3) for r in ranks]} s per rank")
+    for r in ranks:
+        say(f"[multi rank {r['rank']}] host-clock medians, ms (ranks "
+            f"sharing one card: not a scaling figure): "
+            f"{json.dumps({k: round(v, 3) for k, v in r['ms'].items()})}; "
+            f"the collectives alone {json.dumps(r['collective_ms'])}; "
+            f"launches {r['launches']}; kernels vs plain max err "
+            f"{r['kernel_err']}")
+    say(f"[multi] n_left {r0['n_left']}; losses {r0['losses']}")
+    say(f"[multi] vs the single card (share within tolerance, share "
+        f"exactly equal, max |diff|): {json.dumps(r0['vs_single'])}")
+    say(f"[multi] first train step vs the single card's: "
+        f"{json.dumps(r0['step_vs_single'])}")
+    say(f"[multi nccl] world size {nccl['world_size']} over "
+        f"{nccl['backend']}: n_left {nccl['n_left']}; equal to the gloo "
+        f"frames {nccl['equal_gloo']}; vs the single card "
+        f"{json.dumps(nccl['vs_single'])}; launches {nccl['launches']}")
+    fails = []
+    for r in ranks:
+        if not r["build_equal"]:
+            fails.append(f"rank {r['rank']}: sharded build differs")
+        for k in ("image_digest", "param_digest"):
+            if r[k] != r0[k]:
+                fails.append(f"rank {r['rank']}: {k} differs from rank 0")
+        for k, n in r["launches"].items():
+            if k in ("K1_explicit", "K1_keys", "KE", "KE_binned") and n < 1:
+                fails.append(f"rank {r['rank']}: {k} never launched")
+    for k, v in list(r0["n_left"].items()) + list(nccl["n_left"].items()):
+        if v:
+            fails.append(f"n_left {k} = {v}")
+    for k, (share, _, dmax) in r0["vs_single"].items():
+        bar = {"bricks mode 2": 0.99, "bricks mode 0": 0.98}.get(
+            k, MULTI_FRAME_SHARE if k.startswith("wave") else 1.0)
+        if share < bar or (k == "bricks mode 2" and dmax >= 0.35):
+            fails.append(f"{k} vs the single card: {share} < {bar}")
+    for kind, losses in r0["losses"].items():
+        if not all(b < a for a, b in zip(losses, losses[1:])):
+            fails.append(f"train {kind}: losses {losses}")
+    for kind, s in r0["step_vs_single"].items():
+        if kind != "monolith" and (
+                abs(s["sharded_loss"] - s["loss"]) > 1e-5 * abs(s["loss"])
+                or s["albedo"]["over_atol"] or s["density"]["over_atol"]):
+            fails.append(f"train {kind} vs the single card: {s}")
+    for k, eq in nccl["equal_gloo"].items():
+        if not eq:
+            fails.append(f"nccl {k} differs from the gloo frame")
+    for k, (share, _, _) in nccl["vs_single"].items():
+        if share < (MULTI_FRAME_SHARE if k.startswith("wave") else 1.0):
+            fails.append(f"nccl {k} vs the single card: {share}")
+    if fails:
+        raise AssertionError(f"[multi]: {fails}")
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                + nccl["launches"][k] for k in r0["launches"]}
+    errs = {k: max(r["kernel_err"][k] for r in ranks)
+            for k in r0["kernel_err"]}
+    say(f"[multi] launches over the ranks and the nccl run {launches}")
+    say(f"[multi] phase took {time.time() - t0:.1f} s")
+    summary = dict(ranks=ranks, nccl=nccl, gloo_s=gloo_s, nccl_s=nccl_s,
+                   split_s=split_s, launches=launches, kernel_err=errs)
+    return summary, launches, errs
 
 
 def sampled_rays(ws, cam5):
@@ -2978,6 +3516,14 @@ def add_viewer_launches(kernels, launches, checks):
          el["KE_binned"], [])))
 
 
+class Err:
+    """A check known by its largest error alone (the [multi] ranks'),
+    for add_launches and kernel_entry."""
+
+    def __init__(self, err):
+        self.err = err
+
+
 def add_launches(kernels, tag, adds):
     """For each (name prefix, launches, checks) of ``adds``: the launches
     into the one kernels line of that prefix, kept there as
@@ -3065,6 +3611,15 @@ def main():
     kernels += api_kernels
     add_launches(kernels, "api", (
         ("K1 wavefront traversal (a) flat L0, bench world", api_k1, []),))
+    # ---- the multi-device layer on the same world: ranks sharing the card
+    summary["multi"], multi_n, multi_err = multi_phase(dev, *world)
+    add_launches(kernels, "multi", (
+        ("K1 wavefront traversal (a) flat L0, bench world",
+         multi_n["K1_explicit"], [Err(multi_err["K1"])]),
+        ("KE per-ray ESVO traversal, bench world 1024^3 octree: staged",
+         multi_n["KE"], [Err(multi_err["KE"])]),
+        ("KE per-ray ESVO traversal, bench world 1024^3 octree: beams",
+         multi_n["KE_binned"], [])))
     del world
 
     # ---- kernel vs plain on the test scenes (flat G = 2, G = 64, paged)
@@ -3089,10 +3644,12 @@ def main():
 
     # ---- the main path on each world (WORLDS), through its part of K1
     key_launches = (bench_key_launches + train_key_launches
-                    + viewer_launches["wavefront"]["K1_keys"] + api_keys)
+                    + viewer_launches["wavefront"]["K1_keys"] + api_keys
+                    + multi_n["K1_keys"])
     key_timed = bench_keys[1:2]
     key_all = (bench_keys + train_keys + [c.keys for c in checks.values()]
-               + [c.keys for c in viewer_checks["K1"]])
+               + [c.keys for c in viewer_checks["K1"]]
+               + [Err(multi_err["K1 keys"])])
     order_ms = bench_order_ms
     for (size, n_range, bounces, n_timed, profiled, part, line,
          small_names, first) in WORLDS:
@@ -3103,7 +3660,10 @@ def main():
         say(f"[compare {size}] K1 vs trace_plain on 16384 sampled rays")
         rays = sampled_rays(ws, cam5)
         sampled = Agreement(ws, "world-16384", *rays)
-        seg = compare_segments(ws, cam5, max(bounces))
+        # the paged world's plain versions take ~20 s a bounce segment,
+        # twice each: its check stops at bounce 1, so that [multi] fits
+        seg = compare_segments(ws, cam5, PAGED_COMPARE_BOUNCES if ws.pages
+                               else max(bounces))
         # K1 (b): camera mode on the primary segment, against its plain
         # version and against explicit rays (segment 0 above)
         say(f"[camera {size}] K1 camera mode vs trace_camera_plain")

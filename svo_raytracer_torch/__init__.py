@@ -12,6 +12,9 @@ package so each function's counterpart is found under the same name:
   diff/    — differentiable rendering: the ESVO single-hit render and the
              wavefront K-hit chain with its compositor, SGD train steps
              and checkpoints
+  parallel/ — the multi-device layer on torch.distributed: named-axis
+             meshes, row-sharded ESVO and wavefront renders and train
+             steps, octree brick sharding
   csrc/    — hand-written CUDA C++ kernels, built with nvcc at first use
 
 The package imports ``torch`` and NumPy, and nothing of ``jax`` or of the

@@ -81,6 +81,24 @@ def sun_light(normal):
     return torch.clamp(dot, 0.0, 1.0) * 0.7 + 0.3
 
 
+def shade_hits(params: VoxelParams, res, dirs):
+    """(B, 3) colours of the single-hit model at the hit records ``res``
+    of the unit rays ``dirs``: the gather of the hit nodes' parameters
+    (differentiable), the sun light and the sky."""
+    node = torch.where(res.hit, res.node, torch.zeros_like(res.node)).long()
+    # index_select's backward is index_add_; indexing's (index_put_ with
+    # accumulate) took 24.5 of a 30.2 ms step on an H100 at 1080p, the
+    # miss pixels all gathering node 0
+    alb = params.albedo.index_select(0, node)
+    den = F.softplus(params.density.index_select(0, node))
+    alpha = 1.0 - torch.exp(-den * res.scale_exp2)
+    surf = alb * sun_light(res.normal)[:, None]
+    bg = shade.sky(dirs)
+    return torch.where(res.hit[:, None],
+                       alpha[:, None] * surf + (1.0 - alpha[:, None]) * bg,
+                       bg)
+
+
 def render_diff(params: VoxelParams, tree, cam5, width: int, height: int,
                 max_depth: int = C.MAX_DEPTH,
                 max_iterations: int = C.MAX_RAYCAST_ITERATIONS,
@@ -98,18 +116,7 @@ def render_diff(params: VoxelParams, tree, cam5, width: int, height: int,
         tree, origins, dirs, max_depth=max_depth,
         max_iterations=max_iterations, packed=packed,
         order=traverse.tile_order(width, height, cam5.device))
-    node = torch.where(res.hit, res.node, torch.zeros_like(res.node)).long()
-    # index_select's backward is index_add_; indexing's (index_put_ with
-    # accumulate) took 24.5 of a 30.2 ms step on an H100 at 1080p, the
-    # miss pixels all gathering node 0
-    alb = params.albedo.index_select(0, node)
-    den = F.softplus(params.density.index_select(0, node))
-    alpha = 1.0 - torch.exp(-den * res.scale_exp2)
-    surf = alb * sun_light(res.normal)[:, None]
-    bg = shade.sky(dirs)
-    col = torch.where(res.hit[:, None],
-                      alpha[:, None] * surf + (1.0 - alpha[:, None]) * bg,
-                      bg)
+    col = shade_hits(params, res, dirs)
     return col.reshape(height, width, 3)
 
 

@@ -1,6 +1,5 @@
 """Differentiable rendering on the wavefront engine, with gradients
-through visibility (port of svo_raytracer_tpu/diff/wave_diff.py, without
-its sharded train step).
+through visibility (port of svo_raytracer_tpu/diff/wave_diff.py).
 
   * :func:`khit_chain` marches K hits per ray with the wavefront
     traversal (``wavefront.intersect_wavefront``: kernel K1 on the GPU,
@@ -238,6 +237,42 @@ def make_wave_train_step(wscene, width, height, K=3, lr=0.5):
         cam5 = cam5.to(torch.float32)
         loss, grads = loss_and_grads(
             lambda p: torch.mean((image(p, cam5) - target) ** 2), params)
+        return sgd(params, grads, lr), loss
+
+    return step
+
+
+def make_wave_sharded_train_step(mesh, wscene, width, height, K=2, lr=0.5):
+    """Row-sharded wavefront training step: each rank of the mesh's
+    ``tiles`` axis traces the K-hit chain (K launches of K1 on the card)
+    of its interleaved rows (rank d: image rows d, d + n, ...), and the
+    loss and parameter gradients are summed over ``tiles``, so every rank
+    applies the same update (the JAX package's
+    make_wave_sharded_train_step).  ``step(params, cam5, target) ->
+    (params, loss)``; ``target`` is the whole (H, W, 3) image."""
+    from ..parallel.render_wave_sharded import _shard_rays, shard_rows
+
+    _check_scene(wscene)
+    row0, rows, stride = shard_rows(mesh, height, interleave=True)
+    n_sh = mesh.size("tiles")
+    denom = float(height * width * 3)
+
+    def step(params, cam5, target):
+        cam5 = cam5.to(torch.float32)
+        o, d, _, _ = _shard_rays(cam5, width, height, rows, row0, stride)
+        chain = khit_chain(wscene, o, d, K)
+        bg = shade.sky(d)
+        # image rows d, d + n, ... belong to rank d (interleaved layout)
+        tgt = target.to(torch.float32).reshape(rows, n_sh, width, 3)[:, row0]
+
+        def shard_loss(p):
+            col = composite_khit(p.albedo, p.density, chain, bg)
+            return torch.sum((col.reshape(rows, width, 3) - tgt) ** 2) / denom
+
+        loss, grads = loss_and_grads(shard_loss, params)
+        loss = mesh.psum(loss, "tiles")
+        grads = type(grads)(*(mesh.psum(g, "tiles", inplace=True)
+                              for g in grads))
         return sgd(params, grads, lr), loss
 
     return step

@@ -1,5 +1,5 @@
 """Chunked world builds — the constructCompleteOctree analog (port of
-svo_raytracer_tpu/models/world.py, build_world_sharded aside).
+svo_raytracer_tpu/models/world.py).
 
 The reference builds big worlds as a fixed top tree of interior nodes
 down to chunk level (``fillEmptyChildren``, ``Octree.java:481-502``), then
@@ -137,4 +137,44 @@ def build_world(world_size: int, chunk_size: int,
             world, _ = chunk_layout(world_size, chunk_size, chunk.device)
         world = stage("splice", splice_chunk, world, slot, chunk)
         del chunk
+    return world
+
+
+def build_world_sharded(world_size: int, chunk_size: int, gen_fn: Callable,
+                        mesh, max_lod: int | None = None,
+                        world_offset=(0, 0, 0)) -> DeviceOctree:
+    """:func:`build_world` with chunk generation and builds spread over the
+    mesh's ``tiles`` axis, the same world on every rank.
+
+    Chunks go in groups of one per rank, in DFS chunk order: rank j
+    generates and builds chunk g0 + j of each group on its device (the
+    last group's spare ranks repeat its last chunk, and the result is
+    dropped).  The ranks gather each group's node counts, then its node
+    tables padded to the largest count, and every rank splices the group
+    in chunk order, so the node table equals the serial build's in every
+    array."""
+    if world_size == chunk_size:
+        return build_world(world_size, chunk_size, gen_fn, max_lod=max_lod,
+                           world_offset=world_offset)
+    n_dev, me = mesh.size("tiles"), mesh.rank("tiles")
+    dev = mesh.device
+    world, chunks = chunk_layout(world_size, chunk_size, dev)
+    origins = [(o[0] + world_offset[0], o[1] + world_offset[1],
+                o[2] + world_offset[2]) for o, _ in chunks]
+    for g0 in range(0, len(chunks), n_dev):
+        v = gen_fn(origins[min(g0 + me, len(chunks) - 1)])
+        chunk = build_octree_device(v, max_lod, chunk_size)
+        del v
+        mine = torch.tensor([chunk.n_nodes], dtype=torch.int32, device=dev)
+        counts = mesh.all_gather(mine, "tiles").flatten().tolist()
+        table = torch.zeros((4, max(counts)), dtype=torch.int32, device=dev)
+        table[:, :chunk.n_nodes] = torch.stack(
+            [a[:chunk.n_nodes] for a in chunk.arrays()])
+        del chunk
+        tables = mesh.all_gather(table, "tiles")
+        for j in range(min(n_dev, len(chunks) - g0)):
+            n = counts[j]
+            part = DeviceOctree(*(a[:n] for a in tables[j]), n_nodes=n,
+                                world_size=chunk_size)
+            world = splice_chunk(world, chunks[g0 + j][1], part)
     return world

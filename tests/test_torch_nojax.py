@@ -14,7 +14,10 @@ screenshot, save and re-read); then the entry's analog renders its
 frame, a staged ESVO frame with a skip grid equals render_image's, a
 threefry progressive frame renders, and the XLA brick engine
 (brick_trace.intersect_bricks) traces rays as the wavefront engine
-does."""
+does.  The multi-process layer (svo_raytracer_torch.parallel) imports
+with them, and ``python -m svo_raytracer_torch.entry --multichip 2
+--cpu`` runs dryrun_multichip in two spawned ranks with jax and the JAX
+package unimportable in every process."""
 
 import os
 import subprocess
@@ -140,3 +143,32 @@ def test_port_imports_and_traces_without_jax():
                           env=dict(os.environ, PYTHONPATH=""))
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("ok")
+
+
+BLOCKERS = ("jax", "svo_raytracer_tpu")
+
+
+def test_multichip_launcher_runs_without_jax(tmp_path):
+    """Packages named jax and svo_raytracer_tpu that raise on import, first
+    on the path of the launcher and of the ranks it spawns (they inherit
+    its sys.path); the repository comes after them."""
+    for name in BLOCKERS:
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "__init__.py").write_text(
+            f"raise ImportError('{name} is blocked')\n")
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import sys; sys.path[:0] = [sys.argv[1], sys.argv[2]]; "
+         "import svo_raytracer_torch.parallel.bricks, "
+         "svo_raytracer_torch.parallel.render_wave_sharded, "
+         "svo_raytracer_torch.parallel.distributed; "
+         "from svo_raytracer_torch import entry; "
+         "entry.main(['--multichip', '2', '--cpu'])",
+         str(tmp_path), ROOT],
+        capture_output=True, text=True, timeout=300, cwd=tmp_path,
+        env=dict(os.environ, PYTHONPATH=""))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.strip().splitlines()
+    assert len(lines) == 4 and all(x.startswith("dryrun_multichip(2): ")
+                                   for x in lines), proc.stdout
+    assert "n_left=0" in lines[2] and "k-hit train step" in lines[3]
