@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..utils import constants as C
+from ..utils.profiling import timer
 
 # Node slot 0 is always the root, so 0 doubles as the "no children" sentinel.
 ROOT = 0
@@ -136,8 +137,11 @@ class DeviceOctree:
         return self.child, self.mask, self.value, self.normal
 
     def to_numpy(self) -> Octree:
-        return Octree(*(a.cpu().numpy() for a in self.arrays()),
-                      n_nodes=self.n_nodes, world_size=self.world_size)
+        """The table copied to the host (timed as ``svo.to_numpy``,
+        utils/profiling)."""
+        with timer("svo.to_numpy"):
+            return Octree(*(a.cpu().numpy() for a in self.arrays()),
+                          n_nodes=self.n_nodes, world_size=self.world_size)
 
     def packed_table(self, refresh: bool = False) -> torch.Tensor:
         """The traversal's word table (ops/traverse.make_packed_table),

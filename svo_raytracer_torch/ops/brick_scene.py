@@ -26,6 +26,7 @@ import numpy as np
 
 from ..core.octree import effective_normal_raw
 from ..utils import constants as C
+from ..utils.profiling import timer
 
 BRICK = 32  # voxels per brick edge
 LANES = 128
@@ -169,8 +170,13 @@ def brickify(tree, brick: int = BRICK) -> BrickScene:
 
     The descent mirrors the child addressing of the SoA table (child base +
     octant k; tag = 2 bits of the parent's mask).  Worlds smaller than one
-    brick are rejected.
+    brick are rejected.  Timed as ``svo.brickify`` (utils/profiling).
     """
+    with timer("svo.brickify"):
+        return _brickify(tree, brick)
+
+
+def _brickify(tree, brick):
     child = np.asarray(tree.child[:tree.n_nodes]).astype(np.int64)
     mask = np.asarray(tree.mask[:tree.n_nodes]).astype(np.int64)
     value = np.asarray(tree.value[:tree.n_nodes]).astype(np.int64)

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
 from . import rng, shade, wavefront
 
 BLK = 32
@@ -125,23 +126,25 @@ def _render_gi(wscene, cam5, width, height, gi_bounces, mirror_values,
     """Render mode 0 given the per-pixel random ``rand`` (length
     ``_frame_B``, block-major).  Returns flat block-major (col, depth,
     iters)."""
-    origins, dirs, _, _ = _frame_rays(cam5, width, height)
-    B = dirs.shape[0]
-    dev = dirs.device
-    accum = torch.zeros((B, 3), dtype=torch.float32, device=dev)
-    mask = torch.ones((B, 3), dtype=torch.float32, device=dev)
-    depth = torch.full((B,), -1.0, dtype=torch.float32, device=dev)
-    iters_out = torch.zeros((B,), dtype=torch.int32, device=dev)
-    active = torch.ones((B,), dtype=torch.bool, device=dev)
+    with span("svo.assembly"):
+        origins, dirs, _, _ = _frame_rays(cam5, width, height)
+        B = dirs.shape[0]
+        dev = dirs.device
+        accum = torch.zeros((B, 3), dtype=torch.float32, device=dev)
+        mask = torch.ones((B, 3), dtype=torch.float32, device=dev)
+        depth = torch.full((B,), -1.0, dtype=torch.float32, device=dev)
+        iters_out = torch.zeros((B,), dtype=torch.int32, device=dev)
+        active = torch.ones((B,), dtype=torch.bool, device=dev)
     o, d = origins, dirs
     for seg in range(gi_bounces + 1):
         if seg == 0:
             res = _segment(wscene, o, d, None, stats, (cam5, width, height))
         else:
             res = _segment(wscene, o, d, active, stats)
-        accum, mask, depth, iters_out, active, o, d = shade.gi_update(
-            seg == 0, tuple(mirror_values), accum, mask, depth, iters_out,
-            active, o, d, rand, res)
+        with span("svo.shade"):
+            accum, mask, depth, iters_out, active, o, d = shade.gi_update(
+                seg == 0, tuple(mirror_values), accum, mask, depth,
+                iters_out, active, o, d, rand, res)
     return accum, depth, iters_out
 
 
@@ -162,25 +165,34 @@ def render_frame_wavefront(wscene, cam5, width, height, render_mode=0,
     if render_mode == 0 and rng_mode != "glsl":
         raise NotImplementedError("wavefront GI supports glsl rng; use "
                                   "shade.render_progressive for threefry")
-    cam5 = cam5.to(torch.float32)
-    camera = (cam5, width, height)
-    if render_mode == 0:
-        _, _, px, py = _frame_rays(cam5, width, height)
-        rand = rng.pixel_rand(px, py, frame_number)
-        col, depth, it = _render_gi(wscene, cam5, width, height, gi_bounces,
-                                    mirror_values, rand, stats)
-    elif render_mode in (1, 3):
-        origins, dirs, _, _ = _frame_rays(cam5, width, height)
-        res = _segment(wscene, origins, dirs, None, stats, camera)
-        col, depth, it = (shade.heatmap_colors(res) if render_mode == 1
-                          else shade.normal_colors(res))
-    elif render_mode == 2:
-        origins, dirs, _, _ = _frame_rays(cam5, width, height)
-        res = _segment(wscene, origins, dirs, None, stats, camera)
-        sh = _segment(wscene, *_shadow_rays(res), stats)
-        col, depth, it = shade.direct_shade_math(dirs, res, sh,
-                                                 torch.zeros_like(res.t))
-    else:
+    if render_mode not in (0, 1, 2, 3):
         raise ValueError(f"unknown render mode {render_mode}")
-    return (_unblock(col, width, height), _unblock(depth, width, height),
-            _unblock(it, width, height))
+    with span("svo.frame"):
+        with span("svo.assembly"):
+            cam5 = cam5.to(torch.float32)
+            origins, dirs, px, py = _frame_rays(cam5, width, height)
+            if render_mode == 0:
+                rand = rng.pixel_rand(px, py, frame_number)
+        camera = (cam5, width, height)
+        if render_mode == 0:
+            col, depth, it = _render_gi(wscene, cam5, width, height,
+                                        gi_bounces, mirror_values, rand,
+                                        stats)
+        elif render_mode in (1, 3):
+            res = _segment(wscene, origins, dirs, None, stats, camera)
+            with span("svo.shade"):
+                col, depth, it = (shade.heatmap_colors(res)
+                                  if render_mode == 1
+                                  else shade.normal_colors(res))
+        else:
+            res = _segment(wscene, origins, dirs, None, stats, camera)
+            with span("svo.shade"):
+                so, sd, sa = _shadow_rays(res)
+            sh = _segment(wscene, so, sd, sa, stats)
+            with span("svo.shade"):
+                col, depth, it = shade.direct_shade_math(
+                    dirs, res, sh, torch.zeros_like(res.t))
+        with span("svo.assembly"):
+            return (_unblock(col, width, height),
+                    _unblock(depth, width, height),
+                    _unblock(it, width, height))

@@ -51,6 +51,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils.profiling import span, timer
 from . import brick_trace, kernel_build
 from .fp import unit_rows
 from .brick_scene import pack_occupancy, table_rows
@@ -427,7 +428,15 @@ def prepare(scene, device, capacity=None, attr16=False,
     G > 64 worlds get the paged L0 tables; ``attr16`` stores attributes as
     int16 half-words (_encode_attr16); ``attr2d`` forces (or suppresses)
     the 2-D attribute storage chosen by default for tables past 2^31 - 1
-    words."""
+    words.  Timed as ``svo.prepare`` (utils/profiling), ended by a
+    synchronize on the new tables."""
+    with timer("svo.prepare",
+               sync=lambda: [getattr(ws, f) for f in WaveScene.ARRAYS]):
+        ws = _prepare(scene, device, capacity, attr16, attr2d)
+    return ws
+
+
+def _prepare(scene, device, capacity, attr16, attr2d) -> WaveScene:
     G = scene.grid_size
     if capacity is None:
         capacity = scene.n_mixed + max(64, scene.n_mixed // 8)
@@ -1065,7 +1074,8 @@ def ray_order(ws: WaveScene, o, d, alive):
     """The (B,) int64 permutation that K1 traces explicit rays in: rays by
     :func:`ray_keys` (octant, then origin brick), dead rays last.  The sort
     is torch.sort, as the JAX package's glue sorts with jax.lax.sort."""
-    return torch.sort(ray_keys(ws, o, d, alive)).indices
+    with span("svo.order"):
+        return torch.sort(ray_keys(ws, o, d, alive)).indices
 
 
 def trace_kernel(ws: WaveScene, o, d, alive, order=None):
@@ -1101,9 +1111,12 @@ def trace(ws: WaveScene, o, d, alive):
     :func:`ray_order` for CUDA tensors (no host synchronisation), its
     plain version for CPU tensors."""
     if o.device.type == "cpu":
-        _check_rays(ws, o, d, alive, "cpu")
-        return trace_plain(ws, o, d, alive)
-    return trace_kernel(ws, o, d, alive, ray_order(ws, o, d, alive))
+        with span("svo.k1"):
+            _check_rays(ws, o, d, alive, "cpu")
+            return trace_plain(ws, o, d, alive)
+    order = ray_order(ws, o, d, alive)
+    with span("svo.k1"):
+        return trace_kernel(ws, o, d, alive, order)
 
 
 # --------------------------------------------------------------- camera mode
@@ -1196,10 +1209,11 @@ def _check_camera(ws, cam, device_type):
 def trace_camera(ws: WaveScene, cam, n, W, H, nbx):
     """Camera-mode traversal records of the n primaries: kernel K1 for a
     CUDA ``cam`` (the cam16 scalars), its plain version on the CPU."""
-    if cam.device.type == "cpu":
-        _check_camera(ws, cam, "cpu")
-        return trace_camera_plain(ws, cam, n, W, H, nbx)
-    return trace_camera_kernel(ws, cam, n, W, H, nbx)
+    with span("svo.k1"):
+        if cam.device.type == "cpu":
+            _check_camera(ws, cam, "cpu")
+            return trace_camera_plain(ws, cam, n, W, H, nbx)
+        return trace_camera_kernel(ws, cam, n, W, H, nbx)
 
 
 # -------------------------------------------------------------------- finish
@@ -1302,7 +1316,8 @@ def intersect_wavefront(wscene: WaveScene, origins, dirs, active=None,
     hits.  Camera mode traces every ray, so ``active`` must be None."""
     launches = K1.launches
     if camera is None:
-        o, d, alive = _rays(wscene, origins, dirs, active)
+        with span("svo.prep"):
+            o, d, alive = _rays(wscene, origins, dirs, active)
         rec = trace(wscene, o, d, alive)
     else:
         cam5, W, H = camera
@@ -1320,7 +1335,9 @@ def intersect_wavefront(wscene: WaveScene, origins, dirs, active=None,
             if W * H != B:
                 raise ValueError(f"camera frame {W}x{H} != {B} rays")
             nbx = 0
-        rec = trace_camera(wscene, cam16(cam5), B, W, H, nbx)
+        with span("svo.prep"):
+            cam = cam16(cam5)
+        rec = trace_camera(wscene, cam, B, W, H, nbx)
     if profile is not None:
         status = rec[0]
         profile.update(
@@ -1329,4 +1346,5 @@ def intersect_wavefront(wscene: WaveScene, origins, dirs, active=None,
             hits=int(((status == MIXED) | (status == UNIFORM)).sum()),
             capped=int((status == CAPPED).sum()),
             launches=K1.launches - launches)
-    return _finish(wscene, rec, origins, dirs)
+    with span("svo.decode"):
+        return _finish(wscene, rec, origins, dirs)

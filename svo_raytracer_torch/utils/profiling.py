@@ -1,11 +1,22 @@
-"""Scoped timers and a device-trace scope (port of
+"""Named spans and scoped timers (port of
 svo_raytracer_tpu/utils/profiling.py).
 
 The reference's observability is wall-clock prints around phases
 (``Octree.java:195,272-290``), a per-frame time (``Window.java:83,102-103``)
 and node-type counters (``Octree.java:31-34``); those live in
 apps/app.Application.frame_time_ms and core/octree.Octree.node_counts.
-This module adds named timers with summaries and a torch.profiler scope.
+This module adds:
+
+* :func:`span`: a named range at a layer boundary.  Under a recording
+  torch.profiler it is a ``record_function`` range, so it lands in the
+  profiler's chrome trace as a ``user_annotation`` on the same clock as
+  the device records; with no profiler recording it costs one flag check
+  and keeps nothing.  The frame path's spans are named ``svo.<layer>``.
+* :func:`timer`: a host-clock timer kept in memory (:func:`summary`),
+  which also opens :func:`span` under its name.
+
+No span synchronizes the device or reads a device value; a timer does
+only when given ``sync``.
 """
 
 from __future__ import annotations
@@ -17,6 +28,17 @@ from collections import defaultdict
 import torch
 
 _timings: dict[str, list[float]] = defaultdict(list)
+_OFF = contextlib.nullcontext()
+_recording = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """A context manager marking ``name``'s range for a recording
+    torch.profiler (``record_function``); a shared no-op context when no
+    profiler records."""
+    if not _recording():
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
 def _synchronize(out) -> None:
@@ -35,16 +57,16 @@ def _synchronize(out) -> None:
 
 @contextlib.contextmanager
 def timer(name: str, sync=None):
-    """Scoped wall-clock timer.  ``sync`` (tensors, or a callable that
-    returns them) makes the scope end with torch.cuda.synchronize() on the
-    devices they lie on, so the time includes their device work."""
+    """Scoped wall-clock timer, inside :func:`span` ``name``.  ``sync``
+    (tensors, or a callable that returns them) makes the scope end with
+    torch.cuda.synchronize() on the devices they lie on, so the time
+    includes their device work.  A scope that raises records nothing."""
     t0 = time.perf_counter()
-    try:
+    with span(name):
         yield
-    finally:
         if sync is not None:
             _synchronize(sync() if callable(sync) else sync)
-        _timings[name].append(time.perf_counter() - t0)
+    _timings[name].append(time.perf_counter() - t0)
 
 
 def summary() -> dict[str, dict]:
@@ -58,19 +80,3 @@ def summary() -> dict[str, dict]:
 
 def reset() -> None:
     _timings.clear()
-
-
-@contextlib.contextmanager
-def device_trace(log_dir: str):
-    """torch.profiler scope over the CPU and, where present, the card;
-    writes a chrome trace into ``log_dir`` and yields the profiler (read
-    ``key_averages()`` from it)."""
-    import os
-
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

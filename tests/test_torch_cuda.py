@@ -6,8 +6,8 @@ PyTorch versions; the noise on the card against the CPU's, the
 bench's small pipeline on the card, and the differentiable renderers'
 compositor and train steps on the card against the CPU's; the edit path
 (apply_patch, DeviceTree) and a viewer session on the card against the
-CPU's.  Needs a card
-and nvcc; skipped elsewhere.  The file imports no jax, so on a GPU host
+CPU's; a traced frame's device records under its ``svo.*`` spans.  Needs
+a card and nvcc; skipped elsewhere.  The file imports no jax, so on a GPU host
 without JAX it runs from the repository root with
 ``python -m pytest --noconftest tests/test_torch_cuda.py``."""
 
@@ -501,6 +501,42 @@ def test_launch_counters_once_per_segment():
     torch.cuda.synchronize()
     assert [x.launches - b for x, b in zip(k, before)] == [3, 1, 2]
     assert [s["launches"] for s in stats] == [1, 1, 1]
+
+
+@pytest.mark.gpu
+def test_frame_spans_hold_the_device_records_on_gpu():
+    """A few traced gi-3 frames on the card (the benchmark's trace and
+    span readers, portbench/trace.py and spans.py): at least 99% of the
+    device records were launched inside a child span of ``svo.frame``,
+    and K1's launches and the ray order's fall under ``svo.k1`` and
+    ``svo.order``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from portbench import spans, trace
+    from svo_raytracer_torch.ops import render_wave
+    from svo_raytracer_torch.utils.camera import Camera
+    hm, mm = bigworld.fractal_heightmap(256, seed=3, lo=0.3, hi=0.9)
+    ws = wavefront.prepare(bigworld.heightmap_brick_scene(hm, mm, 256),
+                           "cuda")
+    cam = Camera(pos=np.array([1.3, 1.8, 1.3]))
+    cam.rotate(-0.5, 0.6)
+    cam5 = torch.tensor(cam.uniform(), dtype=torch.float32, device="cuda")
+
+    def run(step):
+        for i in range(6):
+            render_wave.render_frame_wavefront(ws, cam5, 256, 160,
+                                               render_mode=0,
+                                               frame_number=i + 1,
+                                               gi_bounces=3)
+            torch.cuda.synchronize()
+            step()
+
+    _, t = trace.traced(run, 2, 4, torch.cuda.synchronize)
+    s = spans.split(t)
+    inside = sum(v for k, v in s.shares.items() if k != "svo.frame")
+    assert inside >= 0.99, (s.shares, s.unattributed, s.unlaunched)
+    # K1 once a segment, the keys and the sort's kernels per explicit one
+    assert s.kernels["svo.k1"] == 4 and s.kernels["svo.order"] >= 3
 
 
 @pytest.mark.gpu
