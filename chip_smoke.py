@@ -173,8 +173,11 @@ PEAK_OPS_PER_S = 67e12
 # ADVANCE + POP), K2's grid step (csrc/brick_dda.cuh), K3's voxel or L0
 # DDA step (csrc/brick_round.cuh dda_vec); and K1's key kernel per ray
 # (csrc/wf_ray.cuh ray_key: six finiteness tests, three brick coordinates,
-# three Morton spreads, the octant)
-OPS_PER_STEP = {"K1": 40, "KE": 50, "K2": 30, "K3": 30, "K1 keys": 75}
+# three Morton spreads, the octant); GI_SHADE's per hit ray, assumed
+# (csrc/gi_shade.cuh: two normalisations, two cross products, the bounce
+# sum, n.l and the mask; acos, cos and sin counted as one each)
+OPS_PER_STEP = {"K1": 40, "KE": 50, "K2": 30, "K3": 30, "K1 keys": 75,
+                "GI_SHADE": 100}
 K3_ROUNDS = 24            # intersect_bricks_tpu's default max_rounds
 K3_CUT_ROUNDS = 2         # few enough rounds that some rays run out
 
@@ -429,6 +432,57 @@ def random_rays(n, seed, inside_bias=0.5):
     return origins, dirs
 
 
+def gi_segment(B, first, seed, device="cpu"):
+    """The arguments of shade.gi_update after ``mirror_values``: a mode-0
+    segment's state and hit record of ``B`` rays, for GI_SHADE against
+    gi_update_plain.  Rays are 90% active, 60% of them hits, of materials
+    0-4 (palette 1-3, the rest voxel_pos - 1) and 7 (a mirror where the
+    caller says so); a quarter of the directions lie near the sun, so
+    bounce misses take the sun disk and not; normals are the decode's
+    (digit triples over their length, raw 555 NaN) with rows of zeros, of
+    +-inf (a mirror's reflection off (inf, 0.5, 0.5) overflows in x
+    alone) and with |x| = 0.1 (the bounce frame's axis choice).  On
+    ``first`` the origins are one camera row expanded, as a frame's."""
+    import torch
+    from svo_raytracer_torch.ops.hit import HitResult
+    g = np.random.default_rng(seed)
+    sun = np.full(3, 1 / np.sqrt(3.0))
+    d = g.normal(size=(B, 3))
+    near = g.random(B) < 0.25
+    d[near] = sun + 0.3 * g.normal(size=(int(near.sum()), 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    digits = g.integers(-5, 5, (B, 3)).astype(np.float32)
+    with np.errstate(invalid="ignore"):
+        normal = digits / np.sqrt((digits ** 2).sum(1, dtype=np.float32)
+                                  )[:, None]
+    edge = [(np.nan,) * 3, (0, 0, 0), (np.inf, 0, 0), (-np.inf, 1, 0),
+            (np.inf, -np.inf, 0.5), (np.inf, 0.5, 0.5), (0.1, 0.9, 0.2),
+            (-0.1, 0.2, 0.9),
+            (np.nextafter(np.float32(0.1), np.float32(1)), 0.3, 0.8)]
+    rows = g.choice(B, (len(edge), B // 64), replace=False)
+    for row, n in zip(rows, edge):
+        normal[row] = np.asarray(n, np.float32)
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+
+    def f(*shape):
+        return g.random(shape, dtype=np.float32)
+
+    hit = t(g.random(B) < 0.6, torch.bool)
+    res = HitResult(
+        hit=hit, value=t(g.choice([0, 1, 2, 3, 4, 7], B), torch.int32),
+        t=t(2 * f(B)), iters=t(g.integers(0, 500, B), torch.int32),
+        scale_exp2=t(np.zeros(B)), depth=t(np.zeros(B), torch.int32),
+        normal=t(normal), hit_pos=t(np.zeros((B, 3))),
+        voxel_pos=t(1 + f(B, 3)), node=t(np.zeros(B), torch.int32))
+    o = (t(1.5 + f(3)).expand(B, 3) if first else t(1 + f(B, 3)))
+    return (t(2 * f(B, 3)), t(f(B, 3)), t(3 * f(B) - 1),
+            t(g.integers(0, 500, B), torch.int32),
+            t(g.random(B) < 0.9, torch.bool), o, t(d), t(f(B)), res)
+
+
 def timed(fn, reps=1, warm=True):
     """(result of the last call, mean ms per call) by CUDA events."""
     import torch
@@ -653,6 +707,32 @@ def hold_keys(ws, name, o, d, alive):
                 lambda: dict(key=wf.ray_keys_plain(ws, o, d, alive)),
                 o.shape[0] * (12 + 12 + 1 + 4), [],
                 lambda r: r["key"].numel())
+
+
+GI_FIELDS = ("accum", "mask", "depth", "iters_out", "active", "o", "d")
+
+
+def hold_gi(name, first, args):
+    """GI_SHADE vs shade.gi_update_plain on one segment: ``args`` are
+    gi_update's after ``mirror_values`` (none).  The bytes are what the
+    kernel must move for these rays: 57 written and 57 of state read for
+    every ray (an origin row shared by every ray read once), the hit byte
+    and, on a primary segment, iters for each active ray, and the random,
+    value, t, normal, voxel_pos and, on a bounce, iters for each hit (at
+    most 155 B a ray, 143 B with a shared origin); a step is a hit."""
+    from svo_raytracer_torch.ops import shade
+    accum, mask, depth, iters, active, o, d, r, res = args
+    B = accum.shape[0]
+    hits = int((active & res.hit).sum())
+    shared = o.stride(0) == 0
+    nbytes = (B * (114 - 12 * shared) + 12 * shared
+              + int(active.sum()) * (1 + 4 * first) + hits * (40 - 4 * first))
+    return Held("GI_SHADE", name,
+                lambda: dict(zip(GI_FIELDS, shade.gi_update_kernel(
+                    first, (), *args))),
+                lambda: dict(zip(GI_FIELDS, shade.gi_update_plain(
+                    first, (), *args))),
+                nbytes, [], lambda rec: hits)
 
 
 class Agreement(Held):
@@ -1502,20 +1582,24 @@ def render_frames(ws, cam5, configs):
 
 def main_path(ws, configs):
     """The main path on one world: camera probe and frames, with K1's
-    launch counts (and its key kernel's) set to 0 just before and read
-    just after.  K1.launches counts both entry points of the library, so
-    the explicit-ray entry's launches are K1's less K1_CAMERA's."""
+    launch counts (and its key kernel's and GI_SHADE's) set to 0 just
+    before and read just after.  K1.launches counts both entry points of
+    the library, so the explicit-ray entry's launches are K1's less
+    K1_CAMERA's."""
     import torch
     from svo_raytracer_torch import bench
+    from svo_raytracer_torch.ops import shade
     from svo_raytracer_torch.ops import wavefront as wf
     torch.cuda.reset_peak_memory_stats()
     wf.K1.launches = wf.K1_CAMERA.launches = wf.K1_KEYS.launches = 0
+    shade.GI_SHADE.launches = 0
     cam5, surf_y = bench.place_camera(ws)
     say(f"[camera] at y={float(cam5[0, 1]):.4f} (surface {surf_y:.4f})")
     frames = render_frames(ws, cam5, configs)
     launches = dict(K1_explicit=wf.K1.launches - wf.K1_CAMERA.launches,
                     K1_camera=wf.K1_CAMERA.launches,
-                    K1_keys=wf.K1_KEYS.launches)
+                    K1_keys=wf.K1_KEYS.launches,
+                    GI_SHADE=shade.GI_SHADE.launches)
     peak = torch.cuda.max_memory_allocated()
     say(f"[main path {ws.world_size}] launches {launches}; "
         f"max_memory_allocated {peak / 2**30:.3f} GiB ({peak} B)")
@@ -3335,9 +3419,12 @@ def sampled_rays(ws, cam5):
 
 def compare_segments(ws, cam5, bounces):
     """K1 vs trace_plain on every segment of a gi-``bounces`` frame, as
-    explicit rays in key order; bounce segment 1 in frame order too."""
+    explicit rays in key order; bounce segment 1 in frame order too.  Each
+    segment's shading is GI_SHADE held against gi_update_plain
+    (hold_gi, kept as the Agreement's ``gi``), and the next segment
+    starts from the kernel's outputs."""
     import torch
-    from svo_raytracer_torch.ops import render_wave, rng, shade
+    from svo_raytracer_torch.ops import render_wave, rng
     say(f"[segments {ws.world_size}] K1 vs trace_plain per segment of a "
         f"gi-{bounces} frame")
     dev = cam5.device
@@ -3355,9 +3442,9 @@ def compare_segments(ws, cam5, bounces):
         a = Agreement(ws, f"segment {seg}", o.contiguous(), d.contiguous(),
                       None if seg == 0 else active, frame_order=seg == 1)
         out.append(a)
-        accum, mask, depth, iters, active, o, d = shade.gi_update(
-            seg == 0, (), accum, mask, depth, iters, active, o, d, rand,
-            a.res_k)
+        a.gi = hold_gi(f"segment {seg}", seg == 0, (
+            accum, mask, depth, iters, active, o, d, rand, a.res_k))
+        accum, mask, depth, iters, active, o, d = a.gi.rec.values()
     return out
 
 
@@ -3474,11 +3561,12 @@ def kernel_entry(name, source, replaces, launches, timed_checks,
 
 
 def build_kernels():
-    """Build K1, KE, K2 and K3 from csrc/, one nvcc each, all started
-    together; prints each kernel's build-and-load seconds and ptxas's
-    registers, shared memory and spills."""
+    """Build K1, KE, K2, K3 and GI_SHADE from csrc/, one nvcc each, all
+    started together; prints each kernel's build-and-load seconds and
+    ptxas's registers, shared memory and spills."""
     import concurrent.futures as cf
-    from svo_raytracer_torch.ops import brick_dda, brick_pallas, traverse
+    from svo_raytracer_torch.ops import brick_dda, brick_pallas, shade
+    from svo_raytracer_torch.ops import traverse
     from svo_raytracer_torch.ops import wavefront as wf
 
     def load(k):
@@ -3487,7 +3575,8 @@ def build_kernels():
         return time.time() - t0
 
     t0 = time.time()
-    ks = (wf.K1, traverse.KE, brick_dda.K2, brick_pallas.K3)
+    ks = (wf.K1, traverse.KE, brick_dda.K2, brick_pallas.K3,
+          shade.GI_SHADE)
     with cf.ThreadPoolExecutor(len(ks)) as ex:
         secs = list(ex.map(load, ks))
     for k, sec in zip(ks, secs):
@@ -3495,7 +3584,7 @@ def build_kernels():
         for line in k.build_log().splitlines():
             if "registers" in line or "spill" in line or "entry" in line:
                 say(f"  ptxas {k.name}: {line.strip()}")
-    say(f"[build] all four in {time.time() - t0:.1f} s")
+    say(f"[build] all five in {time.time() - t0:.1f} s")
 
 
 def add_viewer_launches(kernels, launches, checks):
@@ -3651,6 +3740,7 @@ def main():
                + [c.keys for c in viewer_checks["K1"]]
                + [Err(multi_err["K1 keys"])])
     order_ms = bench_order_ms
+    gi_launches, gi_checks = 0, []
     for (size, n_range, bounces, n_timed, profiled, part, line,
          small_names, first) in WORLDS:
         scene, ws = build_world(dev, size, n_range)
@@ -3688,6 +3778,8 @@ def main():
             launches=launches, max_memory_allocated=peak,
             camera_vs_explicit=contract)
         key_launches += launches["K1_keys"]
+        gi_launches += launches["GI_SHADE"]
+        gi_checks += [a.gi for a in seg]
         order_ms += launches["K1_keys"] * float(
             np.mean([a.key_sort_device_ms for a in seg[1:]]))
         key_timed += [a.keys for a in seg[1:]]
@@ -3724,6 +3816,11 @@ def main():
         "svo_raytracer_tpu/ops/wavefront.py:1920", key_launches, key_timed,
         key_all), tpu_kernel="none: _sort_stage's brick key (XLA glue), "
                              "with OCT_SORT's octant (wavefront.py:1032)"))
+    kernels.append(dict(kernel_entry(
+        "GI_SHADE mode-0 shading of a segment, every world's segments",
+        "svo_raytracer_torch/csrc/gi_shade.cu",
+        "svo_raytracer_tpu/ops/shade.py:134", gi_launches, gi_checks,
+        gi_checks), tpu_kernel="none: shade_gi's shading, XLA-fused glue"))
     add_viewer_launches(kernels, viewer_launches, viewer_checks)
     print_ranking(kernels, order_ms)
     say(f"[summary] {json.dumps(summary)}")

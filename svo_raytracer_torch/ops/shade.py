@@ -21,17 +21,23 @@ shading here.  Constants keep the reference's float32
 values as written (e.g. ``2.0 * 3.14159265359``).  Mode 0 draws its
 random from the reference's sin hash (``rng_mode="glsl"``) or from
 threefry (``"threefry"``, ops/rng.py).
+
+Mode 0's shading of a segment, :func:`gi_update`, runs kernel GI_SHADE
+(``csrc/gi_shade.cu`` over ``csrc/gi_shade.cuh``, one launch a segment)
+on CUDA tensors and its plain version :func:`gi_update_plain` on CPU
+tensors; the two are bit-equal on the card.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
 import torch
 
 from ..utils import constants as C
-from . import fp, rng, skip_grid, traverse
+from . import fp, kernel_build, rng, skip_grid, traverse
 
 #: shading palette keyed by voxel value (svotrace.comp:514-522):
 #: 1 = stone, 2 = scree, 3 = grass
@@ -137,15 +143,110 @@ def pixel_dirs_device(cam5, width, height):
 
 
 # ------------------------------------------------------------ segment shading
+_P, _I = ctypes.c_void_p, ctypes.c_int
+GI_SHADE = kernel_build.Kernel(
+    "gi_shade", ["gi_shade.cu"], "gi_shade",
+    [_I, _I, ctypes.POINTER(ctypes.c_uint32)] + [_P] * 5
+    + [_P, _I, _I, _P, _I, _I] + [_P] * 15)
+
+
 def gi_update(first, mirror_values, accum, mask, depth, iters_out, active,
               o, d, r, res):
     """One segment of render mode 0 (svotrace.comp:443-560) given its hit
     record: miss shading, then the bounce ray of every hit.  Returns
-    (accum, mask, depth, iters_out, hit, next origins, next dirs).
+    (accum, mask, depth, iters_out, hit, next origins, next dirs), fresh
+    tensors.
 
     Reference quirks kept: the per-pixel random ``r`` is the same in every
     segment, and depth is the last segment's hit distance (0 on a bounce
-    miss, -1 on a primary miss)."""
+    miss, -1 on a primary miss).  Kernel GI_SHADE for CUDA tensors
+    (:func:`gi_update_kernel`), the plain version for CPU tensors."""
+    if accum.device.type != "cuda":
+        return gi_update_plain(first, mirror_values, accum, mask, depth,
+                               iters_out, active, o, d, r, res)
+    # the kernel reads packed rows (a no-op for every engine's record); a
+    # record merged from columns of wider tensors (parallel/bricks.py) is
+    # packed here.  Origins and directions it reads through their strides.
+    res = res._replace(**{f: getattr(res, f).contiguous() for f in
+                          ("hit", "value", "iters", "t", "normal",
+                           "voxel_pos")})
+    accum, mask, depth, iters_out, active, r = (
+        x.contiguous() for x in (accum, mask, depth, iters_out, active, r))
+    return gi_update_kernel(first, mirror_values, accum, mask, depth,
+                            iters_out, active, o, d, r, res)
+
+
+def _mirror_words(mirror_values):
+    """The 256-bit mask of the mirror materials, as 8 uint32 words."""
+    words = (ctypes.c_uint32 * 8)()
+    for v in mirror_values:
+        v = int(v)
+        if not 0 <= v <= 255:
+            raise ValueError(f"mirror value {v}: materials are bytes")
+        words[v >> 5] |= 1 << (v & 31)
+    return words
+
+
+def gi_update_kernel(first, mirror_values, accum, mask, depth, iters_out,
+                     active, o, d, r, res):
+    """Kernel GI_SHADE on the card: same contract as
+    :func:`gi_update_plain`, one launch and no other device work.  The
+    per-ray tensors are contiguous on one device: accum, mask,
+    ``res.normal`` and ``res.voxel_pos`` (B,3) float32; depth, r and
+    ``res.t`` (B,) float32; iters_out and ``res.iters`` (B,) int32;
+    ``res.value`` (B,) int32; active and ``res.hit`` (B,) bool.  ``o`` and
+    ``d`` are (B,3) float32 of any strides (a frame's origins are the
+    camera row expanded), read in place.  ``mirror_values`` are material
+    bytes, 0..255."""
+    B, dev = accum.shape[0], accum.device
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    for name, a, shape, dtype in (
+            ("accum", accum, (B, 3), f32), ("mask", mask, (B, 3), f32),
+            ("depth", depth, (B,), f32), ("iters_out", iters_out, (B,), i32),
+            ("active", active, (B,), b8), ("r", r, (B,), f32),
+            ("res.hit", res.hit, (B,), b8),
+            ("res.value", res.value, (B,), i32),
+            ("res.iters", res.iters, (B,), i32), ("res.t", res.t, (B,), f32),
+            ("res.normal", res.normal, (B, 3), f32),
+            ("res.voxel_pos", res.voxel_pos, (B, 3), f32)):
+        if (a.shape != shape or a.dtype != dtype or a.device != dev
+                or not a.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {shape} {dtype} "
+                             f"tensor on {dev}, not {tuple(a.shape)} "
+                             f"{a.dtype} on {a.device}")
+    for name, a in (("o", o), ("d", d)):
+        if a.shape != (B, 3) or a.dtype != f32 or a.device != dev:
+            raise ValueError(f"{name} must be a ({B}, 3) float32 tensor on "
+                             f"{dev}, not {tuple(a.shape)} {a.dtype} on "
+                             f"{a.device}")
+    words = _mirror_words(mirror_values)
+    out = (torch.empty_like(accum), torch.empty_like(mask),
+           torch.empty_like(depth), torch.empty_like(iters_out),
+           torch.empty_like(active), torch.empty((B, 3), dtype=f32,
+                                                 device=dev),
+           torch.empty((B, 3), dtype=f32, device=dev))
+    if B:
+        fn = GI_SHADE.load()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = fn(B, int(bool(first)), words, active.data_ptr(),
+                    accum.data_ptr(), mask.data_ptr(), depth.data_ptr(),
+                    iters_out.data_ptr(), o.data_ptr(), *o.stride(),
+                    d.data_ptr(), *d.stride(), r.data_ptr(),
+                    res.hit.data_ptr(), res.value.data_ptr(),
+                    res.iters.data_ptr(), res.t.data_ptr(),
+                    res.normal.data_ptr(), res.voxel_pos.data_ptr(),
+                    *[x.data_ptr() for x in out], stream)
+        if rc != 0:
+            raise RuntimeError(f"GI_SHADE launch failed with cudaError {rc}")
+        GI_SHADE.launches += 1
+    return out
+
+
+def gi_update_plain(first, mirror_values, accum, mask, depth, iters_out,
+                    active, o, d, r, res):
+    """Plain PyTorch version of kernel GI_SHADE: :func:`gi_update`'s
+    contract, in eager ops on either device."""
     hit = active & res.hit
     miss = active & ~res.hit
 

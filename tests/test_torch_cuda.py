@@ -2,11 +2,13 @@
 schedule), KE (its plain and binned schedules, through a permutation),
 K2 (in ray order) and K3 (through a permutation), each with its
 wrapper launching the kernel alone, on a CUDA GPU against their plain
-PyTorch versions; the noise on the card against the CPU's, the
-bench's small pipeline on the card, and the differentiable renderers'
-compositor and train steps on the card against the CPU's; the edit path
-(apply_patch, DeviceTree) and a viewer session on the card against the
-CPU's; a traced frame's device records under its ``svo.*`` spans.  Needs
+PyTorch versions; GI_SHADE against gi_update_plain on a bench-sized
+segment and in each caller's mode-0 frame; the noise on the card
+against the CPU's, the bench's small pipeline on the card, and the
+differentiable renderers' compositor and train steps on the card
+against the CPU's; the edit path (apply_patch, DeviceTree) and a viewer
+session on the card against the CPU's; a traced frame's device records
+under its ``svo.*`` spans.  Needs
 a card and nvcc; skipped elsewhere.  The file imports no jax, so on a GPU host
 without JAX it runs from the repository root with
 ``python -m pytest --noconftest tests/test_torch_cuda.py``."""
@@ -482,10 +484,11 @@ def test_kernel_g64_camera_and_grid_on_gpu():
 @pytest.mark.gpu
 def test_launch_counters_once_per_segment():
     """A gi-2 frame: one K1 launch per segment (the primary one in camera
-    mode) and one key launch per explicit segment."""
+    mode), one key launch per explicit segment and one GI_SHADE launch
+    per segment."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
-    from svo_raytracer_torch.ops import render_wave
+    from svo_raytracer_torch.ops import render_wave, shade
     from svo_raytracer_torch.utils.camera import Camera
     hm, mm = bigworld.fractal_heightmap(256, seed=3, lo=0.3, hi=0.9)
     ws = wavefront.prepare(bigworld.heightmap_brick_scene(hm, mm, 256),
@@ -493,13 +496,14 @@ def test_launch_counters_once_per_segment():
     cam = Camera(pos=np.array([1.3, 1.8, 1.3]))
     cam.rotate(-0.5, 0.6)
     cam5 = torch.tensor(cam.uniform(), dtype=torch.float32, device="cuda")
-    k = (wavefront.K1, wavefront.K1_CAMERA, wavefront.K1_KEYS)
+    k = (wavefront.K1, wavefront.K1_CAMERA, wavefront.K1_KEYS,
+         shade.GI_SHADE)
     before = [x.launches for x in k]
     stats = []
     render_wave.render_frame_wavefront(ws, cam5, 64, 48, render_mode=0,
                                        gi_bounces=2, stats=stats)
     torch.cuda.synchronize()
-    assert [x.launches - b for x, b in zip(k, before)] == [3, 1, 2]
+    assert [x.launches - b for x, b in zip(k, before)] == [3, 1, 2, 3]
     assert [s["launches"] for s in stats] == [1, 1, 1]
 
 
@@ -509,7 +513,7 @@ def test_frame_spans_hold_the_device_records_on_gpu():
     span readers, portbench/trace.py and spans.py): at least 99% of the
     device records were launched inside a child span of ``svo.frame``,
     and K1's launches and the ray order's fall under ``svo.k1`` and
-    ``svo.order``."""
+    ``svo.order``; ``svo.shade`` holds one record a segment, GI_SHADE's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     from portbench import spans, trace
@@ -537,6 +541,107 @@ def test_frame_spans_hold_the_device_records_on_gpu():
     assert inside >= 0.99, (s.shares, s.unattributed, s.unlaunched)
     # K1 once a segment, the keys and the sort's kernels per explicit one
     assert s.kernels["svo.k1"] == 4 and s.kernels["svo.order"] >= 3
+    assert s.kernels["svo.shade"] == 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["primary", "bounce", "mirrors",
+                                  "columns"])
+def test_gi_shade_kernel_equals_plain_on_gpu(kind):
+    """GI_SHADE against gi_update_plain on the card, on a segment of the
+    bench frame's 1920 x 1088 rays (chip_smoke.gi_segment: hits, misses,
+    inactive rays, degenerate and infinite normals): every output equal
+    on every ray, one launch, and the inputs left as they were.
+    ``columns``: the record's fields are columns of wider tensors, as
+    parallel/bricks.py's nearest-hit merge returns them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from svo_raytracer_torch.ops import shade
+    first = kind == "primary"
+    mirrors = (2, 7) if kind == "mirrors" else ()
+    seg = chip_smoke.gi_segment(1920 * 1088, first, seed=21, device="cuda")
+    if kind == "columns":
+        res = seg[-1]
+        ints = torch.stack([res.value, res.depth, res.iters], 1)
+        floats = torch.cat([res.t[:, None], res.normal, res.voxel_pos], 1)
+        seg = seg[:-1] + (res._replace(
+            value=ints[:, 0], iters=ints[:, 2], t=floats[:, 0],
+            normal=floats[:, 1:4], voxel_pos=floats[:, 4:7]),)
+        assert not seg[-1].normal.is_contiguous()
+    inputs = [a.clone() for a in seg[:-1]]
+    before = shade.GI_SHADE.launches
+    got = shade.gi_update(first, mirrors, *seg)
+    torch.cuda.synchronize()
+    assert shade.GI_SHADE.launches == before + 1
+    want = shade.gi_update_plain(first, mirrors, *seg)
+    fields = chip_smoke.GI_FIELDS
+    assert _equal_fields(dict(zip(fields, want)),
+                         dict(zip(fields, got))) == []
+    assert all(torch.equal(a, b) for a, b in zip(inputs, seg[:-1]))
+
+
+def _gi_frame(caller, cam5, tmp_path):
+    """(segments a frame, render()) of one caller of gi_update on the card:
+    render_frame_wavefront (gi-3, a mirror), the ESVO render_image (gi-2,
+    a mirror), render_progressive (threefry random, 2 samples of gi-1) or
+    make_wave_sharded_render (gi-2) on a one-rank gloo mesh."""
+    from svo_raytracer_torch.core import build_np
+    from svo_raytracer_torch.ops import render_wave, shade
+    from svo_raytracer_torch.parallel import distributed, mesh
+    from svo_raytracer_torch.parallel import render_wave_sharded as rws
+    if caller in ("esvo", "progressive"):
+        tree = build_np.build_octree_np(chip_smoke.terrain_voxels(64, 7)
+                                        ).to_device("cuda")
+        if caller == "esvo":
+            return 3, lambda: shade.render_image(
+                tree, cam5, 96, 64, render_mode=0, gi_bounces=2,
+                mirror_values=(3,))
+        return 4, lambda: shade.render_progressive(tree, cam5, 96, 64,
+                                                   spp=2, gi_bounces=1)
+    hm, mm = bigworld.fractal_heightmap(256, seed=3, lo=0.3, hi=0.9)
+    ws = wavefront.prepare(bigworld.heightmap_brick_scene(hm, mm, 256),
+                           "cuda")
+    if caller == "wavefront":
+        return 4, lambda: render_wave.render_frame_wavefront(
+            ws, cam5, 256, 160, render_mode=0, gi_bounces=3,
+            mirror_values=(2,))
+    distributed.init_distributed("gloo", f"file://{tmp_path}/store", 1, 0)
+    render = rws.make_wave_sharded_render(mesh.tile_mesh(1), ws, 128, 96,
+                                          render_mode=0, gi_bounces=2)
+    return 3, lambda: render(ws, cam5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("caller", ["wavefront", "esvo", "progressive",
+                                    "sharded"])
+def test_gi_frames_equal_plain_shading_on_gpu(caller, monkeypatch,
+                                              tmp_path):
+    """Each caller of gi_update renders on the card the frame that
+    gi_update_plain shades (_gi_frame), with one GI_SHADE launch per
+    segment."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from svo_raytracer_torch.ops import shade
+    from svo_raytracer_torch.utils.camera import Camera
+    cam = Camera(pos=np.array([1.3, 1.8, 1.3]))
+    cam.rotate(-0.5, 0.6)
+    cam5 = torch.tensor(cam.uniform(), dtype=torch.float32, device="cuda")
+    try:
+        segments, render = _gi_frame(caller, cam5, tmp_path)
+        before = shade.GI_SHADE.launches
+        got = render()
+        torch.cuda.synchronize()
+        assert shade.GI_SHADE.launches == before + segments
+        monkeypatch.setattr(shade, "gi_update", shade.gi_update_plain)
+        want = render()
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    for a, b in zip(want, got):
+        if isinstance(a, torch.Tensor):
+            assert bool(chip_smoke.same(a, b).all())
+        else:
+            assert a == b
 
 
 @pytest.mark.gpu

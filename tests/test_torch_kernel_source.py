@@ -8,15 +8,19 @@ csrc/esvo_ray.cuh for KE with its schedule, emulated by a host loop of
 cone-traced segment's rays by octant, csrc/brick_dda.cuh for K2 and
 csrc/brick_round.cuh for K3, each with its schedule emulated by a host
 loop of blocks that take ids by a grid stride, K3's through a
-permutation) compiled with g++, their CUDA qualifiers
+permutation, and csrc/gi_shade.cuh for GI_SHADE, mode 0's shading of a
+segment) compiled with g++, their CUDA qualifiers
 defined away, into ctypes libraries, against their plain PyTorch versions
 (wavefront.trace_plain and trace_camera_plain, traverse.intersect_plain,
-brick_dda.coarse_dda_plain, brick_pallas.trace_plain).
+brick_dda.coarse_dda_plain, brick_pallas.trace_plain,
+shade.gi_update_plain).
 
 With no fused multiply-add on either side the two compute the same
 float32 operations in the same order, so every record field must be
 equal on every ray.  This catches logic slips in the CUDA source before
-any GPU time."""
+any GPU time.  GI_SHADE's cos, sin and acos are glibc's here and
+torch's (SLEEF's) in the plain version, which differ by up to an ulp:
+the values they enter are held to a stated ulp tolerance."""
 
 import ctypes
 import shutil
@@ -30,8 +34,8 @@ from conftest import make_sphere_voxels
 from svo_raytracer_tpu.core import build_np
 from svo_raytracer_torch.models import bigworld
 from svo_raytracer_torch.ops import brick_dda, brick_pallas, brick_scene
-from svo_raytracer_torch.ops import kernel_build, render_wave, skip_grid
-from svo_raytracer_torch.ops import traverse, wavefront
+from svo_raytracer_torch.ops import kernel_build, render_wave, shade
+from svo_raytracer_torch.ops import skip_grid, traverse, wavefront
 from svo_raytracer_torch.utils.camera import Camera
 from test_traverse_batch import random_rays
 
@@ -600,3 +604,84 @@ def test_brick_round_source_reloads_word_on_xy_steps():
     assert want["hit"].tolist() == [True, True, False, True, True]
     assert vox[0].tolist() == [10, 9, 5] and vox[1].tolist() == [9, 12, 5]
     assert vox[3].tolist() == [40, 40, 20] == vox[4].tolist()
+
+
+# GI_SHADE's bounce directions (unit rows) within 4 ulps of 1.0, and the
+# mask within 4 ulps of 1.0 times |mask * albedo|: the g++ build's glibc
+# cos and sin and torch's CPU ones differ by up to an ulp (1.5 and 1.83
+# ulps of 1.0 measured after the normalisation and n.l)
+GI_ULPS = 4 * 2.0 ** -23
+
+
+def _gi_host(first, mirrors, accum, mask, depth, iters_out, active, o, d, r,
+             res):
+    """gi_update's outputs by the g++ build of GI_SHADE's body; every
+    slot starts as a sentinel."""
+    fn = _host_fn("gi_shade_host", "gi_shade_host.cpp", "gi_shade_host",
+                  shade.GI_SHADE.argtypes)
+    B = accum.shape[0]
+    out = (torch.full((B, 3), -7.0), torch.full((B, 3), -7.0),
+           torch.full((B,), -7.0), torch.full((B,), -7, dtype=torch.int32),
+           torch.full((B,), True), torch.full((B, 3), -7.0),
+           torch.full((B, 3), -7.0))
+    assert fn(B, int(first), shade._mirror_words(mirrors),
+              active.data_ptr(), accum.data_ptr(), mask.data_ptr(),
+              depth.data_ptr(), iters_out.data_ptr(), o.data_ptr(),
+              *o.stride(), d.data_ptr(), *d.stride(), r.data_ptr(),
+              res.hit.data_ptr(),
+              res.value.data_ptr(), res.iters.data_ptr(), res.t.data_ptr(),
+              res.normal.data_ptr(), res.voxel_pos.data_ptr(),
+              *[x.data_ptr() for x in out]) == 0
+    return out
+
+
+@pytest.mark.parametrize("first", [True, False])
+@pytest.mark.parametrize("mirrors", [(), (7,), (2, 7)])
+def test_gi_shade_source_equals_plain(first, mirrors):
+    """GI_SHADE's body against gi_update_plain on a segment of hits,
+    misses and inactive rays (chip_smoke.gi_segment): active, iters,
+    depth, origin and accum (its sun disk decided by acos) exactly; the
+    direction and the mask exactly wherever cos and sin do not enter (a
+    mirror's reflection, the -d fallback of a degenerate normal, every
+    ray but the hits) and within GI_ULPS where they do.  Every branch
+    occurs: primary and bounce misses with the sun disk on and off,
+    mirrors, fallbacks of whole rows and of single components, palette
+    and other materials, either bounce axis."""
+    seg = chip_smoke.gi_segment(1 << 14, first, seed=11)
+    accum, mask, depth, iters_out, active, o, d, r, res = seg
+    fields = chip_smoke.GI_FIELDS
+    want = dict(zip(fields, shade.gi_update_plain(first, mirrors, *seg)))
+    got = dict(zip(fields, _gi_host(first, mirrors, *seg)))
+    exact = ("accum", "depth", "iters_out", "active", "o")
+    assert _equal({k: want[k] for k in exact}, got) == []
+
+    hit = active & res.hit
+    w = torch.nan_to_num(res.normal)
+    bounce = shade.cosine_bounce(w, r)
+    mirror = torch.zeros_like(hit)
+    for v in mirrors:
+        mirror = mirror | (res.value == v)
+    trig = hit[:, None] & ~mirror[:, None] & torch.isfinite(bounce)
+    gap = (want["d"] - got["d"]).abs()
+    assert torch.equal(want["d"][~trig], got["d"][~trig])
+    assert bool((gap[trig] <= GI_ULPS).all()), gap.max()
+    row = trig.any(1)
+    scale = (mask * shade.material_color(res.value, res.voxel_pos)).abs()
+    gap = (want["mask"] - got["mask"]).abs()
+    assert torch.equal(want["mask"][~row], got["mask"][~row])
+    assert bool((gap[row] <= GI_ULPS * scale[row]).all())
+
+    miss = active & ~res.hit
+    sun = torch.arccos((d * torch.tensor(shade.SUN_DIR_GI)).sum(-1).clamp(
+        -1.0, 1.0)) < 0.4
+    pre = torch.where(mirror[:, None], shade.mirror_bounce(d, w), bounce)
+    fell = hit[:, None] & ~torch.isfinite(pre)
+    palette = (res.value >= 1) & (res.value <= 3)
+    use_y = w[:, 0].abs() > 0.1
+    assert (miss & sun).any() and (miss & ~sun).any() and (~active).any()
+    assert fell.all(1).any()
+    # only a mirror's reflection can overflow in some components alone
+    assert bool((fell.any(1) & ~fell.all(1)).any()) == bool(mirrors)
+    assert (hit & palette).any() and (hit & ~palette).any()
+    assert (hit & use_y).any() and (hit & ~use_y).any()
+    assert bool((hit & mirror).any()) == bool(mirrors)
