@@ -1,11 +1,11 @@
-"""On the card only (marked ``gpu``; skipped here): the tiny cells through
-the kernels, correct, and the result's device fields.  The cells at their
-own size run on the card through ``portbench/run.py`` and
-``portbench/control.py``."""
+"""On the card only (marked ``gpu``; skipped here): every tiny cell found
+under tiny/ through the kernels, correct, and the result's device
+fields.  The cells at their own size run on the card through
+``portbench/run.py`` and ``portbench/control.py``."""
 
 import pytest
 
-from conftest import SEED, TINY
+from conftest import TINY_CELLS, tiny_run
 
 
 @pytest.fixture
@@ -16,13 +16,10 @@ def card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cell", ["tiny-wave.gi3-still",
-                                  "tiny-wave.direct-fly"])
+@pytest.mark.parametrize("cell", TINY_CELLS)
 @pytest.mark.parametrize("trace", [False, True])
 def test_tiny_cell_on_the_card(card, cell, trace):
-    from portbench.harness import run
-    result, _ = run(cell, SEED, 0.5, trace, root=TINY,
-                    workloads=TINY / "workloads", log=lambda *a: None)
+    result, _ = tiny_run(cell, trace, seconds=0.5, device="cuda")
     assert result["correct"] is True, result["checks"]
     dev = result["device"]
     assert dev["platform"] == "gpu" and dev["count"] == 1

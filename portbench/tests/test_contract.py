@@ -183,8 +183,73 @@ def test_a_new_kind_is_found_by_its_file(tmp_path):
     out = subprocess.run([sys.executable, "-c", probe], cwd=root,
                          capture_output=True, text=True, check=True,
                          env=dict(os.environ, PYTHONPATH=str(root)))
+    from portbench.drivers import kind_names
+    assert "edits" not in kind_names()
     assert json.loads(out.stdout) == ["portbench.kinds.edits", True,
-                                      ["edits", "frames", "viewer"]]
+                                      sorted({*kind_names(), "edits"})]
+
+
+def test_a_kind_and_its_tiny_cell_are_added_by_files_alone(tmp_path):
+    """A kind of traffic (kinds/<kind>.py: here the frames driver on the
+    same world with one planted fault) and its tiny rehearsal root
+    (tests/tiny/<kind>/) added as new files to a copy of the checkout are
+    rehearsed by the copy's own CPU tests, which pass: the new cell's sound
+    run is correct and its fault comes out not correct."""
+    import xml.etree.ElementTree as ET
+
+    root = tmp_path / "checkout"
+    skip = shutil.ignore_patterns("__pycache__", "_build")
+    for name in ("portbench", "svo_raytracer_torch"):
+        shutil.copytree(ROOT / name, root / name, ignore=skip)
+    for name in ("BENCHMARK.json", "pytest.ini"):
+        shutil.copy(ROOT / name, root / name)
+    (root / "portbench/kinds/rehearsal.py").write_text(
+        "from portbench import drivers\n"
+        "frames = drivers.kind('frames')\n"
+        "KEYS = frames.KEYS\n"
+        "class Driver(frames.Driver):\n    pass\n"
+        "FAULTS = {'stale': frames.FAULTS['stale']}\n")
+    tiny = ROOT / "portbench/tests/tiny"
+    new = root / "portbench/tests/tiny/rehearsal"
+    (new / "configs").mkdir(parents=True)
+    (new / "workloads").mkdir()
+    cfg = json.loads((tiny / "configs/tiny-wave.json").read_text())
+    (new / "configs/tiny-rehearsal.json").write_text(
+        json.dumps(dict(cfg, name="tiny-rehearsal")))
+    traffic = json.loads((tiny / "workloads/gi3-still.json").read_text())
+    (new / "workloads/gi1-still.json").write_text(
+        json.dumps(dict(traffic, kind="rehearsal", gi_bounces=1)))
+    bench = json.loads((tiny / "BENCHMARK.json").read_text())
+    cell = "tiny-rehearsal.gi1-still"
+    bench["configs"] = [dict(bench["configs"][0], name="tiny-rehearsal",
+                             file="configs/tiny-rehearsal.json")]
+    bench["workloads"] = [dict(bench["workloads"][0], name=cell,
+                               config="tiny-rehearsal", traffic="gi1-still")]
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "workloads" in m:
+            m["workloads"] = [cell]
+    (new / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    me = "portbench/tests/test_contract.py::" + \
+        test_a_kind_and_its_tiny_cell_are_added_by_files_alone.__name__
+    junit = tmp_path / "junit.xml"
+    # the copy's tests run on their own: no worker or options of this run
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PYTEST_")}
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "portbench/tests", "-m", "not gpu",
+         "-q", "-p", "no:cacheprovider", "--deselect", me,
+         f"--junitxml={junit}"], cwd=root, capture_output=True, text=True,
+        env=dict(env, PYTHONPATH=str(root)))
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-2000:]
+    passed = {case.get("name") for case in ET.parse(junit).iter("testcase")
+              if len(case) == 0 or all(c.tag in ("system-out", "system-err")
+                                       for c in case)}
+    assert {"test_every_kind_has_a_tiny_cell[rehearsal]",
+            f"test_sound_run[{cell}]", f"test_traced_run[{cell}]",
+            f"test_precision_control_is_not_correct[{cell}]",
+            "test_a_broken_timed_path_is_not_correct[rehearsal-stale]",
+            "test_no_tiny_cell_is_in_two_roots",
+            "test_every_tiny_traffic_names_a_kind"} <= passed, passed
 
 
 @pytest.mark.parametrize("key,value", [
