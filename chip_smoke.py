@@ -175,9 +175,12 @@ PEAK_OPS_PER_S = 67e12
 # (csrc/wf_ray.cuh ray_key: six finiteness tests, three brick coordinates,
 # three Morton spreads, the octant); GI_SHADE's per hit ray, assumed
 # (csrc/gi_shade.cuh: two normalisations, two cross products, the bounce
-# sum, n.l and the mask; acos, cos and sin counted as one each)
+# sum, n.l and the mask; acos, cos and sin counted as one each); DECODE's
+# per ray, assumed (csrc/decode.cuh: the brick and voxel index arithmetic,
+# the attribute word's fields, the normal's square root and divisions,
+# the corner and the two points)
 OPS_PER_STEP = {"K1": 40, "KE": 50, "K2": 30, "K3": 30, "K1 keys": 75,
-                "GI_SHADE": 100}
+                "GI_SHADE": 100, "DECODE": 80}
 K3_ROUNDS = 24            # intersect_bricks_tpu's default max_rounds
 K3_CUT_ROUNDS = 2         # few enough rounds that some rays run out
 
@@ -430,6 +433,32 @@ def random_rays(n, seed, inside_bias=0.5):
         origins[i] = o
         dirs[i] = d / np.linalg.norm(d)
     return origins, dirs
+
+
+def plant_normal_555(ws, every=7):
+    """Give every ``every``-th attribute word of ``ws`` that is not air (in
+    place) the raw normal 555, which decodes to 0/0, a NaN normal; value
+    and depth bits are kept (int32 words, and attr16 half-words)."""
+    import torch
+    sub = ws.attr_comb.view(-1)[3::every]
+    if ws.attr16:    # value(2) | raw(10) << 2 | ddepth(3) << 12
+        planted = (sub & ~(0x3FF << 2)) | (555 << 2)
+    else:            # value(8) | raw(16) << 8 | depth(5) << 24
+        planted = (sub & ~(0xFFFF << 8)) | (555 << 8)
+    sub.copy_(torch.where(sub != 0, planted, sub))
+
+
+def decode_segment(ws, origins, dirs, active=None, capped_every=13):
+    """A traversal segment for DECODE against wavefront._finish_plain: the
+    record ``wavefront.trace`` gives world-space rays on the scene's
+    device (K1 on the card, its plain version on the CPU), with every
+    ``capped_every``-th status made ITER_CAP's and its cell, widx and t
+    kept, so that the decode must drop them."""
+    from svo_raytracer_torch.ops import wavefront as wf
+    o, d, alive = wf._rays(ws, origins, dirs, active)
+    rec = wf.trace(ws, o, d, alive)
+    rec[0][::capped_every] = wf.CAPPED
+    return rec
 
 
 def gi_segment(B, first, seed, device="cpu"):
@@ -733,6 +762,31 @@ def hold_gi(name, first, args):
                 lambda: dict(zip(GI_FIELDS, shade.gi_update_plain(
                     first, (), *args))),
                 nbytes, [], lambda rec: hits)
+
+
+def hold_decode(name, ws, rec, origins, dirs):
+    """DECODE vs wavefront._finish_plain on one segment's record (a tuple,
+    K1's) and world-space rays: every HitResult field.  The bytes are
+    what the kernel must move for these rays (csrc/decode.cu's count): 57
+    written, status and t (8) and the direction (12) read for every ray,
+    the origin (12) for every ray or once where the rays share one row,
+    and on a hit its cell and widx (8), its attribute word (4, or 2 as
+    attr16) and on a mixed hit its brick_slot word (4): at most 105 B a
+    ray, 93 B with a shared origin; a step is a ray."""
+    from svo_raytracer_torch.ops import wavefront as wf
+    B = rec[0].shape[0]
+    status = rec[0]
+    hits = int(((status == wf.MIXED) | (status == wf.UNIFORM)).sum())
+    mixed = int((status == wf.MIXED).sum())
+    shared = origins.stride(0) == 0
+    nbytes = (B * (77 - 12 * shared) + 12 * shared
+              + hits * (8 + (2 if ws.attr16 else 4)) + mixed * 4)
+
+    def fields(finish):
+        return lambda: finish(ws, rec, origins, dirs)._asdict()
+
+    return Held("DECODE", name, fields(wf._finish_kernel),
+                fields(wf._finish_plain), nbytes, [], lambda r: B)
 
 
 class Agreement(Held):
@@ -1582,8 +1636,8 @@ def render_frames(ws, cam5, configs):
 
 def main_path(ws, configs):
     """The main path on one world: camera probe and frames, with K1's
-    launch counts (and its key kernel's and GI_SHADE's) set to 0 just
-    before and read just after.  K1.launches counts both entry points of
+    launch counts (and its key kernel's, DECODE's and GI_SHADE's) set to
+    0 just before and read just after.  K1.launches counts both entry points of
     the library, so the explicit-ray entry's launches are K1's less
     K1_CAMERA's."""
     import torch
@@ -1592,14 +1646,15 @@ def main_path(ws, configs):
     from svo_raytracer_torch.ops import wavefront as wf
     torch.cuda.reset_peak_memory_stats()
     wf.K1.launches = wf.K1_CAMERA.launches = wf.K1_KEYS.launches = 0
-    shade.GI_SHADE.launches = 0
+    shade.GI_SHADE.launches = wf.DECODE.launches = 0
     cam5, surf_y = bench.place_camera(ws)
     say(f"[camera] at y={float(cam5[0, 1]):.4f} (surface {surf_y:.4f})")
     frames = render_frames(ws, cam5, configs)
     launches = dict(K1_explicit=wf.K1.launches - wf.K1_CAMERA.launches,
                     K1_camera=wf.K1_CAMERA.launches,
                     K1_keys=wf.K1_KEYS.launches,
-                    GI_SHADE=shade.GI_SHADE.launches)
+                    GI_SHADE=shade.GI_SHADE.launches,
+                    DECODE=wf.DECODE.launches)
     peak = torch.cuda.max_memory_allocated()
     say(f"[main path {ws.world_size}] launches {launches}; "
         f"max_memory_allocated {peak / 2**30:.3f} GiB ({peak} B)")
@@ -3420,9 +3475,12 @@ def sampled_rays(ws, cam5):
 def compare_segments(ws, cam5, bounces):
     """K1 vs trace_plain on every segment of a gi-``bounces`` frame, as
     explicit rays in key order; bounce segment 1 in frame order too.  Each
-    segment's shading is GI_SHADE held against gi_update_plain
-    (hold_gi, kept as the Agreement's ``gi``), and the next segment
-    starts from the kernel's outputs."""
+    segment's decode is DECODE held against _finish_plain on the
+    segment's rays as the frame passes them, the primary's origins one
+    camera row (hold_decode, kept as the Agreement's ``dec``), its
+    shading GI_SHADE held against gi_update_plain (hold_gi, kept as the
+    Agreement's ``gi``), and the next segment starts from the kernel's
+    outputs."""
     import torch
     from svo_raytracer_torch.ops import render_wave, rng
     say(f"[segments {ws.world_size}] K1 vs trace_plain per segment of a "
@@ -3442,6 +3500,8 @@ def compare_segments(ws, cam5, bounces):
         a = Agreement(ws, f"segment {seg}", o.contiguous(), d.contiguous(),
                       None if seg == 0 else active, frame_order=seg == 1)
         out.append(a)
+        a.dec = hold_decode(f"segment {seg}", ws, tuple(
+            a.rec[f] for f in a.FIELDS), o, d)
         a.gi = hold_gi(f"segment {seg}", seg == 0, (
             accum, mask, depth, iters, active, o, d, rand, a.res_k))
         accum, mask, depth, iters, active, o, d = a.gi.rec.values()
@@ -3561,7 +3621,7 @@ def kernel_entry(name, source, replaces, launches, timed_checks,
 
 
 def build_kernels():
-    """Build K1, KE, K2, K3 and GI_SHADE from csrc/, one nvcc each, all
+    """Build K1, KE, K2, K3, GI_SHADE and DECODE from csrc/, one nvcc each, all
     started together; prints each kernel's build-and-load seconds and
     ptxas's registers, shared memory and spills."""
     import concurrent.futures as cf
@@ -3576,7 +3636,7 @@ def build_kernels():
 
     t0 = time.time()
     ks = (wf.K1, traverse.KE, brick_dda.K2, brick_pallas.K3,
-          shade.GI_SHADE)
+          shade.GI_SHADE, wf.DECODE)
     with cf.ThreadPoolExecutor(len(ks)) as ex:
         secs = list(ex.map(load, ks))
     for k, sec in zip(ks, secs):
@@ -3584,7 +3644,7 @@ def build_kernels():
         for line in k.build_log().splitlines():
             if "registers" in line or "spill" in line or "entry" in line:
                 say(f"  ptxas {k.name}: {line.strip()}")
-    say(f"[build] all five in {time.time() - t0:.1f} s")
+    say(f"[build] all six in {time.time() - t0:.1f} s")
 
 
 def add_viewer_launches(kernels, launches, checks):
@@ -3740,7 +3800,7 @@ def main():
                + [c.keys for c in viewer_checks["K1"]]
                + [Err(multi_err["K1 keys"])])
     order_ms = bench_order_ms
-    gi_launches, gi_checks = 0, []
+    gi_launches, gi_checks, dec_launches, dec_checks = 0, [], 0, []
     for (size, n_range, bounces, n_timed, profiled, part, line,
          small_names, first) in WORLDS:
         scene, ws = build_world(dev, size, n_range)
@@ -3780,6 +3840,8 @@ def main():
         key_launches += launches["K1_keys"]
         gi_launches += launches["GI_SHADE"]
         gi_checks += [a.gi for a in seg]
+        dec_launches += launches["DECODE"]
+        dec_checks += [a.dec for a in seg]
         order_ms += launches["K1_keys"] * float(
             np.mean([a.key_sort_device_ms for a in seg[1:]]))
         key_timed += [a.keys for a in seg[1:]]
@@ -3821,6 +3883,12 @@ def main():
         "svo_raytracer_torch/csrc/gi_shade.cu",
         "svo_raytracer_tpu/ops/shade.py:134", gi_launches, gi_checks,
         gi_checks), tpu_kernel="none: shade_gi's shading, XLA-fused glue"))
+    kernels.append(dict(kernel_entry(
+        "DECODE hit decode of a segment, every world's segments",
+        "svo_raytracer_torch/csrc/decode.cu",
+        "svo_raytracer_tpu/ops/wavefront.py:2079", dec_launches,
+        dec_checks, dec_checks),
+        tpu_kernel="none: _finish and decode_hits, XLA-fused glue"))
     add_viewer_launches(kernels, viewer_launches, viewer_checks)
     print_ranking(kernels, order_ms)
     say(f"[summary] {json.dumps(summary)}")

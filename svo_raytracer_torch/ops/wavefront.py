@@ -35,7 +35,9 @@ counter on the card.  A ray's record depends on neither.
 PyTorch (masked like ``_dda_cr``), and :func:`trace_camera_plain` its
 camera-mode form.  The CPU path and the tests use them; ``chip_smoke.py``
 compares the kernel against them on the card.  A CUDA tensor always goes
-to the kernel.
+to the kernel.  The records become a HitResult in :func:`_finish`: on the
+card kernel DECODE (``csrc/decode.cu`` over ``csrc/decode.cuh``, one
+launch a segment), on the CPU its plain version :func:`_finish_plain`.
 
 Scene tables come from :func:`prepare` (host NumPy, then one copy to the
 device) and equal the JAX package's ``WaveScene`` arrays word for word,
@@ -1228,8 +1230,93 @@ def _rays(ws, origins, dirs, active=None):
     return ov, d, alive.contiguous()
 
 
+DECODE = kernel_build.Kernel(
+    "decode", ["decode.cu"], "decode",
+    [_I] * 8 + [_P] * 7 + [_I] * 2 + [_P] + [_I] * 2 + [_P] * 9 + [_P])
+# the HitResult fields DECODE writes, in its arguments' order
+DECODE_OUTPUTS = ("hit", "value", "t", "scale_exp2", "depth", "normal",
+                  "hit_pos", "voxel_pos", "node")
+
+
 def _finish(ws: WaveScene, rec, origins, dirs) -> HitResult:
-    """Decode trace records into a HitResult (wavefront._finish).
+    """Decode trace records into a HitResult (wavefront._finish): kernel
+    DECODE for CUDA records (:func:`_finish_kernel`, one launch), its
+    plain version :func:`_finish_plain` for CPU records; the two are
+    bit-equal on the card."""
+    if rec[0].device.type == "cpu":
+        return _finish_plain(ws, rec, origins, dirs)
+    return _finish_kernel(ws, rec, origins, dirs)
+
+
+def _finish_kernel(ws: WaveScene, rec, origins, dirs) -> HitResult:
+    """Kernel DECODE on the card: same contract as :func:`_finish_plain`,
+    one launch and no other device work.  The record's tensors are
+    contiguous (B,) on the scene's device (K1's own); ``origins`` and
+    ``dirs`` are (B,3) float32 of any strides (a camera-mode frame's
+    origins are the camera row expanded), read in place.  ``iters`` is
+    the record's tensor."""
+    status, t_vox, cell, widx, iters = rec
+    B, dev = status.shape[0], ws.device
+    for name, a, dtype in (("status", status, torch.int32),
+                           ("t", t_vox, torch.float32),
+                           ("cell", cell, torch.int32),
+                           ("widx", widx, torch.int32),
+                           ("iters", iters, torch.int32)):
+        if (a.shape != (B,) or a.dtype != dtype or a.device != dev
+                or not a.is_contiguous()):
+            raise ValueError(f"record {name} must be a contiguous ({B},) "
+                             f"{dtype} tensor on {dev}")
+    o, d = origins.to(torch.float32), dirs.to(torch.float32)
+    for name, a in (("origins", o), ("dirs", d)):
+        if a.shape != (B, 3) or a.device != dev:
+            raise ValueError(f"{name} must be ({B}, 3) on {dev}, not "
+                             f"{tuple(a.shape)} on {a.device}")
+    layout = _decode_layout(ws, B)
+    out = HitResult(
+        hit=torch.empty(B, dtype=torch.bool, device=dev),
+        value=torch.empty(B, dtype=torch.int32, device=dev),
+        t=torch.empty(B, dtype=torch.float32, device=dev), iters=iters,
+        scale_exp2=torch.empty(B, dtype=torch.float32, device=dev),
+        depth=torch.empty(B, dtype=torch.int32, device=dev),
+        normal=torch.empty((B, 3), dtype=torch.float32, device=dev),
+        hit_pos=torch.empty((B, 3), dtype=torch.float32, device=dev),
+        voxel_pos=torch.empty((B, 3), dtype=torch.float32, device=dev),
+        node=torch.empty(B, dtype=torch.int32, device=dev))
+    if B == 0:
+        return out
+    fn = DECODE.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(*layout, ws.brick_slot.data_ptr(),
+                ws.attr_comb.data_ptr(), status.data_ptr(),
+                t_vox.data_ptr(), cell.data_ptr(), widx.data_ptr(),
+                o.data_ptr(), *o.stride(), d.data_ptr(), *d.stride(),
+                *[getattr(out, f).data_ptr() for f in DECODE_OUTPUTS],
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"DECODE launch failed with cudaError {rc}")
+    DECODE.launches += 1
+    return out
+
+
+def _decode_layout(ws: WaveScene, B):
+    """DECODE's leading arguments (csrc/decode.cuh::Args) for B rays: B,
+    G, world size, capacity, paged, attr16, 2-D storage and log2 of the
+    world size.  Refuses a flat table whose indices pass int32 node ids,
+    as :func:`_finish_plain` does."""
+    if not (ws.brick_slot.is_contiguous() and ws.attr_comb.is_contiguous()):
+        raise ValueError("scene tables must be contiguous")
+    two_d = ws.attr_comb.dim() == 2
+    if not two_d and ws.attr_comb.numel() - 1 > np.iinfo(np.int32).max:
+        raise ValueError("flat attr_comb too large for int32 node ids; "
+                         "prepare it with attr2d")
+    return [B, ws.grid_size, ws.world_size, ws.capacity, int(ws.pages > 0),
+            int(ws.attr16), int(two_d), int(np.log2(ws.world_size))]
+
+
+def _finish_plain(ws: WaveScene, rec, origins, dirs) -> HitResult:
+    """Plain PyTorch version of kernel DECODE: trace records decoded into a
+    HitResult in eager ops, on either device.
 
     The hit voxel is the record's exact one up to G = 32.  Above, the JAX
     package's packed record loses it, and this decode does what JAX does:

@@ -3,7 +3,9 @@ schedule), KE (its plain and binned schedules, through a permutation),
 K2 (in ray order) and K3 (through a permutation), each with its
 wrapper launching the kernel alone, on a CUDA GPU against their plain
 PyTorch versions; GI_SHADE against gi_update_plain on a bench-sized
-segment and in each caller's mode-0 frame; the noise on the card
+segment and in each caller's mode-0 frame; DECODE against _finish_plain
+on bench-sized primary and bounce segments, on each table layout and in
+a gi-3 frame; the noise on the card
 against the CPU's, the bench's small pipeline on the card, and the
 differentiable renderers' compositor and train steps on the card
 against the CPU's; the edit path (apply_patch, DeviceTree) and a viewer
@@ -484,8 +486,8 @@ def test_kernel_g64_camera_and_grid_on_gpu():
 @pytest.mark.gpu
 def test_launch_counters_once_per_segment():
     """A gi-2 frame: one K1 launch per segment (the primary one in camera
-    mode), one key launch per explicit segment and one GI_SHADE launch
-    per segment."""
+    mode), one key launch per explicit segment, and one DECODE and one
+    GI_SHADE launch per segment."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     from svo_raytracer_torch.ops import render_wave, shade
@@ -497,13 +499,13 @@ def test_launch_counters_once_per_segment():
     cam.rotate(-0.5, 0.6)
     cam5 = torch.tensor(cam.uniform(), dtype=torch.float32, device="cuda")
     k = (wavefront.K1, wavefront.K1_CAMERA, wavefront.K1_KEYS,
-         shade.GI_SHADE)
+         shade.GI_SHADE, wavefront.DECODE)
     before = [x.launches for x in k]
     stats = []
     render_wave.render_frame_wavefront(ws, cam5, 64, 48, render_mode=0,
                                        gi_bounces=2, stats=stats)
     torch.cuda.synchronize()
-    assert [x.launches - b for x, b in zip(k, before)] == [3, 1, 2, 3]
+    assert [x.launches - b for x, b in zip(k, before)] == [3, 1, 2, 3, 3]
     assert [s["launches"] for s in stats] == [1, 1, 1]
 
 
@@ -513,7 +515,8 @@ def test_frame_spans_hold_the_device_records_on_gpu():
     span readers, portbench/trace.py and spans.py): at least 99% of the
     device records were launched inside a child span of ``svo.frame``,
     and K1's launches and the ray order's fall under ``svo.k1`` and
-    ``svo.order``; ``svo.shade`` holds one record a segment, GI_SHADE's."""
+    ``svo.order``; ``svo.shade`` holds one record a segment, GI_SHADE's,
+    and ``svo.decode`` one, DECODE's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     from portbench import spans, trace
@@ -542,6 +545,7 @@ def test_frame_spans_hold_the_device_records_on_gpu():
     # K1 once a segment, the keys and the sort's kernels per explicit one
     assert s.kernels["svo.k1"] == 4 and s.kernels["svo.order"] >= 3
     assert s.kernels["svo.shade"] == 4
+    assert s.kernels["svo.decode"] == 4
 
 
 @pytest.mark.gpu
@@ -637,6 +641,123 @@ def test_gi_frames_equal_plain_shading_on_gpu(caller, monkeypatch,
     finally:
         if torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()
+    for a, b in zip(want, got):
+        if isinstance(a, torch.Tensor):
+            assert bool(chip_smoke.same(a, b).all())
+        else:
+            assert a == b
+
+
+def _decode_case(kind):
+    """(ws, record, origins, dirs) of a DECODE case on the card, raw-555
+    normals planted in the table (chip_smoke.plant_normal_555).
+    ``primary`` and ``bounce``: a 1920 x 1080 frame's segments on a 256^3
+    heightmap (1920 x 1088 rays; the primary in K1's camera mode, its
+    origins one camera row expanded; the bounce explicit rays from the
+    primary's hits); the rest: random and aimed rays on each table
+    layout."""
+    from svo_raytracer_torch.ops import render_wave
+    from svo_raytracer_torch.utils.camera import Camera
+    name, attr16, attr2d = {
+        "primary": ("heightmap-256", False, None),
+        "bounce": ("heightmap-256", False, None),
+        "attr16": ("heightmap-256", True, None),
+        "2d": ("heightmap-256", False, True),
+        "g64": ("g64", False, None),
+        "paged-4096": ("paged-4096", False, None),
+        "paged-4096-attr16-2d": ("paged-4096", True, True)}[kind]
+    if name == "g64":
+        scene = chip_smoke.g64_scene()
+    elif name == "paged-4096":
+        scene = chip_smoke.sparse_paged_scene()
+    else:
+        hm, mm = bigworld.fractal_heightmap(256, seed=3, lo=0.3, hi=0.9)
+        scene = bigworld.heightmap_brick_scene(hm, mm, 256)
+    ws = wavefront.prepare(scene, "cuda", attr16=attr16, attr2d=attr2d)
+    chip_smoke.plant_normal_555(ws)
+    if kind not in ("primary", "bounce"):
+        o, d = _rays(1 << 16, seed=31)
+        if name != "heightmap-256":
+            ao, ad = chip_smoke.aimed_rays(scene, 1 << 16, seed=9)
+            o = torch.cat([o, torch.from_numpy(ao).cuda()])
+            d = torch.cat([d, torch.from_numpy(ad).cuda()])
+        return ws, chip_smoke.decode_segment(ws, o, d), o, d
+    cam = Camera(pos=np.array([1.3, 1.8, 1.3]))
+    cam.rotate(-0.5, 0.6)
+    cam5 = torch.tensor(cam.uniform(), dtype=torch.float32, device="cuda")
+    W, H = 1920, 1080
+    o, d, _, _ = render_wave._frame_rays(cam5, W, H)
+    rec = wavefront.trace_camera(ws, wavefront.cam16(cam5), d.shape[0], W,
+                                 H, W // 32)
+    rec[0][::13] = wavefront.CAPPED
+    if kind == "primary":
+        return ws, rec, o, d
+    prim = wavefront._finish_plain(ws, rec, o, d)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rd = torch.randn(d.shape, device="cuda", generator=gen)
+    rd = rd / rd.norm(dim=-1, keepdim=True)
+    rd = torch.where((rd * torch.nan_to_num(prim.normal)).sum(
+        -1, keepdim=True) < 0, -rd, rd)
+    o2 = prim.voxel_pos.contiguous()
+    return ws, chip_smoke.decode_segment(ws, o2, rd, prim.hit), o2, rd
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["primary", "bounce", "attr16", "2d", "g64",
+                                  "paged-4096", "paged-4096-attr16-2d"])
+def test_decode_kernel_equals_plain_on_gpu(kind):
+    """DECODE against _finish_plain on the card (_decode_case: misses,
+    uniform and mixed hits, capped, non-finite and inactive rays, NaN
+    normals): every HitResult field bit-equal, NaN compared by position,
+    one launch, and the record and rays left as they were."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    ws, rec, o, d = _decode_case(kind)
+    inputs = [a.clone() for a in (*rec, o, d)]
+    before = wavefront.DECODE.launches
+    got = wavefront._finish(ws, rec, o, d)
+    torch.cuda.synchronize()
+    assert wavefront.DECODE.launches == before + 1
+    want = wavefront._finish_plain(ws, rec, o, d)
+    assert _equal_fields(want._asdict(), got._asdict()) == []
+    assert all(a.dtype == b.dtype and a.shape == b.shape
+               for a, b in zip(want, got))
+    assert all(bool(chip_smoke.same(a, b).all())
+               for a, b in zip(inputs, (*rec, o, d)))
+    assert o.stride(0) == (0 if kind == "primary" else 3)
+    status = rec[0]
+    assert (status == wavefront.MIXED).any() and (
+        status == wavefront.CAPPED).any() and (status == wavefront.MISS).any()
+    assert got.normal[got.hit].isnan().any()
+
+
+@pytest.mark.gpu
+def test_gi_frame_equals_plain_decode_on_gpu(monkeypatch):
+    """A gi-3 frame through render_frame_wavefront, with one DECODE launch
+    per segment, equals in every output the frame whose segments
+    _finish_plain decodes on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from svo_raytracer_torch.ops import render_wave
+    from svo_raytracer_torch.utils.camera import Camera
+    hm, mm = bigworld.fractal_heightmap(256, seed=3, lo=0.3, hi=0.9)
+    ws = wavefront.prepare(bigworld.heightmap_brick_scene(hm, mm, 256),
+                           "cuda")
+    cam = Camera(pos=np.array([1.3, 1.8, 1.3]))
+    cam.rotate(-0.5, 0.6)
+    cam5 = torch.tensor(cam.uniform(), dtype=torch.float32, device="cuda")
+
+    def render():
+        return render_wave.render_frame_wavefront(
+            ws, cam5, 256, 160, render_mode=0, frame_number=3, gi_bounces=3)
+
+    before = wavefront.DECODE.launches
+    got = render()
+    torch.cuda.synchronize()
+    assert wavefront.DECODE.launches == before + 4
+    monkeypatch.setattr(wavefront, "_finish", wavefront._finish_plain)
+    want = render()
+    assert wavefront.DECODE.launches == before + 4
     for a, b in zip(want, got):
         if isinstance(a, torch.Tensor):
             assert bool(chip_smoke.same(a, b).all())

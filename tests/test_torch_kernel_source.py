@@ -8,12 +8,13 @@ csrc/esvo_ray.cuh for KE with its schedule, emulated by a host loop of
 cone-traced segment's rays by octant, csrc/brick_dda.cuh for K2 and
 csrc/brick_round.cuh for K3, each with its schedule emulated by a host
 loop of blocks that take ids by a grid stride, K3's through a
-permutation, and csrc/gi_shade.cuh for GI_SHADE, mode 0's shading of a
-segment) compiled with g++, their CUDA qualifiers
+permutation, csrc/gi_shade.cuh for GI_SHADE, mode 0's shading of a
+segment, and csrc/decode.cuh for DECODE, a segment's hit decode)
+compiled with g++, their CUDA qualifiers
 defined away, into ctypes libraries, against their plain PyTorch versions
 (wavefront.trace_plain and trace_camera_plain, traverse.intersect_plain,
 brick_dda.coarse_dda_plain, brick_pallas.trace_plain,
-shade.gi_update_plain).
+shade.gi_update_plain, wavefront._finish_plain).
 
 With no fused multiply-add on either side the two compute the same
 float32 operations in the same order, so every record field must be
@@ -685,3 +686,84 @@ def test_gi_shade_source_equals_plain(first, mirrors):
     assert (hit & palette).any() and (hit & ~palette).any()
     assert (hit & use_y).any() and (hit & ~use_y).any()
     assert bool((hit & mirror).any()) == bool(mirrors)
+
+
+# DECODE's cases: (scene, prepare's attr16 and attr2d, origins one
+# camera row expanded, as a camera-mode frame's primary segment)
+DECODE_CASES = {
+    "sphere-64": ("sphere-64", False, None, False),
+    "heightmap-256": ("heightmap-256", False, None, False),
+    "heightmap-256-attr16": ("heightmap-256", True, None, False),
+    "heightmap-256-2d": ("heightmap-256", False, True, False),
+    "heightmap-256-camera-row": ("heightmap-256", False, None, True),
+    "g64": ("g64", False, None, False),
+    "g64-attr16-2d": ("g64", True, True, False),
+    "paged-4096": ("paged-4096", False, None, False),
+    "paged-4096-attr16": ("paged-4096", True, None, False),
+    "paged-4096-2d": ("paged-4096", False, True, False),
+}
+
+
+def _decode_host(ws, rec, o, d):
+    """The HitResult fields DECODE writes, by the g++ build of its body;
+    every slot starts as a sentinel."""
+    fn = _host_fn("decode_host", "decode_host.cpp", "decode_host",
+                  wavefront.DECODE.argtypes)
+    B = rec[0].shape[0]
+    out = {f: torch.full((B, 3) if f in ("normal", "hit_pos", "voxel_pos")
+                         else (B,), -7, dtype=dt)
+           for f, dt in zip(wavefront.DECODE_OUTPUTS, (
+               torch.bool, torch.int32, torch.float32, torch.float32,
+               torch.int32, torch.float32, torch.float32, torch.float32,
+               torch.int32))}
+    assert fn(*wavefront._decode_layout(ws, B), ws.brick_slot.data_ptr(),
+              ws.attr_comb.data_ptr(), *[x.data_ptr() for x in rec[:4]],
+              o.data_ptr(), *o.stride(), d.data_ptr(), *d.stride(),
+              *[out[f].data_ptr() for f in wavefront.DECODE_OUTPUTS]) == 0
+    return out
+
+
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+def test_decode_source_equals_plain(case):
+    """DECODE's body against _finish_plain on the records of K1's plain
+    version (chip_smoke.decode_segment: misses, uniform and mixed hits,
+    capped rays, non-finite and inactive rays), with raw-555 normals
+    planted in the table (NaN in the same places): every field
+    bit-equal, NaN compared by position, on each table layout (G = 2, 8,
+    64 and paged G = 128; int32, attr16 and 2-D) and on a stride-0
+    origin row."""
+    name, attr16, attr2d, row = DECODE_CASES[case]
+    scene = _scene(name)
+    ws = wavefront.prepare(scene, "cpu", attr16=attr16, attr2d=attr2d)
+    chip_smoke.plant_normal_555(ws)
+    if row:      # outside the world, facing its side: uniform hits too
+        cam = Camera(pos=np.array([0.6, 1.2, 0.6]))
+        cam.rotate(0.0, 3.2)
+        cam5 = torch.tensor(cam.uniform(), dtype=torch.float32)
+        o, d, _, _ = render_wave._frame_rays(cam5, 64, 40)
+        assert o.stride(0) == 0
+        active = None
+    else:
+        o, d = random_rays(2048, seed=29)
+        if name in ("g64", "paged-4096"):
+            ao, ad = chip_smoke.aimed_rays(scene, 2048, seed=8)
+            o, d = np.concatenate([o, ao]), np.concatenate([d, ad])
+        o[::97] = np.nan
+        d[5::89] = np.inf
+        o, d = torch.from_numpy(o), torch.from_numpy(d)
+        active = torch.ones(o.shape[0], dtype=torch.bool)
+        active[7::41] = False
+    rec = chip_smoke.decode_segment(ws, o, d, active)
+    want = wavefront._finish_plain(ws, rec, o, d)
+    got = _decode_host(ws, rec, o, d)
+    assert _equal({f: getattr(want, f) for f in wavefront.DECODE_OUTPUTS},
+                  got) == []
+    assert all(got[f].dtype == getattr(want, f).dtype for f in got)
+    status = rec[0]
+    assert (status == wavefront.MIXED).any() and (
+        status == wavefront.MISS).any() and (status == wavefront.CAPPED
+                                             ).any()
+    assert (status == wavefront.UNIFORM).any() or name == "sphere-64"
+    assert got["normal"][got["hit"]].isnan().any()
+    assert (~got["normal"][got["hit"]].isnan()).any()
+    assert (got["node"] == -1).any() and (got["node"] >= 0).any()
