@@ -1146,17 +1146,17 @@ def esvo_frames(tree, packed, tabs, cam5):
     of pixels, primary hit fraction in (0.05, 0.95), a KE launch in every
     segment and a K2 launch in every skip-grid frame."""
     import torch
-    from svo_raytracer_torch.ops import brick_dda, shade, traverse
+    from svo_raytracer_torch.ops import brick_dda, shade
     out = {}
     for label, kw in esvo_configs(tabs).items():
         def render(frame, stats=None):
             return shade.render_image(tree, cam5, W, H, packed=packed,
                                       frame_number=frame, stats=stats, **kw)
         stats = []
-        ke0, k20 = traverse.KE.launches, brick_dda.K2.launches
+        ke0, k20 = ke_launches(), brick_dda.K2.launches
         col, depth, _ = render(1, stats)
         torch.cuda.synchronize()
-        ke, k2 = traverse.KE.launches - ke0, brick_dda.K2.launches - k20
+        ke, k2 = ke_launches() - ke0, brick_dda.K2.launches - k20
         ms, times = frame_ms(lambda i: render(i + 2), ESVO_WARM_FRAMES,
                              ESVO_TIMED_FRAMES)
         rays = sum(s["rays"] for s in stats)
@@ -1313,13 +1313,12 @@ def esvo_phase(dev, size, cam5, ws):
     say("[esvo compare] KE and K2 vs their plain versions on the card")
     ke_small, k2_small = esvo_small_checks(dev)
     # ---- the main path, with the launch counts set to 0 just before
-    traverse.KE.launches = traverse.KE_BINNED.launches = 0
-    brick_dda.K2.launches = 0
+    reset_counts()
     t_tiles = time.perf_counter()
     traverse.tile_order(W, H, dev)
     tile_ms = (time.perf_counter() - t_tiles) * 1e3
     frames = esvo_frames(tree, packed, tabs, cam5)
-    launches = dict(KE=traverse.KE.launches,
+    launches = dict(KE=ke_launches(),
                     KE_binned=traverse.KE_BINNED.launches,
                     K2=brick_dda.K2.launches)
     say(f"[esvo main path {size}] launches {launches}; the tile order of "
@@ -1450,7 +1449,7 @@ def k3_phase(dev, scene, cam5, wave_depth, small_checks):
         return res
 
     # ---- the main path, with the launch count set to 0 just before
-    bp.K3.launches = 0
+    reset_counts()
     col, depth, _ = shade.shade_direct(None, origins, dirs,
                                        intersect_fn=isect_stats)
     times = []
@@ -1637,20 +1636,17 @@ def render_frames(ws, cam5, configs):
 def main_path(ws, configs):
     """The main path on one world: camera probe and frames, with K1's
     launch counts (and its key kernel's, DECODE's and GI_SHADE's) set to
-    0 just before and read just after.  K1.launches counts both entry points of
-    the library, so the explicit-ray entry's launches are K1's less
-    K1_CAMERA's."""
+    0 just before and read just after."""
     import torch
     from svo_raytracer_torch import bench
     from svo_raytracer_torch.ops import shade
     from svo_raytracer_torch.ops import wavefront as wf
     torch.cuda.reset_peak_memory_stats()
-    wf.K1.launches = wf.K1_CAMERA.launches = wf.K1_KEYS.launches = 0
-    shade.GI_SHADE.launches = wf.DECODE.launches = 0
+    reset_counts()
     cam5, surf_y = bench.place_camera(ws)
     say(f"[camera] at y={float(cam5[0, 1]):.4f} (surface {surf_y:.4f})")
     frames = render_frames(ws, cam5, configs)
-    launches = dict(K1_explicit=wf.K1.launches - wf.K1_CAMERA.launches,
+    launches = dict(K1_explicit=wf.K1.launches,
                     K1_camera=wf.K1_CAMERA.launches,
                     K1_keys=wf.K1_KEYS.launches,
                     GI_SHADE=shade.GI_SHADE.launches,
@@ -1692,7 +1688,7 @@ def bench_world_phase(dev):
         raise AssertionError("the bench frame is not the smoke frame")
     torch.cuda.reset_peak_memory_stats()
     # ---- the main path, with the launch counts set to 0 just before
-    wf.K1.launches = wf.K1_CAMERA.launches = wf.K1_KEYS.launches = 0
+    reset_counts()
     tree, ws, cam5, info = bench.setup(size, chunk, dev)
     setup_peak = torch.cuda.max_memory_allocated()
     table_bytes = ws.nbytes
@@ -1746,7 +1742,7 @@ def bench_world_phase(dev):
         if not stats[0]["camera"] or any(s["launches"] < 1 for s in stats):
             raise AssertionError("a segment did not launch K1, or the "
                                  "primaries were not in camera mode")
-    launches = dict(K1_explicit=wf.K1.launches - wf.K1_CAMERA.launches,
+    launches = dict(K1_explicit=wf.K1.launches,
                     K1_camera=wf.K1_CAMERA.launches,
                     K1_keys=wf.K1_KEYS.launches)
     say(f"[bench-world main path] launches {launches}")
@@ -1770,7 +1766,7 @@ def bench_world_phase(dev):
     # ---- one ESVO mode-2 frame on the same octree
     packed = traverse.make_packed_table(tree)
     stats = []
-    ke0 = traverse.KE.launches
+    ke0 = ke_launches()
     ecol, edepth, _ = shade.render_image(tree, cam5, W, H, render_mode=2,
                                          packed=packed, stats=stats)
     ehit = (edepth > 0).float().mean().item()
@@ -1778,11 +1774,11 @@ def bench_world_phase(dev):
                                                       render_mode=3)
     agree = ((wdepth > 0) == (edepth > 0)).float().mean().item()
     say(f"[bench-world esvo] mode-2 frame on the {tree.n_nodes}-node "
-        f"octree: KE launches {traverse.KE.launches - ke0}, primary hit "
+        f"octree: KE launches {ke_launches() - ke0}, primary hit "
         f"fraction {ehit:.4f}, finite colour "
         f"{torch.isfinite(ecol).all(-1).float().mean().item():.6f}; hit "
         f"mask vs the wavefront frame agrees on {agree:.6f} of pixels")
-    if (traverse.KE.launches - ke0 < 1 or agree < BENCH_HIT_AGREEMENT
+    if (ke_launches() - ke0 < 1 or agree < BENCH_HIT_AGREEMENT
             or not BENCH_HIT_RANGE[0] < ehit < BENCH_HIT_RANGE[1]):
         raise AssertionError("the ESVO frame launched no KE, its hit "
                              "fraction is out of range or its hit mask "
@@ -1928,8 +1924,7 @@ def train_phase(dev, ws, tree, packed, cam5):
         f"a per-entry gradient is diluted by the mean over {3 * W * H} "
         f"values), targets 0.8 x the untrained image")
     # ---- the main path, with the launch counts set to 0 just before
-    wf.K1.launches = wf.K1_CAMERA.launches = wf.K1_KEYS.launches = 0
-    traverse.KE.launches = traverse.KE_BINNED.launches = 0
+    reset_counts()
     n_wave = wd.param_size(ws)
     runs, targets, steps = {}, {}, {}
     for K in (2, 3):
@@ -1941,7 +1936,7 @@ def train_phase(dev, ws, tree, packed, cam5):
                                            lr=TRAIN_LR["wave"])
         runs[label] = train_steps(
             label, lambda p, K=K: steps[K](p, cam5, targets[K]), p0,
-            lambda: wf.K1.launches)[1]
+            k1_launches)[1]
         del p0
     v0 = rd.init_params(tree)
     etarget = 0.8 * rd.render_diff(v0, tree, cam5, W, H, packed=packed)
@@ -1951,10 +1946,10 @@ def train_phase(dev, ws, tree, packed, cam5):
                              lr=TRAIN_LR["esvo"], packed=packed)
 
     vtrained, runs["esvo"] = train_steps("esvo", esvo_step, v0,
-                                         lambda: traverse.KE.launches)
-    launches = dict(K1_explicit=wf.K1.launches - wf.K1_CAMERA.launches,
+                                         ke_launches)
+    launches = dict(K1_explicit=wf.K1.launches,
                     K1_camera=wf.K1_CAMERA.launches,
-                    K1_keys=wf.K1_KEYS.launches, KE=traverse.KE.launches,
+                    K1_keys=wf.K1_KEYS.launches, KE=ke_launches(),
                     KE_binned=traverse.KE_BINNED.launches)
     say(f"[train main path] launches {launches}")
     n_steps = TRAIN_WARM + TRAIN_TIMED
@@ -2199,8 +2194,9 @@ def viewer_session(dev, engine, path, world_size, out_dir, cam, edit_check,
     from svo_raytracer_torch.ops import wavefront as wf
 
     def counts():
-        return dict(K1=wf.K1.launches, K1_camera=wf.K1_CAMERA.launches,
-                    K1_keys=wf.K1_KEYS.launches, KE=traverse.KE.launches,
+        return dict(K1_explicit=wf.K1.launches,
+                    K1_camera=wf.K1_CAMERA.launches,
+                    K1_keys=wf.K1_KEYS.launches, KE=ke_launches(),
                     KE_binned=traverse.KE_BINNED.launches)
 
     t0 = time.perf_counter()
@@ -2241,7 +2237,7 @@ def viewer_session(dev, engine, path, world_size, out_dir, cam, edit_check,
         records.append(rec)
         say(f"  [viewer {engine}] command {cmd!r}: frame {v.frame_number} "
             f"mode {v.render_mode} (accumulated {v._accum_n}) {ms:.3f} ms "
-            f"on the host; launches K1 {got['K1'] - got['K1_camera']} "
+            f"on the host; launches K1 {got['K1_explicit']} "
             f"explicit + {got['K1_camera']} camera, keys {got['K1_keys']}, "
             f"KE {got['KE']} (binned {got['KE_binned']})")
         if len(v.edits) > n_edits:
@@ -2274,15 +2270,11 @@ def viewer_session(dev, engine, path, world_size, out_dir, cam, edit_check,
 
     v.pre_run, v.update_early, v.update_late = (timed_pre_run, timed_update,
                                                 checked_update_late)
-    wf.K1.launches = wf.K1_CAMERA.launches = wf.K1_KEYS.launches = 0
-    traverse.KE.launches = traverse.KE_BINNED.launches = 0
+    reset_counts()
     v.launch(max_frames=len(VIEWER_SCRIPT))
-    launches = dict(K1_explicit=total["K1"] - total["K1_camera"],
-                    K1_camera=total["K1_camera"], K1_keys=total["K1_keys"],
-                    KE=total["KE"], KE_binned=total["KE_binned"])
-    say(f"[viewer {engine}] session launches {launches}; set-up: read "
+    say(f"[viewer {engine}] session launches {total}; set-up: read "
         f"{read_s:.3f} s, pre_run {setup['pre_run_s']:.3f} s")
-    return v, records, launches, dict(read_s=read_s, **setup)
+    return v, records, total, dict(read_s=read_s, **setup)
 
 
 def viewer_phase(dev, bench_ws):
@@ -2480,21 +2472,34 @@ def viewer_phase(dev, bench_ws):
 # ------------------------------------------- the rest of the single-card API
 def reset_counts():
     """Every kernel's launch count set to 0 (before a path is driven)."""
-    from svo_raytracer_torch.ops import brick_dda, brick_pallas, traverse
+    from svo_raytracer_torch.ops import brick_dda, brick_pallas, shade
+    from svo_raytracer_torch.ops import traverse
     from svo_raytracer_torch.ops import wavefront as wf
-    for k in (wf.K1, wf.K1_CAMERA, wf.K1_KEYS, traverse.KE,
-              traverse.KE_BINNED, brick_dda.K2, brick_pallas.K3):
+    for k in (wf.K1, wf.K1_CAMERA, wf.K1_KEYS, wf.DECODE, shade.GI_SHADE,
+              traverse.KE, traverse.KE_BINNED, brick_dda.K2,
+              brick_pallas.K3):
         k.launches = 0
+
+
+def k1_launches():
+    """K1's launches, its camera-mode entry point's included."""
+    from svo_raytracer_torch.ops import wavefront as wf
+    return wf.K1.launches + wf.K1_CAMERA.launches
+
+
+def ke_launches():
+    """KE's launches, its binned schedule's included."""
+    from svo_raytracer_torch.ops import traverse
+    return traverse.KE.launches + traverse.KE_BINNED.launches
 
 
 def read_counts():
     """The launch counts of the path just driven, by kernels line."""
     from svo_raytracer_torch.ops import brick_dda, brick_pallas, traverse
     from svo_raytracer_torch.ops import wavefront as wf
-    return dict(K1_explicit=wf.K1.launches - wf.K1_CAMERA.launches,
+    return dict(K1_explicit=wf.K1.launches,
                 K1_camera=wf.K1_CAMERA.launches, K1_keys=wf.K1_KEYS.launches,
-                KE=traverse.KE.launches - traverse.KE_BINNED.launches,
-                KE_binned=traverse.KE_BINNED.launches,
+                KE=traverse.KE.launches, KE_binned=traverse.KE_BINNED.launches,
                 K2=brick_dda.K2.launches, K3=brick_pallas.K3.launches)
 
 

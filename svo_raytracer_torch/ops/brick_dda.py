@@ -132,18 +132,11 @@ def coarse_dda_kernel(occ_table, o, d, G, max_steps, alive=None):
     cell = torch.empty((B, 3), dtype=torch.int32, device=dev)
     steps = torch.empty(B, dtype=torch.int32, device=dev)
     if B:
-        fn = K2.load()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            rc = fn(occ_table.data_ptr(), G, max_steps, o.data_ptr(),
-                    d.data_ptr(), sd,
-                    None if alive is None
-                    else alive.view(torch.uint8).data_ptr(), B,
-                    hit.data_ptr(), t.data_ptr(), cell.data_ptr(),
-                    steps.data_ptr(), stream)
-        if rc != 0:
-            raise RuntimeError(f"K2 launch failed with cudaError {rc}")
-        K2.launches += 1
+        K2.launch(dev, occ_table.data_ptr(), G, max_steps, o.data_ptr(),
+                  d.data_ptr(), sd,
+                  None if alive is None
+                  else alive.view(torch.uint8).data_ptr(), B, hit.data_ptr(),
+                  t.data_ptr(), cell.data_ptr(), steps.data_ptr())
     return dict(hit=hit, t=t, cell=cell, steps=steps)
 
 

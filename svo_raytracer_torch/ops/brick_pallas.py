@@ -242,16 +242,10 @@ def trace_kernel(scene, o, d, alive, max_rounds, order=None):
                t=torch.empty(B, dtype=torch.float32, device=dev),
                iters=torch.empty(B, dtype=torch.int32, device=dev))
     if B:
-        fn = K3.load()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            rc = fn(*_args(scene), max_rounds, o.data_ptr(), d.data_ptr(),
-                    alive.view(torch.uint8).data_ptr(),
-                    None if order is None else order.data_ptr(), B,
-                    *[out[f].data_ptr() for f in FIELDS], stream)
-        if rc != 0:
-            raise RuntimeError(f"K3 launch failed with cudaError {rc}")
-        K3.launches += 1
+        K3.launch(dev, *_args(scene), max_rounds, o.data_ptr(), d.data_ptr(),
+                  alive.view(torch.uint8).data_ptr(),
+                  None if order is None else order.data_ptr(), B,
+                  *[out[f].data_ptr() for f in FIELDS])
     return out
 
 

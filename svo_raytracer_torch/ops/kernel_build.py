@@ -100,42 +100,81 @@ def load(name: str, sources, compiler: str, flags) -> ctypes.CDLL:
     return ctypes.CDLL(str(library(name, sources, compiler, flags)))
 
 
+def check_tensors(device, *spec, strided=()):
+    """Raise ValueError unless each (name, tensor, shape, dtype) of
+    ``spec`` is a contiguous tensor of that shape and dtype on ``device``;
+    those of ``strided`` may take any strides."""
+    for packed, entries in ((True, spec), (False, strided)):
+        for name, a, shape, dtype in entries:
+            if (a.shape != shape or a.dtype != dtype or a.device != device
+                    or (packed and not a.is_contiguous())):
+                raise ValueError(
+                    f"{name} must be a {'contiguous ' if packed else ''}"
+                    f"{tuple(shape)} {dtype} tensor on {device}, not "
+                    f"{tuple(a.shape)} {a.dtype} on {a.device}")
+
+
+def check_rays(o, d, alive, device_type, *tables):
+    """Raise ValueError unless origins ``o`` and directions ``d`` are
+    contiguous (B,3) float32 and ``alive`` a contiguous (B,) bool tensor on
+    a ``device_type`` device, and each (name, tensor, dtype) of ``tables``
+    a contiguous tensor of that dtype (None: any) on the rays' device.
+    Returns B."""
+    B = o.shape[0]
+    if o.device.type != device_type:
+        raise ValueError(f"rays on {o.device}, expected {device_type}")
+    check_tensors(o.device, ("origins", o, (B, 3), torch.float32),
+                  ("directions", d, (B, 3), torch.float32),
+                  ("alive", alive, (B,), torch.bool),
+                  *[(name, a, a.shape, dtype or a.dtype)
+                    for name, a, dtype in tables])
+    return B
+
+
 def check_order(order, B, device):
     """Raise unless ``order`` is None or a contiguous (B,) int64 tensor on
     ``device``: the permutation a kernel traces its B rays in (thread k
     traces ray order[k])."""
-    if order is not None and (order.shape != (B,)
-                              or order.dtype != torch.int64
-                              or order.device != device
-                              or not order.is_contiguous()):
-        raise ValueError("order must be a contiguous (B,) int64 tensor on "
-                         "the rays' device")
+    if order is not None:
+        check_tensors(device, ("order", order, (B,), torch.int64))
 
 
 class Kernel:
-    """A ctypes-bound CUDA kernel library, built from ``sources`` at first
-    use.  The entry point ``symbol`` returns the launch's cudaError_t.
+    """A ctypes-bound CUDA kernel entry point ``symbol`` of the library
+    built from ``sources`` at first use; it returns the launch's
+    cudaError_t and takes the stream as its last argument.
 
-    ``launches`` counts the launches of the kernel (one per call that
-    reaches the card); the wrapper adds one after each launch, and callers
-    reset and read it."""
+    ``launches`` counts this entry point's launches (one per
+    :meth:`launch` that reaches the card); callers reset and read it."""
 
     def __init__(self, name, sources, symbol, argtypes):
         self.name, self.sources, self.symbol = name, sources, symbol
         self.argtypes = argtypes
-        self.fn = None
-        self.path = None
+        self.fn = self.lib = self.path = None
         self.launches = 0
 
     def load(self):
         if self.fn is None:
             self.path = library(self.name, self.sources, nvcc_path(),
                                 NVCC_FLAGS)
-            fn = getattr(ctypes.CDLL(str(self.path)), self.symbol)
+            self.lib = ctypes.CDLL(str(self.path))
+            fn = getattr(self.lib, self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self.fn = fn
         return self.fn
+
+    def launch(self, device, *args):
+        """Launch on ``device`` with ``args`` and torch's current stream
+        there; raise RuntimeError on a non-zero cudaError, else count the
+        launch."""
+        fn = self.load()
+        with torch.cuda.device(device):
+            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"kernel {self.symbol} ({self.name}) launch "
+                               f"failed with cudaError {rc}")
+        self.launches += 1
 
     def build_log(self) -> str:
         """The compiler's output of the library's build (ptxas's registers,

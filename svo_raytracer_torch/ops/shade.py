@@ -200,25 +200,15 @@ def gi_update_kernel(first, mirror_values, accum, mask, depth, iters_out,
     bytes, 0..255."""
     B, dev = accum.shape[0], accum.device
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
-    for name, a, shape, dtype in (
-            ("accum", accum, (B, 3), f32), ("mask", mask, (B, 3), f32),
-            ("depth", depth, (B,), f32), ("iters_out", iters_out, (B,), i32),
-            ("active", active, (B,), b8), ("r", r, (B,), f32),
-            ("res.hit", res.hit, (B,), b8),
-            ("res.value", res.value, (B,), i32),
-            ("res.iters", res.iters, (B,), i32), ("res.t", res.t, (B,), f32),
-            ("res.normal", res.normal, (B, 3), f32),
-            ("res.voxel_pos", res.voxel_pos, (B, 3), f32)):
-        if (a.shape != shape or a.dtype != dtype or a.device != dev
-                or not a.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous {shape} {dtype} "
-                             f"tensor on {dev}, not {tuple(a.shape)} "
-                             f"{a.dtype} on {a.device}")
-    for name, a in (("o", o), ("d", d)):
-        if a.shape != (B, 3) or a.dtype != f32 or a.device != dev:
-            raise ValueError(f"{name} must be a ({B}, 3) float32 tensor on "
-                             f"{dev}, not {tuple(a.shape)} {a.dtype} on "
-                             f"{a.device}")
+    kernel_build.check_tensors(
+        dev, ("accum", accum, (B, 3), f32), ("mask", mask, (B, 3), f32),
+        ("depth", depth, (B,), f32), ("iters_out", iters_out, (B,), i32),
+        ("active", active, (B,), b8), ("r", r, (B,), f32),
+        ("res.hit", res.hit, (B,), b8), ("res.value", res.value, (B,), i32),
+        ("res.iters", res.iters, (B,), i32), ("res.t", res.t, (B,), f32),
+        ("res.normal", res.normal, (B, 3), f32),
+        ("res.voxel_pos", res.voxel_pos, (B, 3), f32),
+        strided=[("o", o, (B, 3), f32), ("d", d, (B, 3), f32)])
     words = _mirror_words(mirror_values)
     out = (torch.empty_like(accum), torch.empty_like(mask),
            torch.empty_like(depth), torch.empty_like(iters_out),
@@ -226,20 +216,14 @@ def gi_update_kernel(first, mirror_values, accum, mask, depth, iters_out,
                                                  device=dev),
            torch.empty((B, 3), dtype=f32, device=dev))
     if B:
-        fn = GI_SHADE.load()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            rc = fn(B, int(bool(first)), words, active.data_ptr(),
-                    accum.data_ptr(), mask.data_ptr(), depth.data_ptr(),
-                    iters_out.data_ptr(), o.data_ptr(), *o.stride(),
-                    d.data_ptr(), *d.stride(), r.data_ptr(),
-                    res.hit.data_ptr(), res.value.data_ptr(),
-                    res.iters.data_ptr(), res.t.data_ptr(),
-                    res.normal.data_ptr(), res.voxel_pos.data_ptr(),
-                    *[x.data_ptr() for x in out], stream)
-        if rc != 0:
-            raise RuntimeError(f"GI_SHADE launch failed with cudaError {rc}")
-        GI_SHADE.launches += 1
+        GI_SHADE.launch(dev, B, int(bool(first)), words, active.data_ptr(),
+                        accum.data_ptr(), mask.data_ptr(), depth.data_ptr(),
+                        iters_out.data_ptr(), o.data_ptr(), *o.stride(),
+                        d.data_ptr(), *d.stride(), r.data_ptr(),
+                        res.hit.data_ptr(), res.value.data_ptr(),
+                        res.iters.data_ptr(), res.t.data_ptr(),
+                        res.normal.data_ptr(), res.voxel_pos.data_ptr(),
+                        *[x.data_ptr() for x in out])
     return out
 
 

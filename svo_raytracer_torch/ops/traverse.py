@@ -47,8 +47,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _KE_ARGS = [_P] * 5 + [_I] * 5 + [_P] * 3
 KE = kernel_build.Kernel("esvo", ["esvo.cu"], "esvo_trace", _KE_ARGS)
 # Cone-traced segments take the binned schedule: the same library's second
-# entry point.  Its launches count in KE.launches, and in
-# KE_BINNED.launches as well.
+# entry point.
 KE_BINNED = kernel_build.Kernel("esvo", ["esvo.cu"], "esvo_trace_binned",
                                 _KE_ARGS)
 TILE_W, TILE_H = 8, 4    # the pixel tiles a render's segments are traced in
@@ -312,52 +311,27 @@ def intersect_kernel(packed, o, d, alive, max_depth=C.MAX_DEPTH,
     None; the records land at the rays' own slots either way.  A
     cone-traced segment takes the binned schedule (KE_BINNED): each block
     regroups its rays by direction octant before tracing them."""
-    _check(packed, o, d, alive, "cuda")
-    B = o.shape[0]
+    B = _check(packed, o, d, alive, "cuda")
     kernel_build.check_order(order, B, o.device)
     f_out = torch.empty((len(F_FIELDS), B), dtype=torch.float32,
                         device=o.device)
     i_out = torch.empty((len(I_FIELDS), B), dtype=torch.int32,
                         device=o.device)
     if B:
-        kern = KE_BINNED if cone_trace else KE
-        fn = kern.load()
         act = alive.to(torch.uint8)
-        with torch.cuda.device(o.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            rc = fn(packed.data_ptr(), o.data_ptr(), d.data_ptr(),
-                    act.data_ptr(),
-                    None if order is None else order.data_ptr(), B,
-                    int(max_depth), int(bool(cone_trace)),
-                    int(max_iterations), int(stack_depth), f_out.data_ptr(),
-                    i_out.data_ptr(), stream)
-        if rc != 0:
-            raise RuntimeError(f"KE launch failed with cudaError {rc}")
-        KE.launches += 1
-        if cone_trace:
-            KE_BINNED.launches += 1
+        (KE_BINNED if cone_trace else KE).launch(
+            o.device, packed.data_ptr(), o.data_ptr(), d.data_ptr(),
+            act.data_ptr(), None if order is None else order.data_ptr(), B,
+            int(max_depth), int(bool(cone_trace)), int(max_iterations),
+            int(stack_depth), f_out.data_ptr(), i_out.data_ptr())
     rec = dict(zip(F_FIELDS, f_out.unbind(0)))
     rec.update(zip(I_FIELDS, i_out.unbind(0)))
     return rec
 
 
 def _check(packed, o, d, alive, device_type):
-    B = o.shape[0]
-    if o.shape != (B, 3) or d.shape != (B, 3) or alive.shape != (B,):
-        raise ValueError(f"ray shapes {tuple(o.shape)} {tuple(d.shape)} "
-                         f"{tuple(alive.shape)}")
-    if o.dtype != torch.float32 or d.dtype != torch.float32:
-        raise ValueError("origins and directions must be float32")
-    if alive.dtype != torch.bool or packed.dtype != torch.int32:
-        raise ValueError("alive must be bool and packed int32")
-    if o.device.type != device_type:
-        raise ValueError(f"rays on {o.device}, expected {device_type}")
-    for a in (d, alive, packed):
-        if a.device != o.device:
-            raise ValueError(f"tensor on {a.device}, rays on {o.device}")
-    if not all(a.is_contiguous() for a in (packed, o, d, alive)):
-        raise ValueError("ray tensors and the packed table must be "
-                         "contiguous")
+    return kernel_build.check_rays(o, d, alive, device_type,
+                                   ("packed", packed, torch.int32))
 
 
 def trace(packed, o, d, alive, order=None, **kw):
@@ -435,7 +409,8 @@ def intersect_octree(tree, origin, direction, max_depth=C.MAX_DEPTH,
     permutation the rays are traced in (:func:`tile_order` for a render's
     pixel rays; None: ray order), which changes no result.  ``profile``
     (a dict) receives the counts of traced rays, hits, rays still active
-    at the iteration cap and KE launches (reading them synchronizes).
+    at the iteration cap and KE launches, the binned schedule's included
+    (reading them synchronizes).
     Returns a HitResult whose ``node`` is the SoA index of the hit
     node."""
     if max_depth > stack_depth:
@@ -447,7 +422,7 @@ def intersect_octree(tree, origin, direction, max_depth=C.MAX_DEPTH,
     if packed is None:
         packed = make_packed_table(tree)
     o, d, alive = _rays(tree, origin, direction, active)
-    launches = KE.launches
+    launches = KE.launches + KE_BINNED.launches
     rec = trace(packed, o, d, alive, order=order, max_depth=max_depth,
                 cone_trace=cone_trace, max_iterations=max_iterations,
                 stack_depth=stack_depth)
@@ -457,7 +432,7 @@ def intersect_octree(tree, origin, direction, max_depth=C.MAX_DEPTH,
         profile.update(
             rays=int(traced.sum()), hits=int(res.hit.sum()),
             capped=int((traced & (rec["done"] == 0)).sum()),
-            launches=KE.launches - launches)
+            launches=KE.launches + KE_BINNED.launches - launches)
     return res
 
 

@@ -947,12 +947,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 K1 = kernel_build.Kernel(
     "wavefront", ["wavefront.cu"], "wf_trace",
     [_P] * 6 + [_I] * 4 + [_P] * 4 + [_I] + [_P] * 6 + [_P])
-# K1's camera-mode entry point, in the same library.  Its launches count
-# in K1.launches, and in K1_CAMERA.launches as well.
+# K1's camera-mode entry point, in the same library.
 K1_CAMERA = kernel_build.Kernel(
     "wavefront", ["wavefront.cu"], "wf_trace_camera",
     [_P] * 6 + [_I] * 4 + [_P] + [_I] * 5 + [_P] * 6 + [_P])
-# The explicit rays' sort keys, in the same library (its own launches).
+# The explicit rays' sort keys, in the same library.
 K1_KEYS = kernel_build.Kernel(
     "wavefront", ["wavefront.cu"], "wf_ray_keys",
     [_P] * 3 + [_I] * 2 + [_P] + [_P])
@@ -985,9 +984,8 @@ def launch_info(ws: WaveScene, camera=False):
     resident blocks per SM, SMs, threads per block and the grid (blocks)
     of a full launch."""
     K1.load()
-    fn = ctypes.CDLL(str(K1.path)).wf_launch_info
+    fn = K1.lib.wf_launch_info
     fn.argtypes = [_I] * 5 + [_P]
-    fn.restype = ctypes.c_int
     info = (ctypes.c_int * 3)()
     rc = fn(*_layout_args(ws), int(camera), info)
     if rc != 0:
@@ -998,23 +996,8 @@ def launch_info(ws: WaveScene, camera=False):
 
 
 def _check_rays(ws, o, d, alive, device_type):
-    B = o.shape[0]
-    if o.shape != (B, 3) or d.shape != (B, 3) or alive.shape != (B,):
-        raise ValueError(f"ray shapes {tuple(o.shape)} {tuple(d.shape)} "
-                         f"{tuple(alive.shape)}")
-    if o.dtype != torch.float32 or d.dtype != torch.float32:
-        raise ValueError("origins and directions must be float32")
-    if alive.dtype != torch.bool:
-        raise ValueError("alive must be bool")
-    if o.device.type != device_type:
-        raise ValueError(f"rays on {o.device}, expected {device_type}")
-    for a in (d, alive, ws.attr_comb):
-        if a.device != o.device:
-            raise ValueError(f"tensor on {a.device}, rays on {o.device}")
-    if not (o.is_contiguous() and d.is_contiguous()
-            and alive.is_contiguous()):
-        raise ValueError("ray tensors must be contiguous")
-    return B
+    return kernel_build.check_rays(o, d, alive, device_type,
+                                   ("attr_comb", ws.attr_comb, None))
 
 
 def _spread3(v):
@@ -1050,16 +1033,9 @@ def ray_keys_kernel(ws: WaveScene, o, d, alive):
     """K1's key kernel on the card: same contract as :func:`ray_keys_plain`."""
     B = _check_rays(ws, o, d, alive, "cuda")
     keys = torch.empty(B, dtype=torch.int32, device=o.device)
-    if B == 0:
-        return keys
-    fn = K1_KEYS.load()
-    with torch.cuda.device(o.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(o.data_ptr(), d.data_ptr(), alive.data_ptr(), B,
-                ws.grid_size, keys.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"K1 key launch failed with cudaError {rc}")
-    K1_KEYS.launches += 1
+    if B:
+        K1_KEYS.launch(o.device, o.data_ptr(), d.data_ptr(),
+                       alive.data_ptr(), B, ws.grid_size, keys.data_ptr())
     return keys
 
 
@@ -1092,19 +1068,13 @@ def trace_kernel(ws: WaveScene, o, d, alive, order=None):
     cell = torch.empty_like(status)
     widx = torch.empty_like(status)
     iters = torch.empty_like(status)
-    if B == 0:
-        return status, t, cell, widx, iters
-    fn = K1.load()
-    counter = torch.empty(1, dtype=torch.int32, device=o.device)
-    with torch.cuda.device(o.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*_table_args(ws), o.data_ptr(), d.data_ptr(),
-                alive.data_ptr(), None if order is None else order.data_ptr(),
-                B, counter.data_ptr(), status.data_ptr(), t.data_ptr(),
-                cell.data_ptr(), widx.data_ptr(), iters.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"K1 launch failed with cudaError {rc}")
-    K1.launches += 1
+    if B:
+        counter = torch.empty(1, dtype=torch.int32, device=o.device)
+        K1.launch(o.device, *_table_args(ws), o.data_ptr(), d.data_ptr(),
+                  alive.data_ptr(),
+                  None if order is None else order.data_ptr(), B,
+                  counter.data_ptr(), status.data_ptr(), t.data_ptr(),
+                  cell.data_ptr(), widx.data_ptr(), iters.data_ptr())
     return status, t, cell, widx, iters
 
 
@@ -1180,20 +1150,12 @@ def trace_camera_kernel(ws: WaveScene, cam, n, W, H, nbx):
     cell = torch.empty_like(status)
     widx = torch.empty_like(status)
     iters = torch.empty_like(status)
-    if n == 0:
-        return status, t, cell, widx, iters
-    fn = K1_CAMERA.load()
-    counter = torch.empty(1, dtype=torch.int32, device=cam.device)
-    with torch.cuda.device(cam.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*_table_args(ws), cam.data_ptr(), W, H, nbx, ws.world_size,
-                n, counter.data_ptr(), status.data_ptr(), t.data_ptr(),
-                cell.data_ptr(), widx.data_ptr(), iters.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"K1 camera-mode launch failed with cudaError "
-                           f"{rc}")
-    K1.launches += 1
-    K1_CAMERA.launches += 1
+    if n:
+        counter = torch.empty(1, dtype=torch.int32, device=cam.device)
+        K1_CAMERA.launch(cam.device, *_table_args(ws), cam.data_ptr(), W, H,
+                         nbx, ws.world_size, n, counter.data_ptr(),
+                         status.data_ptr(), t.data_ptr(), cell.data_ptr(),
+                         widx.data_ptr(), iters.data_ptr())
     return status, t, cell, widx, iters
 
 
@@ -1257,20 +1219,15 @@ def _finish_kernel(ws: WaveScene, rec, origins, dirs) -> HitResult:
     the record's tensor."""
     status, t_vox, cell, widx, iters = rec
     B, dev = status.shape[0], ws.device
-    for name, a, dtype in (("status", status, torch.int32),
-                           ("t", t_vox, torch.float32),
-                           ("cell", cell, torch.int32),
-                           ("widx", widx, torch.int32),
-                           ("iters", iters, torch.int32)):
-        if (a.shape != (B,) or a.dtype != dtype or a.device != dev
-                or not a.is_contiguous()):
-            raise ValueError(f"record {name} must be a contiguous ({B},) "
-                             f"{dtype} tensor on {dev}")
     o, d = origins.to(torch.float32), dirs.to(torch.float32)
-    for name, a in (("origins", o), ("dirs", d)):
-        if a.shape != (B, 3) or a.device != dev:
-            raise ValueError(f"{name} must be ({B}, 3) on {dev}, not "
-                             f"{tuple(a.shape)} on {a.device}")
+    i32 = torch.int32
+    kernel_build.check_tensors(
+        dev, ("record status", status, (B,), i32),
+        ("record t", t_vox, (B,), torch.float32),
+        ("record cell", cell, (B,), i32), ("record widx", widx, (B,), i32),
+        ("record iters", iters, (B,), i32),
+        strided=[("origins", o, (B, 3), torch.float32),
+                 ("dirs", d, (B, 3), torch.float32)])
     layout = _decode_layout(ws, B)
     out = HitResult(
         hit=torch.empty(B, dtype=torch.bool, device=dev),
@@ -1282,20 +1239,12 @@ def _finish_kernel(ws: WaveScene, rec, origins, dirs) -> HitResult:
         hit_pos=torch.empty((B, 3), dtype=torch.float32, device=dev),
         voxel_pos=torch.empty((B, 3), dtype=torch.float32, device=dev),
         node=torch.empty(B, dtype=torch.int32, device=dev))
-    if B == 0:
-        return out
-    fn = DECODE.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*layout, ws.brick_slot.data_ptr(),
-                ws.attr_comb.data_ptr(), status.data_ptr(),
-                t_vox.data_ptr(), cell.data_ptr(), widx.data_ptr(),
-                o.data_ptr(), *o.stride(), d.data_ptr(), *d.stride(),
-                *[getattr(out, f).data_ptr() for f in DECODE_OUTPUTS],
-                stream)
-    if rc != 0:
-        raise RuntimeError(f"DECODE launch failed with cudaError {rc}")
-    DECODE.launches += 1
+    if B:
+        DECODE.launch(dev, *layout, ws.brick_slot.data_ptr(),
+                      ws.attr_comb.data_ptr(), status.data_ptr(),
+                      t_vox.data_ptr(), cell.data_ptr(), widx.data_ptr(),
+                      o.data_ptr(), *o.stride(), d.data_ptr(), *d.stride(),
+                      *[getattr(out, f).data_ptr() for f in DECODE_OUTPUTS])
     return out
 
 
@@ -1394,14 +1343,15 @@ def intersect_wavefront(wscene: WaveScene, origins, dirs, active=None,
     HitResult.  Inputs must lie on the scene's device; ``active`` (B,)
     masks rays out (they return as misses, as do non-finite rays).
     ``profile`` (a dict) receives the counts of traced rays, hits, rays
-    retired at ITER_CAP and K1 launches (reading them synchronizes).
+    retired at ITER_CAP and K1 launches, camera mode's included (reading
+    them synchronizes).
 
     ``camera=(cam5, W, H)`` traces in camera mode: the kernel derives each
     primary from its id (row-major, W*H == B; with ``cam_block``,
     block-major over the 32-padded height, render_wave._frame_rays'
     order) instead of reading ``origins``/``dirs``, which still decode the
     hits.  Camera mode traces every ray, so ``active`` must be None."""
-    launches = K1.launches
+    launches = K1.launches + K1_CAMERA.launches
     if camera is None:
         with span("svo.prep"):
             o, d, alive = _rays(wscene, origins, dirs, active)
@@ -1432,6 +1382,6 @@ def intersect_wavefront(wscene: WaveScene, origins, dirs, active=None,
             rays=status.numel() if camera is not None else int(alive.sum()),
             hits=int(((status == MIXED) | (status == UNIFORM)).sum()),
             capped=int((status == CAPPED).sum()),
-            launches=K1.launches - launches)
+            launches=K1.launches + K1_CAMERA.launches - launches)
     with span("svo.decode"):
         return _finish(wscene, rec, origins, dirs)

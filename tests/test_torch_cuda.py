@@ -115,10 +115,11 @@ def test_esvo_kernel_equals_plain_on_gpu(name):
     alive[3::40] = False
     for kw in (dict(), dict(cone_trace=True, max_depth=3),
                dict(max_iterations=7), dict(max_depth=3)):
-        before = traverse.KE.launches
+        before = traverse.KE.launches + traverse.KE_BINNED.launches
         got = traverse.trace(packed, o, d, alive, **kw)
         torch.cuda.synchronize()
-        assert traverse.KE.launches == before + 1
+        assert (traverse.KE.launches + traverse.KE_BINNED.launches
+                == before + 1)
         want = traverse.intersect_plain(packed, o, d, alive, **kw)
         assert _equal_fields(want, got) == [], kw
         assert (want["done"] == 1).any()
@@ -188,7 +189,7 @@ def test_esvo_render_schedule_on_gpu():
         shade.render_image(tree, cam5, 96, 64, render_mode=0, gi_bounces=1,
                            stats=stats)
     torch.cuda.synchronize()
-    assert [x.launches - b for x, b in zip(k, before)] == [2, 1]
+    assert [x.launches - b for x, b in zip(k, before)] == [1, 1]
     assert [s["launches"] for s in stats] == [1, 1]
     tiles = traverse.tile_order(96, 64, "cuda")
     assert all(kw["order"] is tiles for _, kw in calls)
@@ -243,7 +244,7 @@ def test_camera_kernel_equals_plain_on_gpu(W, H):
     got = wavefront.trace_camera(ws, cam16, n, W, H, nbx)
     torch.cuda.synchronize()
     assert (wavefront.K1.launches, wavefront.K1_CAMERA.launches) == (
-        before[0] + 1, before[1] + 1)
+        before[0], before[1] + 1)
     want = wavefront.trace_camera_plain(ws, cam16, n, W, H, nbx)
     for field, a, b in zip(("status", "t", "cell", "widx", "iters"), want,
                            got):
@@ -485,9 +486,10 @@ def test_kernel_g64_camera_and_grid_on_gpu():
 
 @pytest.mark.gpu
 def test_launch_counters_once_per_segment():
-    """A gi-2 frame: one K1 launch per segment (the primary one in camera
-    mode), one key launch per explicit segment, and one DECODE and one
-    GI_SHADE launch per segment."""
+    """A gi-2 frame: one K1 launch per explicit segment and one of its
+    camera-mode entry for the primary, each entry counting its own, one
+    key launch per explicit segment, and one DECODE and one GI_SHADE
+    launch per segment."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     from svo_raytracer_torch.ops import render_wave, shade
@@ -505,8 +507,30 @@ def test_launch_counters_once_per_segment():
     render_wave.render_frame_wavefront(ws, cam5, 64, 48, render_mode=0,
                                        gi_bounces=2, stats=stats)
     torch.cuda.synchronize()
-    assert [x.launches - b for x, b in zip(k, before)] == [3, 1, 2, 3, 3]
+    assert [x.launches - b for x, b in zip(k, before)] == [2, 1, 2, 3, 3]
     assert [s["launches"] for s in stats] == [1, 1, 1]
+
+
+@pytest.mark.gpu
+def test_failed_launch_raises_and_is_not_counted():
+    """Kernel.launch passes torch's current stream last, turns a non-zero
+    cudaError into a RuntimeError naming the entry point and counts only
+    the launches that succeed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from svo_raytracer_torch.ops import kernel_build
+    k = kernel_build.Kernel("wavefront", ["wavefront.cu"], "wf_trace", [])
+    calls = []
+    k.fn = lambda *args: calls.append(args) or 700
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        with pytest.raises(RuntimeError, match="wf_trace.*cudaError 700"):
+            k.launch(torch.device("cuda"), 3, 4)
+    assert calls == [(3, 4, side.cuda_stream)]
+    assert k.launches == 0
+    k.fn = lambda *args: 0
+    k.launch(torch.device("cuda"))
+    assert k.launches == 1
 
 
 @pytest.mark.gpu
@@ -804,10 +828,11 @@ def test_bench_small_on_gpu(monkeypatch):
     from svo_raytracer_torch import bench
     monkeypatch.setattr(bench, "WARM_FRAMES", 1)
     monkeypatch.setattr(bench, "TIMED_FRAMES", 1)
-    launches = wavefront.K1.launches
+    k1 = (wavefront.K1, wavefront.K1_CAMERA)
+    launches = sum(k.launches for k in k1)
     rows = []
     bench.run(64, 64, 64, 40, emit=rows.append)
-    assert wavefront.K1.launches - launches >= 2 * (2 + 4)
+    assert sum(k.launches for k in k1) - launches >= 2 * (2 + 4)
     assert rows[-1]["n_left"] == dict(prim=0, gi1=0, gi2=0, gi3=0)
     assert rows[-1]["device"] == bench.card("cuda")
     assert rows[-1]["max_memory_allocated"] > 0
@@ -878,12 +903,13 @@ def test_two_wall_train_step_on_gpu_equals_cpu():
         step = wd.make_wave_train_step(ws, W, H, K=2, lr=400.0)
         cam5 = torch.from_numpy(chip_smoke.two_wall_camera()).to(dev)
         p, losses = wd.init_params(ws, 4.0), []
-        launches = wavefront.K1.launches
+        launches = wavefront.K1.launches + wavefront.K1_CAMERA.launches
         for _ in range(2):
             p, loss = step(p, cam5, torch.zeros(H, W, 3, device=dev))
             losses.append(float(loss))
         if dev == "cuda":
-            assert wavefront.K1.launches - launches == 4
+            assert (wavefront.K1.launches + wavefront.K1_CAMERA.launches
+                    - launches == 4)
         out.append((p, losses))
     (pg, lg), (pc, lc) = out
     np.testing.assert_allclose(lg, lc, rtol=1e-5)
@@ -911,10 +937,11 @@ def test_render_diff_step_on_gpu_equals_cpu():
         cam5 = torch.tensor(cam.uniform(), dtype=torch.float32, device=dev)
         p = rd.init_params(tree)
         target = 0.8 * rd.render_diff(p, tree, cam5, 64, 40)
-        launches = traverse.KE.launches
+        launches = traverse.KE.launches + traverse.KE_BINNED.launches
         q, loss = rd.train_step(p, tree, cam5, target, 64, 40, lr=300.0)
         if dev == "cuda":
-            assert traverse.KE.launches - launches == 1
+            assert (traverse.KE.launches + traverse.KE_BINNED.launches
+                    - launches == 1)
         out.append((target, q, float(loss)))
     (tg, qg, lg), (tc, qc, lc) = out
     assert torch.equal(tg.cpu(), tc)
