@@ -87,6 +87,10 @@ prints the key-and-sort time apart from K1's own, and on bounce segment
 On every world K1's camera mode is held equal to trace_camera_plain on
 the 1080p primary segment, and against explicit rays to the JAX
 package's contract.
+On every world the frame's start (kernel RAYGEN: rays, random and
+mode-0 state, and the rays alone of modes 1-3) is held equal to
+render_wave._frame_start_plain, and each segment's decode and shading
+(DECODE, GI_SHADE) to theirs.
 
 After the 1024^3 wavefront world, its host BrickScene goes to the card
 for kernel K3, the v1 brick-round engine (brick_pallas.
@@ -178,9 +182,11 @@ PEAK_OPS_PER_S = 67e12
 # sum, n.l and the mask; acos, cos and sin counted as one each); DECODE's
 # per ray, assumed (csrc/decode.cuh: the brick and voxel index arithmetic,
 # the attribute word's fields, the normal's square root and divisions,
-# the corner and the two points)
+# the corner and the two points); RAYGEN's per ray, assumed
+# (csrc/raygen.cuh: the pixel decode, the corner mix, the normalisation,
+# two divisions and three glsl_rand, each sinf counted as 30)
 OPS_PER_STEP = {"K1": 40, "KE": 50, "K2": 30, "K3": 30, "K1 keys": 75,
-                "GI_SHADE": 100, "DECODE": 80}
+                "GI_SHADE": 100, "DECODE": 80, "RAYGEN": 150}
 K3_ROUNDS = 24            # intersect_bricks_tpu's default max_rounds
 K3_CUT_ROUNDS = 2         # few enough rounds that some rays run out
 
@@ -787,6 +793,25 @@ def hold_decode(name, ws, rec, origins, dirs):
 
     return Held("DECODE", name, fields(wf._finish_kernel),
                 fields(wf._finish_plain), nbytes, [], lambda r: B)
+
+
+def hold_raygen(cam5, frame):
+    """RAYGEN vs render_wave._frame_start_plain on a W x H frame: every
+    field of the frame's start but the origins (the camera row, a view),
+    the mode-0 random and state with ``frame``, the directions alone
+    without (modes 1-3).  The bytes are what the kernel must write
+    (csrc/raygen.cu's count): 49 a ray in mode 0, 12 in modes 1-3, and
+    the 60 B camera read once; a step is a ray."""
+    from svo_raytracer_torch.ops import render_wave as rw
+    B = rw._frame_B(W, H)
+
+    def fields(start):
+        return lambda: {f: v for f, v in start(cam5, W, H, frame)._asdict(
+            ).items() if f != "origins" and v is not None}
+
+    return Held("RAYGEN", "mode 0" if frame is not None else "modes 1-3",
+                fields(rw._frame_start_kernel), fields(rw._frame_start_plain),
+                B * (12 if frame is None else 49) + 60, [], lambda r: B)
 
 
 class Agreement(Held):
@@ -1635,11 +1660,11 @@ def render_frames(ws, cam5, configs):
 
 def main_path(ws, configs):
     """The main path on one world: camera probe and frames, with K1's
-    launch counts (and its key kernel's, DECODE's and GI_SHADE's) set to
-    0 just before and read just after."""
+    launch counts (and its key kernel's, DECODE's, GI_SHADE's and
+    RAYGEN's) set to 0 just before and read just after."""
     import torch
     from svo_raytracer_torch import bench
-    from svo_raytracer_torch.ops import shade
+    from svo_raytracer_torch.ops import render_wave, shade
     from svo_raytracer_torch.ops import wavefront as wf
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1650,7 +1675,8 @@ def main_path(ws, configs):
                     K1_camera=wf.K1_CAMERA.launches,
                     K1_keys=wf.K1_KEYS.launches,
                     GI_SHADE=shade.GI_SHADE.launches,
-                    DECODE=wf.DECODE.launches)
+                    DECODE=wf.DECODE.launches,
+                    RAYGEN=render_wave.RAYGEN.launches)
     peak = torch.cuda.max_memory_allocated()
     say(f"[main path {ws.world_size}] launches {launches}; "
         f"max_memory_allocated {peak / 2**30:.3f} GiB ({peak} B)")
@@ -2472,12 +2498,13 @@ def viewer_phase(dev, bench_ws):
 # ------------------------------------------- the rest of the single-card API
 def reset_counts():
     """Every kernel's launch count set to 0 (before a path is driven)."""
-    from svo_raytracer_torch.ops import brick_dda, brick_pallas, shade
+    from svo_raytracer_torch.ops import brick_dda, brick_pallas, render_wave
+    from svo_raytracer_torch.ops import shade
     from svo_raytracer_torch.ops import traverse
     from svo_raytracer_torch.ops import wavefront as wf
     for k in (wf.K1, wf.K1_CAMERA, wf.K1_KEYS, wf.DECODE, shade.GI_SHADE,
-              traverse.KE, traverse.KE_BINNED, brick_dda.K2,
-              brick_pallas.K3):
+              render_wave.RAYGEN, traverse.KE, traverse.KE_BINNED,
+              brick_dda.K2, brick_pallas.K3):
         k.launches = 0
 
 
@@ -3485,21 +3512,15 @@ def compare_segments(ws, cam5, bounces):
     camera row (hold_decode, kept as the Agreement's ``dec``), its
     shading GI_SHADE held against gi_update_plain (hold_gi, kept as the
     Agreement's ``gi``), and the next segment starts from the kernel's
-    outputs."""
-    import torch
-    from svo_raytracer_torch.ops import render_wave, rng
+    outputs.  The frame's start is RAYGEN's, held against
+    _frame_start_plain (hold_raygen, kept as the first Agreement's
+    ``raygen``), and so are the directions alone (modes 1-3)."""
     say(f"[segments {ws.world_size}] K1 vs trace_plain per segment of a "
         f"gi-{bounces} frame")
-    dev = cam5.device
-    origins, dirs, px, py = render_wave._frame_rays(cam5, W, H)
-    rand = rng.pixel_rand(px, py, 2)
-    B = dirs.shape[0]
-    accum = torch.zeros((B, 3), device=dev)
-    mask = torch.ones((B, 3), device=dev)
-    depth = torch.full((B,), -1.0, device=dev)
-    iters = torch.zeros(B, dtype=torch.int32, device=dev)
-    active = torch.ones(B, dtype=torch.bool, device=dev)
-    o, d = origins, dirs
+    raygen = hold_raygen(cam5, 2)
+    hold_raygen(cam5, None)
+    d, rand, accum, mask, depth, iters, active = raygen.rec.values()
+    o = cam5[0].expand_as(d)
     out = []
     for seg in range(bounces + 1):
         a = Agreement(ws, f"segment {seg}", o.contiguous(), d.contiguous(),
@@ -3510,6 +3531,7 @@ def compare_segments(ws, cam5, bounces):
         a.gi = hold_gi(f"segment {seg}", seg == 0, (
             accum, mask, depth, iters, active, o, d, rand, a.res_k))
         accum, mask, depth, iters, active, o, d = a.gi.rec.values()
+    out[0].raygen = raygen
     return out
 
 
@@ -3626,11 +3648,12 @@ def kernel_entry(name, source, replaces, launches, timed_checks,
 
 
 def build_kernels():
-    """Build K1, KE, K2, K3, GI_SHADE and DECODE from csrc/, one nvcc each, all
-    started together; prints each kernel's build-and-load seconds and
-    ptxas's registers, shared memory and spills."""
+    """Build K1, KE, K2, K3, GI_SHADE, DECODE and RAYGEN from csrc/, one
+    nvcc each, all started together; prints each kernel's build-and-load
+    seconds and ptxas's registers, shared memory and spills."""
     import concurrent.futures as cf
-    from svo_raytracer_torch.ops import brick_dda, brick_pallas, shade
+    from svo_raytracer_torch.ops import brick_dda, brick_pallas, render_wave
+    from svo_raytracer_torch.ops import shade
     from svo_raytracer_torch.ops import traverse
     from svo_raytracer_torch.ops import wavefront as wf
 
@@ -3641,7 +3664,7 @@ def build_kernels():
 
     t0 = time.time()
     ks = (wf.K1, traverse.KE, brick_dda.K2, brick_pallas.K3,
-          shade.GI_SHADE, wf.DECODE)
+          shade.GI_SHADE, wf.DECODE, render_wave.RAYGEN)
     with cf.ThreadPoolExecutor(len(ks)) as ex:
         secs = list(ex.map(load, ks))
     for k, sec in zip(ks, secs):
@@ -3649,7 +3672,7 @@ def build_kernels():
         for line in k.build_log().splitlines():
             if "registers" in line or "spill" in line or "entry" in line:
                 say(f"  ptxas {k.name}: {line.strip()}")
-    say(f"[build] all six in {time.time() - t0:.1f} s")
+    say(f"[build] all seven in {time.time() - t0:.1f} s")
 
 
 def add_viewer_launches(kernels, launches, checks):
@@ -3806,6 +3829,7 @@ def main():
                + [Err(multi_err["K1 keys"])])
     order_ms = bench_order_ms
     gi_launches, gi_checks, dec_launches, dec_checks = 0, [], 0, []
+    rg_launches, rg_checks = 0, []
     for (size, n_range, bounces, n_timed, profiled, part, line,
          small_names, first) in WORLDS:
         scene, ws = build_world(dev, size, n_range)
@@ -3847,6 +3871,8 @@ def main():
         gi_checks += [a.gi for a in seg]
         dec_launches += launches["DECODE"]
         dec_checks += [a.dec for a in seg]
+        rg_launches += launches["RAYGEN"]
+        rg_checks.append(seg[0].raygen)
         order_ms += launches["K1_keys"] * float(
             np.mean([a.key_sort_device_ms for a in seg[1:]]))
         key_timed += [a.keys for a in seg[1:]]
@@ -3894,6 +3920,12 @@ def main():
         "svo_raytracer_tpu/ops/wavefront.py:2079", dec_launches,
         dec_checks, dec_checks),
         tpu_kernel="none: _finish and decode_hits, XLA-fused glue"))
+    kernels.append(dict(kernel_entry(
+        "RAYGEN frame start (rays, random, mode-0 state), every world",
+        "svo_raytracer_torch/csrc/raygen.cu",
+        "svo_raytracer_tpu/ops/render_wave.py:181", rg_launches, rg_checks,
+        rg_checks),
+        tpu_kernel="none: _frame_rays and _gi_init, XLA-fused glue"))
     add_viewer_launches(kernels, viewer_launches, viewer_checks)
     print_ranking(kernels, order_ms)
     say(f"[summary] {json.dumps(summary)}")

@@ -643,25 +643,29 @@ struct Camera {
   float ws;        // world size: voxel-unit origin (pos - 1) * ws
 };
 
-// Primary ray `rid` (wavefront.py::_wf_kernel's camera branch, :997-1027,
-// operation for operation): block-major or row-major pixel decode, pad
-// rows (block mode, y >= H) clamped to the last real row, the corner mix
-// of svotrace.comp:662-664, then normalization.
-__host__ __device__ inline void camera_ray(const Camera& cam, int rid,
-                                           float* o, float* d) {
-  int pyi, pxi;
+// The pixel of primary `rid`: block-major or row-major decode.  A pad row
+// of block mode has y >= H.
+__host__ __device__ inline void camera_pixel(const Camera& cam, int rid,
+                                             int* pxi, int* pyi) {
   if (cam.nbx > 0) {
     const int bi = rid / 1024;
     const int off = rid - bi * 1024;
     const int by = bi / cam.nbx;
     const int bx = bi - by * cam.nbx;
     const int ly = off / 32;
-    pyi = by * 32 + ly;
-    pxi = bx * 32 + (off - ly * 32);
+    *pyi = by * 32 + ly;
+    *pxi = bx * 32 + (off - ly * 32);
   } else {
-    pyi = rid / cam.W;
-    pxi = rid - pyi * cam.W;
+    *pyi = rid / cam.W;
+    *pxi = rid - *pyi * cam.W;
   }
+}
+
+// The unit direction through pixel (pxi, pyi): pad rows clamped to the
+// last real row, the corner mix of svotrace.comp:662-664, then
+// normalization.
+__host__ __device__ inline void camera_dir(const Camera& cam, int pxi,
+                                           int pyi, float* d) {
   pyi = pyi < cam.H - 1 ? pyi : cam.H - 1;
   const float u = ((float)pxi + 0.5f) / (float)cam.W;
   const float v = ((float)pyi + 0.5f) / (float)cam.H;
@@ -673,10 +677,18 @@ __host__ __device__ inline void camera_ray(const Camera& cam, int rid,
     dun[ax] = left + (right - left) * u;
   }
   const float nrm = sqrtf(dun[0] * dun[0] + dun[1] * dun[1] + dun[2] * dun[2]);
-  for (int ax = 0; ax < 3; ++ax) {
-    d[ax] = dun[ax] / nrm;
-    o[ax] = (c[ax] - 1.0f) * cam.ws;
-  }
+  for (int ax = 0; ax < 3; ++ax) d[ax] = dun[ax] / nrm;
+}
+
+// Primary ray `rid` (wavefront.py::_wf_kernel's camera branch, :997-1027,
+// operation for operation): its pixel, its direction, and the camera's
+// voxel-unit origin.
+__host__ __device__ inline void camera_ray(const Camera& cam, int rid,
+                                           float* o, float* d) {
+  int pxi, pyi;
+  camera_pixel(cam, rid, &pxi, &pyi);
+  camera_dir(cam, pxi, pyi, d);
+  for (int ax = 0; ax < 3; ++ax) o[ax] = (cam.c[ax] - 1.0f) * cam.ws;
 }
 
 // The state of camera-mode primary `rid`; every primary is traced.

@@ -7,18 +7,26 @@ them.  Rays are generated in 32x32-pixel block-major order, as in the JAX
 package, so that one warp's rays are neighbouring pixels; ``_unblock``
 turns the flat result back into an image.  Every primary segment runs in
 camera mode, as the JAX package's do: K1 derives each primary ray from
-its id and the camera, and the explicit rays of ``_frame_rays`` only
-decode the hits and shade.  Bounce and shadow segments trace explicit
-rays.  The JAX engine's static schedule replay has no counterpart here:
-each segment is one kernel launch.
+its id and the camera, and the frame's explicit rays only decode the
+hits and shade.  Bounce and shadow segments trace explicit rays.  The
+JAX engine's static schedule replay has no counterpart here: each
+segment is one kernel launch.
+
+A frame starts with one launch of kernel RAYGEN on the card
+(:func:`frame_start`): the unit directions, and in mode 0 the per-pixel
+random and the shading state, all that the segments read before the
+first.
 """
 
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple, Optional
+
 import torch
 
 from ..utils.profiling import span
-from . import rng, shade, wavefront
+from . import kernel_build, rng, shade, wavefront
 
 BLK = 32
 
@@ -72,6 +80,88 @@ def _frame_rays(cam5, width, height):
     return cam5[0].expand_as(dirs), dirs, px, py
 
 
+class FrameStart(NamedTuple):
+    """What a frame's segments read before the first: the rays, and in
+    render mode 0 the per-pixel random and _render_gi's initial state
+    (None in modes 1-3)."""
+    origins: torch.Tensor            # (B,3), the camera row expanded
+    dirs: torch.Tensor               # (B,3) unit directions
+    rand: Optional[torch.Tensor] = None     # (B,) float32
+    accum: Optional[torch.Tensor] = None    # (B,3) float32 zeros
+    mask: Optional[torch.Tensor] = None     # (B,3) float32 ones
+    depth: Optional[torch.Tensor] = None    # (B,) float32 -1
+    iters: Optional[torch.Tensor] = None    # (B,) int32 zeros
+    active: Optional[torch.Tensor] = None   # (B,) bool, all true
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+RAYGEN = kernel_build.Kernel(
+    "raygen", ["raygen.cu"], "raygen",
+    [_I] * 5 + [ctypes.c_float] * 2 + [_P, _I, _I] + [_P] * 7 + [_P])
+
+
+def frame_start(cam5, width, height, frame_number=None):
+    """The start of a frame (FrameStart) in _frame_rays' order from the
+    (5,3) float32 camera uniform: the rays, and with ``frame_number``
+    (render mode 0) the random and the shading state.  Kernel RAYGEN for
+    a CUDA camera (:func:`_frame_start_kernel`, one launch), the plain
+    version :func:`_frame_start_plain` for a CPU one; the two are
+    bit-equal on the card."""
+    if cam5.shape != (5, 3) or cam5.dtype != torch.float32:
+        raise ValueError(f"cam5 must be a (5, 3) float32 tensor, not "
+                         f"{tuple(cam5.shape)} {cam5.dtype}")
+    if width < 1 or height < 1:
+        raise ValueError(f"frame {width}x{height} has no pixels")
+    if cam5.device.type == "cpu":
+        return _frame_start_plain(cam5, width, height, frame_number)
+    return _frame_start_kernel(cam5, width, height, frame_number)
+
+
+def _frame_start_plain(cam5, width, height, frame_number):
+    """Plain PyTorch version of kernel RAYGEN, on either device:
+    :func:`_frame_rays`, :func:`rng.pixel_rand` of its pixels and the
+    state's fills."""
+    origins, dirs, px, py = _frame_rays(cam5, width, height)
+    if frame_number is None:
+        return FrameStart(origins, dirs)
+    B, dev = dirs.shape[0], dirs.device
+    return FrameStart(
+        origins, dirs, rng.pixel_rand(px, py, frame_number),
+        torch.zeros((B, 3), dtype=torch.float32, device=dev),
+        torch.ones((B, 3), dtype=torch.float32, device=dev),
+        torch.full((B,), -1.0, dtype=torch.float32, device=dev),
+        torch.zeros((B,), dtype=torch.int32, device=dev),
+        torch.ones((B,), dtype=torch.bool, device=dev))
+
+
+def _frame_start_kernel(cam5, width, height, frame_number):
+    """Kernel RAYGEN on the card: same contract as
+    :func:`_frame_start_plain`, one launch and no other device work.
+    ``cam5`` is read in place, through its strides."""
+    dev = cam5.device
+    kernel_build.check_tensors(
+        dev, strided=[("cam5", cam5, (5, 3), torch.float32)])
+    B = _frame_B(width, height)
+    if B >= 2 ** 31:
+        raise ValueError(f"frame {width}x{height}: {B} rays pass int32 ids")
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    out = [empty(B, 3)]
+    gi = frame_number is not None
+    offsets = (0.0, 0.0)
+    if gi:
+        offsets = rng.frame_offsets(frame_number)
+        out += [empty(B), empty(B, 3), empty(B, 3), empty(B),
+                empty(B, dtype=torch.int32), empty(B, dtype=torch.bool)]
+    ptrs = [x.data_ptr() for x in out] + [None] * (7 - len(out))
+    RAYGEN.launch(dev, B, width, height,
+                  width // BLK if _use_block(width) else 0, int(gi),
+                  *offsets, cam5.data_ptr(), *cam5.stride(), *ptrs)
+    return FrameStart(cam5[0].expand_as(out[0]), *out)
+
+
 def _unblock(a, width, height):
     """Block-major flat array -> (height, width, ...) image."""
     if not _use_block(width):
@@ -122,20 +212,11 @@ def _shadow_rays(res):
 
 
 def _render_gi(wscene, cam5, width, height, gi_bounces, mirror_values,
-               rand, stats=None):
-    """Render mode 0 given the per-pixel random ``rand`` (length
-    ``_frame_B``, block-major).  Returns flat block-major (col, depth,
-    iters)."""
-    with span("svo.assembly"):
-        origins, dirs, _, _ = _frame_rays(cam5, width, height)
-        B = dirs.shape[0]
-        dev = dirs.device
-        accum = torch.zeros((B, 3), dtype=torch.float32, device=dev)
-        mask = torch.ones((B, 3), dtype=torch.float32, device=dev)
-        depth = torch.full((B,), -1.0, dtype=torch.float32, device=dev)
-        iters_out = torch.zeros((B,), dtype=torch.int32, device=dev)
-        active = torch.ones((B,), dtype=torch.bool, device=dev)
-    o, d = origins, dirs
+               start, stats=None):
+    """Render mode 0 from the frame's start (a mode-0 FrameStart of
+    :func:`frame_start`, block-major).  Returns flat block-major (col,
+    depth, iters)."""
+    o, d, rand, accum, mask, depth, iters_out, active = start
     for seg in range(gi_bounces + 1):
         if seg == 0:
             res = _segment(wscene, o, d, None, stats, (cam5, width, height))
@@ -170,13 +251,13 @@ def render_frame_wavefront(wscene, cam5, width, height, render_mode=0,
     with span("svo.frame"):
         with span("svo.assembly"):
             cam5 = cam5.to(torch.float32)
-            origins, dirs, px, py = _frame_rays(cam5, width, height)
-            if render_mode == 0:
-                rand = rng.pixel_rand(px, py, frame_number)
+            start = frame_start(cam5, width, height,
+                                frame_number if render_mode == 0 else None)
+        origins, dirs = start.origins, start.dirs
         camera = (cam5, width, height)
         if render_mode == 0:
             col, depth, it = _render_gi(wscene, cam5, width, height,
-                                        gi_bounces, mirror_values, rand,
+                                        gi_bounces, mirror_values, start,
                                         stats)
         elif render_mode in (1, 3):
             res = _segment(wscene, origins, dirs, None, stats, camera)

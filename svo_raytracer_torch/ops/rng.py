@@ -29,12 +29,19 @@ def glsl_rand(x, y):
     return v - torch.floor(v)
 
 
+def frame_offsets(frame):
+    """The frame's two inner seeds of :func:`pixel_rand`,
+    float32(frame) * float32(0.1) and float32(frame) * float32(0.02)."""
+    fr = np.float32(frame)
+    return float(fr * np.float32(0.1)), float(fr * np.float32(0.02))
+
+
 def pixel_rand(px, py, frame):
     """The composed per-pixel random of render mode 0 (svotrace.comp:486):
     rand(seed0 + rand(seed0, frame*0.1), seed1 + rand(seed1, frame*0.02))."""
-    fr = np.float32(frame)
-    r1 = glsl_rand(px, torch.full_like(px, float(fr * np.float32(0.1))))
-    r2 = glsl_rand(py, torch.full_like(py, float(fr * np.float32(0.02))))
+    f1, f2 = frame_offsets(frame)
+    r1 = glsl_rand(px, torch.full_like(px, f1))
+    r2 = glsl_rand(py, torch.full_like(py, f2))
     return glsl_rand(px + r1, py + r2)
 
 

@@ -47,8 +47,11 @@ def frames():
                                          jnp.asarray(py.numpy()),
                                          jnp.float32(FRAME),
                                          jnp.zeros((px.shape[0], 3)))[-1]
+            start = render_wave.frame_start(
+                torch.from_numpy(cam5), W, H, FRAME)._replace(
+                    rand=torch.from_numpy(np.array(rand)))
             got = render_wave._render_gi(ws, torch.from_numpy(cam5), W, H, 1,
-                                         (), torch.from_numpy(np.array(rand)))
+                                         (), start)
             got = tuple(render_wave._unblock(a, W, H) for a in got)
         else:
             got = render_wave.render_frame_wavefront(

@@ -5,7 +5,8 @@ wrapper launching the kernel alone, on a CUDA GPU against their plain
 PyTorch versions; GI_SHADE against gi_update_plain on a bench-sized
 segment and in each caller's mode-0 frame; DECODE against _finish_plain
 on bench-sized primary and bounce segments, on each table layout and in
-a gi-3 frame; the noise on the card
+a gi-3 frame; RAYGEN against _frame_start_plain on 1080p and odd-sized
+frames and in mode-0 and mode-2 frames; the noise on the card
 against the CPU's, the bench's small pipeline on the card, and the
 differentiable renderers' compositor and train steps on the card
 against the CPU's; the edit path (apply_patch, DeviceTree) and a viewer
@@ -488,8 +489,8 @@ def test_kernel_g64_camera_and_grid_on_gpu():
 def test_launch_counters_once_per_segment():
     """A gi-2 frame: one K1 launch per explicit segment and one of its
     camera-mode entry for the primary, each entry counting its own, one
-    key launch per explicit segment, and one DECODE and one GI_SHADE
-    launch per segment."""
+    key launch per explicit segment, one DECODE and one GI_SHADE launch
+    per segment, and one RAYGEN launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     from svo_raytracer_torch.ops import render_wave, shade
@@ -501,13 +502,13 @@ def test_launch_counters_once_per_segment():
     cam.rotate(-0.5, 0.6)
     cam5 = torch.tensor(cam.uniform(), dtype=torch.float32, device="cuda")
     k = (wavefront.K1, wavefront.K1_CAMERA, wavefront.K1_KEYS,
-         shade.GI_SHADE, wavefront.DECODE)
+         shade.GI_SHADE, wavefront.DECODE, render_wave.RAYGEN)
     before = [x.launches for x in k]
     stats = []
     render_wave.render_frame_wavefront(ws, cam5, 64, 48, render_mode=0,
                                        gi_bounces=2, stats=stats)
     torch.cuda.synchronize()
-    assert [x.launches - b for x, b in zip(k, before)] == [2, 1, 2, 3, 3]
+    assert [x.launches - b for x, b in zip(k, before)] == [2, 1, 2, 3, 3, 1]
     assert [s["launches"] for s in stats] == [1, 1, 1]
 
 
@@ -540,7 +541,8 @@ def test_frame_spans_hold_the_device_records_on_gpu():
     device records were launched inside a child span of ``svo.frame``,
     and K1's launches and the ray order's fall under ``svo.k1`` and
     ``svo.order``; ``svo.shade`` holds one record a segment, GI_SHADE's,
-    and ``svo.decode`` one, DECODE's."""
+    and ``svo.decode`` one, DECODE's; ``svo.assembly`` holds RAYGEN's
+    record and the three copies of _unblock."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     from portbench import spans, trace
@@ -570,6 +572,7 @@ def test_frame_spans_hold_the_device_records_on_gpu():
     assert s.kernels["svo.k1"] == 4 and s.kernels["svo.order"] >= 3
     assert s.kernels["svo.shade"] == 4
     assert s.kernels["svo.decode"] == 4
+    assert s.kernels["svo.assembly"] == 4
 
 
 @pytest.mark.gpu
@@ -787,6 +790,83 @@ def test_gi_frame_equals_plain_decode_on_gpu(monkeypatch):
             assert bool(chip_smoke.same(a, b).all())
         else:
             assert a == b
+
+
+def _raygen_camera():
+    """The heightmap frames' camera, its uniform column-major as
+    Camera.uniform gives it."""
+    from svo_raytracer_torch.utils.camera import Camera
+    cam = Camera(pos=np.array([1.3, 1.8, 1.3]))
+    cam.rotate(-0.5, 0.6)
+    return torch.tensor(cam.uniform(), dtype=torch.float32, device="cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frame", [1, 7, 4095, None])
+@pytest.mark.parametrize("W, H", [(1920, 1080), (100, 37), (64, 64)])
+def test_raygen_kernel_equals_plain_on_gpu(W, H, frame):
+    """RAYGEN against _frame_start_plain (_frame_rays, rng.pixel_rand and
+    the state's fills) on the card: block-major with pad rows, row-major
+    (W % 32 != 0) and block-major without pad rows; render mode 0 at
+    frames 1, 7 and 4095 (sin arguments past 105,615, where sinf takes
+    its slow reduction), and modes 1-3 (frame None, the directions
+    alone).  Every field bit-equal, the random included, in one launch;
+    the camera, read through its column-major strides, left as it
+    was."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from svo_raytracer_torch.ops import render_wave
+    cam5 = _raygen_camera()
+    assert not cam5.is_contiguous()
+    kept = cam5.clone()
+    before = render_wave.RAYGEN.launches
+    got = render_wave.frame_start(cam5, W, H, frame)
+    torch.cuda.synchronize()
+    assert render_wave.RAYGEN.launches == before + 1
+    want = render_wave._frame_start_plain(cam5, W, H, frame)
+    assert torch.equal(cam5, kept)
+    assert got.origins.stride(0) == 0
+    for field in render_wave.FrameStart._fields:
+        a, b = getattr(want, field), getattr(got, field)
+        if a is None:
+            assert b is None and frame is None, field
+            continue
+        assert a.dtype == b.dtype and a.shape == b.shape, field
+        assert torch.equal(a, b), (field, int((a != b).sum()))
+    assert got.dirs.shape[0] == render_wave._frame_B(W, H)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", [0, 2])
+def test_raygen_frames_equal_plain_assembly_on_gpu(mode, monkeypatch):
+    """A gi-3 mode-0 frame and a mode-2 frame through
+    render_frame_wavefront, with one RAYGEN launch a frame, equal in
+    every output the frames whose start _frame_start_plain assembles on
+    the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from svo_raytracer_torch.ops import render_wave
+    hm, mm = bigworld.fractal_heightmap(256, seed=3, lo=0.3, hi=0.9)
+    ws = wavefront.prepare(bigworld.heightmap_brick_scene(hm, mm, 256),
+                           "cuda")
+    cam5 = _raygen_camera()
+
+    def render():
+        return render_wave.render_frame_wavefront(
+            ws, cam5, 256, 160, render_mode=mode, frame_number=4093,
+            gi_bounces=3, mirror_values=(2,))
+
+    before = render_wave.RAYGEN.launches
+    got = render()
+    torch.cuda.synchronize()
+    assert render_wave.RAYGEN.launches == before + 1
+    monkeypatch.setattr(render_wave, "_frame_start_kernel",
+                        render_wave._frame_start_plain)
+    want = render()
+    assert render_wave.RAYGEN.launches == before + 1
+    for a, b in zip(want, got):
+        assert bool(chip_smoke.same(a, b).all())
+    assert (got[1] > 0).any() and (got[1] <= 0).any()
 
 
 @pytest.mark.gpu

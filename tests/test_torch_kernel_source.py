@@ -35,7 +35,7 @@ from conftest import make_sphere_voxels
 from svo_raytracer_tpu.core import build_np
 from svo_raytracer_torch.models import bigworld
 from svo_raytracer_torch.ops import brick_dda, brick_pallas, brick_scene
-from svo_raytracer_torch.ops import kernel_build, render_wave, shade
+from svo_raytracer_torch.ops import kernel_build, render_wave, rng, shade
 from svo_raytracer_torch.ops import skip_grid, traverse, wavefront
 from svo_raytracer_torch.utils.camera import Camera
 from test_traverse_batch import random_rays
@@ -767,3 +767,119 @@ def test_decode_source_equals_plain(case):
     assert got["normal"][got["hit"]].isnan().any()
     assert (~got["normal"][got["hit"]].isnan()).any()
     assert (got["node"] == -1).any() and (got["node"] >= 0).any()
+
+
+# RAYGEN's frames: block-major with pad rows, row-major (W % 32 != 0) and
+# block-major with no pad rows (H % 32 == 0)
+RAYGEN_SIZES = [(1920, 1080), (100, 37), (64, 64)]
+RAYGEN_STATE = ("accum", "mask", "depth", "iters", "active")
+
+
+def _raygen_camera():
+    cam = Camera(pos=np.array([1.37, 1.81, 1.29]))
+    cam.rotate(-0.6, 0.7)
+    return torch.tensor(cam.uniform(), dtype=torch.float32)
+
+
+def _raygen_host(cam5, W, H, frame):
+    """frame_start's fields by the g++ build of RAYGEN's body; every slot
+    starts as a sentinel, and without ``frame`` only the directions are
+    given."""
+    fn = _host_fn("raygen_host", "raygen_host.cpp", "raygen_host",
+                  render_wave.RAYGEN.argtypes)
+    B = render_wave._frame_B(W, H)
+    out = {"dirs": torch.full((B, 3), -7.0)}
+    if frame is not None:
+        out.update(rand=torch.full((B,), -7.0),
+                   accum=torch.full((B, 3), -7.0),
+                   mask=torch.full((B, 3), -7.0),
+                   depth=torch.full((B,), -7.0),
+                   iters=torch.full((B,), -7, dtype=torch.int32),
+                   active=torch.zeros(B, dtype=torch.bool))
+    offsets = (0.0, 0.0) if frame is None else rng.frame_offsets(frame)
+    ptrs = [x.data_ptr() for x in out.values()]
+    nbx = W // 32 if render_wave._use_block(W) else 0
+    assert fn(B, W, H, nbx, int(frame is not None), *offsets,
+              cam5.data_ptr(), *cam5.stride(), *ptrs,
+              *[None] * (7 - len(ptrs))) == 0
+    return out
+
+
+def _circular(a, b):
+    d = (a.double() - b.double()).abs()
+    return torch.minimum(d, 1.0 - d)
+
+
+@pytest.mark.parametrize("frame", [1, 7, 4095, None])
+@pytest.mark.parametrize("W, H", RAYGEN_SIZES)
+def test_raygen_source_equals_plain(W, H, frame):
+    """RAYGEN's body against _frame_start_plain (frame None: modes 1-3,
+    the directions alone, from a column-major camera uniform, as
+    Camera.uniform gives it, and a row-major one): directions and the
+    shading state bit-equal;
+    the random, whose sinf is glibc's here and torch's (SLEEF's) in the
+    plain version, an ulp apart on some arguments, held to
+    test_torch_shade.py::test_pixel_rand_statistics's contract for two
+    sins an ulp apart, its exact share printed."""
+    cam5 = _raygen_camera()
+    want = render_wave._frame_start_plain(cam5, W, H, frame)
+    got = _raygen_host(cam5, W, H, frame)
+    assert torch.equal(want.dirs, got["dirs"])
+    if frame is None:     # the camera read through either layout's strides
+        assert want.rand is None and len(got) == 1
+        assert not cam5.is_contiguous()
+        rows = _raygen_host(cam5.contiguous(), W, H, None)
+        assert torch.equal(rows["dirs"], got["dirs"])
+        return
+    assert _equal({k: getattr(want, k) for k in RAYGEN_STATE}, got) == []
+    assert all(got[k].dtype == getattr(want, k).dtype for k in RAYGEN_STATE)
+    r, g = want.rand, got["rand"]
+    exact = float((r == g).double().mean())
+    print(f"{W}x{H} frame {frame}: random exact on {exact:.4f}")
+    assert (_circular(r, g) <= 1e-2).double().mean() >= 0.85
+    assert abs(float(r.double().mean() - g.double().mean())) <= 5e-3
+    hr = torch.histc(r, bins=10, min=0, max=1) / r.numel()
+    hg = torch.histc(g, bins=10, min=0, max=1) / g.numel()
+    assert float((hr - hg).abs().max()) <= 0.01
+    assert bool(((g >= 0) & (g < 1)).all())
+
+
+def test_frame_start_cpu_takes_the_plain_path():
+    """A CPU camera takes _frame_start_plain (no RAYGEN launch); a mode-0
+    start holds the rays of _frame_rays, pixel_rand of its pixels (pad
+    rows' own row) and the state's fills."""
+    cam5 = _raygen_camera()
+    before = render_wave.RAYGEN.launches
+    got = render_wave.frame_start(cam5, 64, 40, 3)
+    assert render_wave.RAYGEN.launches == before
+    o, d, px, py = render_wave._frame_rays(cam5, 64, 40)
+    assert py.max() == 63 and got.origins.stride(0) == 0
+    assert torch.equal(got.origins, o) and torch.equal(got.dirs, d)
+    assert torch.equal(got.rand, rng.pixel_rand(px, py, 3))
+    B = 64 * 64
+    assert torch.equal(got.accum, torch.zeros(B, 3))
+    assert torch.equal(got.mask, torch.ones(B, 3))
+    assert torch.equal(got.depth, torch.full((B,), -1.0))
+    assert torch.equal(got.iters, torch.zeros(B, dtype=torch.int32))
+    assert bool(got.active.all()) and got.active.dtype == torch.bool
+    rays = render_wave.frame_start(cam5, 64, 40)
+    assert torch.equal(rays.dirs, d) and rays[2:] == (None,) * 6
+
+
+@pytest.mark.parametrize("cam5, W, H", [
+    (torch.zeros(4, 3), 64, 40), (torch.zeros(5, 3, dtype=torch.float64),
+                                  64, 40),
+    (torch.zeros(15), 64, 40), (torch.zeros(5, 3), 0, 40),
+    (torch.zeros(5, 3), 64, 0)])
+def test_frame_start_refuses_bad_input(cam5, W, H):
+    with pytest.raises(ValueError):
+        render_wave.frame_start(cam5, W, H, 1)
+
+
+def test_raygen_wrapper_refuses_int32_overflow():
+    """A frame of 2^31 rays or more passes RAYGEN's int32 ray ids: refused
+    before anything is allocated or launched."""
+    before = render_wave.RAYGEN.launches
+    with pytest.raises(ValueError, match="int32"):
+        render_wave._frame_start_kernel(_raygen_camera(), 65536, 32768, 1)
+    assert render_wave.RAYGEN.launches == before

@@ -52,8 +52,10 @@ def frames():
             frame_number=FRAME, gi_bounces=bounces, mirror_values=(2,),
             interpret=True, use_static=False)
         if mode == 0:
+            start = render_wave.frame_start(torch.from_numpy(cam5), W, H,
+                                            FRAME)._replace(rand=rand)
             got = render_wave._render_gi(ws, torch.from_numpy(cam5), W, H,
-                                         bounces, (2,), rand)
+                                         bounces, (2,), start)
             got = tuple(render_wave._unblock(a, W, H) for a in got)
         else:
             got = render_wave.render_frame_wavefront(
@@ -90,8 +92,9 @@ def test_pixel_rand_drives_mode_0():
         ws, cam5, W, H, render_mode=0, frame_number=FRAME, gi_bounces=2,
         stats=stats)
     _, _, px, py = render_wave._frame_rays(cam5, W, H)
-    ref = render_wave._render_gi(ws, cam5, W, H, 2, (),
-                                 rng.pixel_rand(px, py, FRAME))
+    start = render_wave.frame_start(cam5, W, H, FRAME)._replace(
+        rand=rng.pixel_rand(px, py, FRAME))
+    ref = render_wave._render_gi(ws, cam5, W, H, 2, (), start)
     assert torch.equal(col, render_wave._unblock(ref[0], W, H))
     assert len(stats) == 3 and stats[0]["rays"] == W * 64
     assert all(s["launches"] == 0 for s in stats)   # CPU: plain version

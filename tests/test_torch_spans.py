@@ -25,7 +25,7 @@ CHILDREN = {"svo.assembly", "svo.prep", "svo.order", "svo.k1",
 # per frame on the CPU, where the plain trace takes no ray order
 # (on the card each explicit segment opens svo.order too)
 COUNTS = {
-    0: {"svo.frame": 1, "svo.assembly": 3, "svo.prep": 3, "svo.k1": 3,
+    0: {"svo.frame": 1, "svo.assembly": 2, "svo.prep": 3, "svo.k1": 3,
         "svo.decode": 3, "svo.shade": 3},
     2: {"svo.frame": 1, "svo.assembly": 2, "svo.prep": 2, "svo.k1": 2,
         "svo.decode": 2, "svo.shade": 2},
